@@ -1,0 +1,138 @@
+"""The benchmark suite loop: gearshifft's measurement core (paper §2.2,
+Fig. 1), layered over the generic Runner.
+
+Per selected tree node: context create (timed once per suite) -> the Runner
+drives the paper's Table-1 sequence (allocate -> init_forward -> upload ->
+execute_forward -> init_inverse -> execute_inverse -> download -> destroy)
+for warmups + repetitions, each operation individually timed.  After the
+last run the round trip is compared against the input (err = sample
+standard deviation of (input - roundtrip); err > eps marks the node
+failed).  A failed node never aborts the suite: it is recorded and the
+suite continues.
+"""
+
+from __future__ import annotations
+
+import traceback
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .client import Problem, TorchContext
+from .plan import PlanCache, PlanRigor
+from .results import ResultSink, Row
+from .schedule import FFT_SCHEDULE, Runner
+from .timer import Timer
+from .tree import BenchNode
+
+DEFAULT_ERROR_BOUND = 1e-5
+DEFAULT_WARMUPS = 2
+DEFAULT_REPS = 10
+
+
+class NoRunsError(RuntimeError):
+    """Raised when a node produced no output to validate."""
+
+
+@dataclass
+class BenchmarkConfig:
+    warmups: int = DEFAULT_WARMUPS
+    repetitions: int = DEFAULT_REPS
+    error_bound: float = DEFAULT_ERROR_BOUND
+    rigor: PlanRigor = PlanRigor.ESTIMATE
+    seed: int = 2017  # year of the paper
+
+
+def make_input(problem: Problem, seed: int) -> np.ndarray:
+    """The paper fills buffers with a see-saw function on [0, 1)."""
+    n = problem.n_elems
+    saw = (np.arange(n, dtype=np.float64) % 512) / 512.0
+    x = saw.reshape(problem.batch, *problem.extents).astype(problem.real_dtype)
+    if problem.complex_input:
+        x = x.astype(problem.input_dtype)
+    return x
+
+
+def roundtrip_error(x: np.ndarray, y: np.ndarray) -> float:
+    """epsilon = sample standard deviation of (input - roundtrip) (paper §2.2)."""
+    d = (x.astype(np.complex128) - y.astype(np.complex128)).ravel()
+    n = d.size
+    if n < 2:
+        return float(np.abs(d).max(initial=0.0))
+    mean = d.mean()
+    return float(np.sqrt(np.sum(np.abs(d - mean) ** 2) / (n - 1)))
+
+
+def run_node(node: BenchNode, *, context: TorchContext,
+             config: BenchmarkConfig, writer: ResultSink,
+             plan_cache: Optional[PlanCache] = None,
+             verbose: bool = False) -> None:
+    """Drive one tree node through its schedule; record rows, never raise
+    (a failed config is a recorded failure)."""
+    p = node.problem
+    cfg = config
+    base = dict(library=node.client_cls.title,
+                device=getattr(context, "device_kind", "?"),
+                extents="x".join(map(str, p.extents)), rank=p.rank,
+                extent_class=node.extent_class, precision=p.precision,
+                kind=p.kind, rigor=cfg.rigor.value)
+    schedule = FFT_SCHEDULE
+    host_in = make_input(p, cfg.seed)
+    runner = Runner(schedule, cfg.warmups, cfg.repetitions)
+
+    def emit(rec):
+        # a warmup record carries only its cold-build ops
+        ops = (tuple(op for op, ev in rec.cache.items() if ev == "miss")
+               if rec.warmup else schedule.op_names)
+        for op in ops:
+            writer.add(Row(**base, run=rec.run, op=op,
+                           time_ms=rec.times[op],
+                           bytes=rec.nbytes.get(op, 0),
+                           plan_cache=rec.cache.get(op, "")))
+
+    def make_client():
+        return node.client_cls(p, context, rigor=cfg.rigor,
+                               plan_cache=plan_cache)
+
+    try:
+        _, last_out = runner.run(make_client, host_in, on_record=emit)
+        if cfg.repetitions <= 0 or last_out is None:
+            raise NoRunsError(
+                "no runs executed (repetitions=0 or download never ran)")
+        err = roundtrip_error(host_in, last_out.reshape(host_in.shape))
+        ok = err <= cfg.error_bound
+        writer.add(Row(**base, run=cfg.repetitions, op="validate",
+                       time_ms=0.0, bytes=0, success=bool(ok),
+                       error="" if ok else f"roundtrip_err={err:.3e}"))
+        if verbose:
+            print(f"[{'ok' if ok else 'FAIL'}] {node.path} err={err:.2e}")
+    except NoRunsError as e:
+        writer.add(Row(**base, run=0, op="validate", time_ms=0.0,
+                       bytes=0, success=False, error=str(e)))
+        if verbose:
+            print(f"[SKIP] {node.path}: {e}")
+    except Exception as e:  # failed config: record, continue with next node
+        writer.add(Row(**base, run=0, op="validate", time_ms=0.0,
+                       bytes=0, success=False,
+                       error=f"{type(e).__name__}: {e}"))
+        if verbose:
+            print(f"[FAIL] {node.path}: {e}")
+            traceback.print_exc()
+
+
+def run_nodes(nodes: Sequence[BenchNode], *, context: TorchContext,
+              config: BenchmarkConfig, writer: ResultSink,
+              plan_cache: Optional[PlanCache] = None,
+              verbose: bool = False) -> ResultSink:
+    """The suite loop: timed context create, every node, context destroy."""
+    with Timer() as t_ctx:
+        context.create()
+    writer.add(Row("context", getattr(context, "device_kind", "?"),
+                   "-", 0, "-", "-", "-", "-", 0, "create_context",
+                   t_ctx.time_ms))
+    for node in nodes:
+        run_node(node, context=context, config=config, writer=writer,
+                 plan_cache=plan_cache, verbose=verbose)
+    context.destroy()
+    return writer

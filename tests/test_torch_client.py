@@ -1,0 +1,300 @@
+"""The port's harness and FFT clients against the reference package.
+
+* a CPU ``Session.run`` over ``TorchFFT`` and ``TorchStockhamPallas``
+  validates every node (ranks 1-3, 4 kinds, 2 precisions);
+* the result schema is the reference's, column for column;
+* the clients' forward output matches the reference's ``_forward_fn`` on
+  the same input (the reference's ``stockham_pallas`` in Pallas interpret
+  mode), within rel-L2 1e-5 in float and 1e-12 in double: the same
+  algorithm and twiddles, only the summation order differs;
+* byte accounting, plan keys, the device rule and the import rule.
+"""
+
+import csv
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from helpers.accuracy import rand_input, rel_l2
+from repro.core import candidates as ref_candidates
+from repro.core import extents as ref_extents
+from repro.core.client import Context as RefContext
+from repro.core.client import Problem as RefProblem
+from repro.core.clients import jax_fft
+from repro.core.results import columns_for as ref_columns_for
+from repro_torch.core import extents
+from repro_torch.core.benchmark import BenchmarkConfig, run_node
+from repro_torch.core.candidates import Candidate, axis_engine_n, axis_feasible
+from repro_torch.core.client import KINDS, Problem, TorchContext
+from repro_torch.core.clients.torch_fft import (TorchFFT, TorchStockhamPallas,
+                                                _forward_fn)
+from repro_torch.core.plan import PlanRigor
+from repro_torch.core.results import open_sink
+from repro_torch.core.suite import Session, SuiteSpec
+from repro_torch.core.timer import Timer, timed
+from repro_torch.core.tree import BenchNode, build_tree, select
+from repro_torch.kernels.stockham_pallas import ops
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "src")
+TOL = {"float": 1e-5, "double": 1e-12}
+CLIENTS = {"TorchFFT": ("xla", TorchFFT),
+           "TorchStockhamPallas": ("stockham_pallas", TorchStockhamPallas)}
+
+
+@pytest.fixture
+def cpu():
+    return TorchContext("cpu")
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("client", list(CLIENTS))
+def test_session_validates_every_node(client, precision, cpu):
+    spec = SuiteSpec(clients=(client,), extents=((16,), (8, 12), (4, 4, 8)),
+                     kinds=KINDS, precisions=(precision,), warmups=1,
+                     repetitions=2, output=None)
+    launches = ops.LAUNCHES
+    rs = Session(cpu).run(spec)
+    val = rs.query(op="validate")
+    assert len(val) == 3 * len(KINDS)
+    assert all(r.success for r in val), [r.error for r in rs.failures()]
+    assert not rs.failures()
+    assert {r.device for r in rs.rows} == {"cpu"}
+    assert ops.LAUNCHES == launches       # CPU tensors never launch
+    agg = rs.aggregate("execute_forward")
+    assert len(agg) == 3 * len(KINDS) and all(a[-1] == 2 for a in agg)
+
+
+def test_result_schema_is_the_reference_schema(tmp_path, cpu):
+    out = tmp_path / "r.csv"
+    spec = SuiteSpec(clients=("TorchStockhamPallas",), extents=((8,),),
+                     kinds=("Outplace_Complex",), warmups=0, repetitions=1,
+                     output=str(out))
+    rs = Session(cpu).run(spec)
+    with open(out, newline="") as f:
+        header = next(csv.reader(f))
+    assert header == ref_columns_for(True) == rs.columns
+    spec = SuiteSpec(clients=("TorchFFT",), extents=((8,),),
+                     kinds=("Outplace_Real",), warmups=0, repetitions=1,
+                     plan_cache=False, output=str(tmp_path / "r.jsonl"))
+    rs = Session(cpu).run(spec)
+    with open(tmp_path / "r.jsonl") as f:
+        first = json.loads(f.readline())
+    assert list(first) == ref_columns_for(False) == rs.columns
+
+
+def _forward_via_client(cls, problem, x, context):
+    client = cls(problem, context)
+    client.allocate()
+    client.init_forward()
+    client.upload(x)
+    client.execute_forward()
+    spec = client._spec.numpy().copy()
+    client.init_inverse()
+    client.execute_inverse()
+    back = client.download()
+    client.destroy()
+    return spec, back, client
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("client", list(CLIENTS))
+def test_forward_matches_reference_forward_fn(client, kind, precision, cpu):
+    backend, cls = CLIENTS[client]
+    problem = Problem((8, 12), kind, precision, batch=2)
+    x = rand_input(problem, seed=5)
+    want = np.asarray(jax_fft._forward_fn(
+        RefProblem((8, 12), kind, precision, 2),
+        ref_candidates.Candidate(backend))(x))
+    got, back, c = _forward_via_client(cls, problem, x, cpu)
+    assert got.shape == want.shape
+    assert rel_l2(got, want) <= TOL[precision]
+    assert rel_l2(back, x) <= TOL[precision]
+    # the plan holds the twiddles of each engine length and, for real
+    # kinds, the pack table of the last axis (6 roots of 12), both directions
+    if backend == "xla":
+        assert c.get_plan_size() == 0
+    else:
+        dtype = torch.complex64 if precision == "float" else torch.complex128
+        lengths = {8, 12} if problem.complex_input else {8, 6}
+        per_direction = sum(ops.make_twiddles(n, 8, False, dtype, "cpu").nbytes
+                            for n in lengths)
+        if not problem.complex_input:
+            per_direction += 6 * dtype.itemsize
+        assert c.get_plan_size() == 2 * per_direction > 0
+
+
+@pytest.mark.parametrize("extents", [(8, 12), (15,)])
+@pytest.mark.parametrize("kind", ["Outplace_Real", "Inplace_Real"])
+def test_real_execute_builds_no_table(kind, extents, cpu, monkeypatch):
+    """The R2C pack tables are plan state: built in ``init_*``, never in
+    ``execute_*``."""
+    from repro_torch.fft import rfft as port_rfft
+
+    problem = Problem(extents, kind, "double", batch=2)
+    x = rand_input(problem, seed=3)
+    client = TorchStockhamPallas(problem, cpu)
+    client.allocate()
+    client.init_forward()
+    client.init_inverse()
+    client.upload(x)
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a table was built inside execute")
+
+    monkeypatch.setattr(port_rfft, "half_roots", no_build)
+    monkeypatch.setattr(ops, "make_twiddles", no_build)
+    client.execute_forward()
+    client.execute_inverse()
+    assert rel_l2(client.download(), x) <= TOL["double"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_alloc_size_matches_reference(kind):
+    ctx = RefContext()
+    for precision in ("float", "double"):
+        for ext in ((16,), (8, 12), (4, 4, 7), (15,)):
+            port = TorchFFT(Problem(ext, kind, precision, 3), TorchContext("cpu"))
+            ref = jax_fft.XlaFFTClient(RefProblem(ext, kind, precision, 3), ctx)
+            assert port.get_alloc_size() == ref.get_alloc_size()
+            assert port.get_transfer_size() == ref.get_transfer_size()
+
+
+def test_candidate_from_key_round_trips_reference_keys():
+    keys = set()
+    for ext, kind in (((4096,), "Outplace_Complex"), ((64, 48), "Outplace_Real"),
+                      ((945,), "Inplace_Real")):
+        for c in ref_candidates.candidates(RefProblem(ext, kind), patient=True):
+            if not c.axes and not c.mesh:
+                keys.add((c.key(), c))
+    assert "stockham_pallas(radix=4,tile_b=16)" in {k for k, _ in keys}
+    for key, ref in keys:
+        cand = Candidate.from_key(key)
+        assert cand.key() == key
+        assert cand.backend == ref.backend and cand.opts() == ref.opts()
+    for bad in ("nd[xla;stockham_pallas]", "slab[4]", "x(radix)"):
+        with pytest.raises(ValueError):
+            Candidate.from_key(bad)
+
+
+def test_reference_plan_runs_the_same_schedule():
+    """A plan the reference selected (radix and tile knobs) runs here and
+    matches the reference's forward under that plan."""
+    key = "stockham_pallas(radix=4,tile_b=16)"
+    problem = Problem((4, 24), "Outplace_Complex", "double", 2)
+    x = rand_input(problem, seed=9)
+    want = np.asarray(jax_fft._forward_fn(
+        RefProblem((4, 24), "Outplace_Complex", "double", 2),
+        ref_candidates.Candidate("stockham_pallas",
+                                 (("radix", 4), ("tile_b", 16))))(x))
+    t = _forward_fn(problem, Candidate.from_key(key), "cpu")
+    assert rel_l2(t(torch.from_numpy(x)), want) <= TOL["double"]
+
+
+def test_hopper_cap_in_feasibility_and_as_a_failed_node(cpu):
+    assert axis_feasible("stockham_pallas", 4096, "float")
+    assert axis_feasible("stockham_pallas", 14406, "float")
+    assert not axis_feasible("stockham_pallas", 16384, "float")
+    assert axis_feasible("stockham_pallas", 7203, "double")
+    assert not axis_feasible("stockham_pallas", 8192, "double")
+    assert not axis_feasible("stockham_pallas", 97, "float")
+    assert axis_feasible("xla", 16384) and axis_feasible("xla", 97)
+    assert not axis_feasible("fft2_pallas", 64)
+    # real kinds: the packed inner axis runs at n/2, an odd one at n
+    real = Problem((16, 28812), "Outplace_Real", "float")
+    assert [axis_engine_n(real, i) for i in (0, 1)] == [16, 14406]
+    assert axis_engine_n(Problem((945,), "Inplace_Real"), 0) == 945
+    big = Problem((16384,), "Outplace_Complex", "float")
+    spec = SuiteSpec(output=None, warmups=0, repetitions=1)
+    rs = Session(cpu).run(spec, nodes=[BenchNode(TorchStockhamPallas, big)])
+    (row,) = rs.failures()
+    assert row.op == "validate" and "caps at n=14406" in row.error
+
+
+def test_non_estimate_rigor_is_a_failed_node(cpu):
+    cpu.create()
+    rows = []
+
+    class Sink:
+        def add(self, row):
+            rows.append(row)
+
+    node = BenchNode(TorchFFT, Problem((16,), "Outplace_Complex"))
+    run_node(node, context=cpu, writer=Sink(),
+             config=BenchmarkConfig(warmups=0, repetitions=1,
+                                    rigor=PlanRigor.MEASURE))
+    assert rows[-1].op == "validate" and not rows[-1].success
+    assert "planner: later slice" in rows[-1].error
+
+
+def test_plan_cache_reuses_builds(cpu):
+    session = Session(cpu)
+    spec = SuiteSpec(clients=("TorchStockhamPallas",), extents=((12,),),
+                     kinds=("Outplace_Complex", "Outplace_Real"), warmups=1,
+                     repetitions=2, output=None)
+    first = session.run(spec)
+    assert session.plan_cache.stats.misses == 4     # 2 problems x 2 directions
+    misses = [r for r in first.rows if r.plan_cache == "miss"]
+    assert misses and all(r.run == -1 for r in misses)
+    second = session.run(spec)
+    assert session.plan_cache.stats.misses == 4
+    inits = [r for r in second.rows if r.op.startswith("init_")]
+    assert inits and all(r.plan_cache == "hit" for r in inits)
+
+
+def test_default_device_is_the_card():
+    ctx = TorchContext()
+    assert ctx.device == torch.device("cuda", 0)
+    assert Session().context.device == torch.device("cuda", 0)
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    with pytest.raises(RuntimeError, match="cuda:0"):
+        ctx.create()
+    with pytest.raises(RuntimeError, match="cuda:0"):
+        Session().run(SuiteSpec(extents=((8,),), output=None))
+
+
+def test_harness_copies_agree_with_reference():
+    for spec in ("128x128x128", "1024", "3x5"):
+        assert extents.parse_extents(spec) == ref_extents.parse_extents(spec)
+    for ext in ((8, 16), (12, 7 * 5), (19,), (945,)):
+        assert extents.classify(ext) == ref_extents.classify(ext)
+    for v in (1, 11, 97, 1000, 2049):
+        assert extents.next_smooth(v) == ref_extents.next_smooth(v)
+    nodes = build_tree([TorchFFT, TorchStockhamPallas], [(8,), (4, 4)],
+                       kinds=("Inplace_Real",), precisions=("float",))
+    assert [n.path for n in select(nodes, "TorchStockhamPallas/*/4x4")] == \
+        ["TorchStockhamPallas/float/4x4/Inplace_Real"]
+    with pytest.raises(ValueError):
+        open_sink("x.parquet", fmt="parquet")
+
+
+def test_timer_waits_for_the_result():
+    out, ms = timed(lambda: torch.ones(4) * 2)
+    assert torch.equal(out, torch.full((4,), 2.0)) and ms >= 0.0
+    with Timer() as t:
+        pass
+    assert t.time_ms >= 0.0
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax')\n"
+        "       or k == 'repro' or k.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
