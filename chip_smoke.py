@@ -4,20 +4,24 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every CUDA kernel from ``src/repro_torch/csrc`` (``nvcc``, into
-   ``build/kernels/``);
+2. builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together, into ``build/kernels/``);
 3. holds each kernel against its plain PyTorch version on the card, and
-   against ``torch.fft``, over lengths, radices, dtypes, directions and a
-   ragged batch;
-4. drives the port's main path at full size: ``Session.run`` over the
-   ``TorchFFT`` and ``TorchStockhamPallas`` clients on five problems (the
-   paper's 256^3 single-precision R2C among them), every node round-trip
-   validated, and shows through the launch counts that the kernel ran;
-5. holds the kernel against its plain version at every shape the main
-   path launched it with (its own radix and tile, both directions), then
-   times it there beside its plain version, ``torch.fft.fft`` and its
-   device-memory bound;
-6. prints the kernel summary and, as the last line,
+   against ``torch.fft``, over lengths (shapes), radices, dtypes,
+   directions, tile 1 and a ragged last tile;
+4. drives the port's main path at full size: ``Session.run`` of each
+   client on its problems (``TorchFFT``, ``TorchStockhamPallas`` and
+   ``TorchFourStepPallas`` on P1-P7, ``TorchFft2Pallas`` on P6-P7), every
+   node round-trip validated; each client's path runs with every launch
+   count set to 0 just before it and read just after, which shows that the
+   path went through its kernel and through no other;
+5. shows that ``TorchFft2Pallas`` on a problem its kernel cannot take (P1,
+   rank 3) is a failed node that launched nothing;
+6. holds each kernel against its plain version at every shape the main
+   path launched it with (the main path's own knobs, both directions),
+   then times it there beside its plain version, ``torch.fft`` and its
+   bound;
+7. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -33,17 +37,31 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-#: H100 SXM data sheet: HBM3 rate, and the vector (non tensor core) peaks.
+#: H100 SXM data sheet: HBM3 rate, and the highest full-precision peak of
+#: each type (fp32 outside the tensor cores; fp64 on the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
+PEAK_FLOPS = {"complex64": 67e12, "complex128": 67e12}
 
 CHECK_NS = (2, 3, 8, 12, 100, 945, 1024, 3072, 4096)
 CHECK_RADICES = (2, 4, 8)
 CHECK_BATCHES = (1, 37)
+#: fused rank-2 kernel: 2x2 up to each dtype's cap (8192 / 4096 points)
+FFT2_SHAPES = {
+    "complex64": ((2, 2), (1, 8), (8, 1), (4, 16), (16, 4), (32, 32),
+                  (8, 256), (64, 128), (128, 64), (2, 4096)),
+    "complex128": ((2, 2), (1, 8), (8, 1), (4, 16), (16, 4), (32, 32),
+                   (8, 256), (64, 64), (32, 128), (4096, 1)),
+}
+#: four-step kernel: square, ragged-split and radix357 lengths (and the cap)
+FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096)
+#: rows of the fixed-case checks: tile 1, and tile 8 (a ragged last tile
+#: of 5) where 8 signals fit one block
+CHECK_ROWS = 37
 #: kernel vs its plain version: same algorithm and twiddles, only the
 #: summation order differs.
 PLAIN_TOL = {"complex64": 1e-5, "complex128": 1e-12}
@@ -57,8 +75,26 @@ PROBLEMS = (
     ("P3", (4096,), "Outplace_Complex", "float", 16384),
     ("P4", (3072, 3072), "Outplace_Real", "float", 1),
     ("P5", (945,), "Inplace_Real", "float", 65536),
+    ("P6", (128, 128), "Outplace_Real", "float", 8192),
+    ("P7", (64, 64), "Inplace_Complex", "double", 8192),
 )
-CLIENTS = ("TorchFFT", "TorchStockhamPallas")
+ALL = tuple(p[0] for p in PROBLEMS)
+#: Each client's main path: (client, its problems, the kernel it runs).
+PATHS = (
+    ("TorchFFT", ALL, None),
+    ("TorchStockhamPallas", ALL, "stockham_pallas"),
+    ("TorchFourStepPallas", ALL, "fft4step"),
+    ("TorchFft2Pallas", ("P6", "P7"), "fft2_pallas"),
+)
+#: The ported kernels: (name, CUDA source, the TPU kernel it replaces).
+KERNELS = (
+    ("stockham_pallas", "src/repro_torch/csrc/stockham.cu",
+     "src/repro/kernels/stockham_pallas/stockham_pallas.py:177"),
+    ("fft2_pallas", "src/repro_torch/csrc/fft2.cu",
+     "src/repro/kernels/fft2_pallas/fft2_pallas.py:63"),
+    ("fft4step", "src/repro_torch/csrc/fft4step.cu",
+     "src/repro/kernels/fft4step/fft4step.py:70"),
+)
 
 
 def emit(obj) -> None:
@@ -78,84 +114,176 @@ def card_info() -> dict:
     return {"card": name, "power_limit": limit}
 
 
+def kernel_ops(name: str):
+    """The wrapper module (``ops``) and plain versions (``ref``) of a
+    kernel."""
+    import importlib
+    base = f"repro_torch.kernels.{name}"
+    return (importlib.import_module(f"{base}.ops"),
+            importlib.import_module(f"{base}.ref"))
+
+
 def build() -> float:
     from repro_torch.kernels import _build
+    names = _build.sources()
     t0 = time.perf_counter()
-    for name in _build.sources():
-        _build.library(name)
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.library, names))
     seconds = time.perf_counter() - t0
-    for name in _build.sources():
+    for name in names:
         print(_build.build_log(name), file=sys.stderr)
     return seconds
 
 
-def check_kernels(device) -> dict:
-    """Kernel vs plain (on the card) and vs torch.fft; raises on a miss."""
-    import torch
-    from repro_torch.kernels.stockham_pallas import ops, ref
+class Worst:
+    """The worst errors over a kernel's checks."""
 
+    def __init__(self, kernel: str, dtype: str):
+        self.row = {"check": "kernel_vs_plain", "kernel": kernel,
+                    "dtype": dtype, "cases": 0, "rel_l2_plain": 0.0,
+                    "rel_l2_library": 0.0, "max_abs_err": 0.0}
+
+    def add(self, y, plain, lib, what: str) -> None:
+        name = self.row["dtype"]
+        e_plain, e_lib = rel_l2(y, plain), rel_l2(y, lib)
+        if not (e_plain <= PLAIN_TOL[name] and e_lib <= LIBRARY_TOL[name]):
+            raise AssertionError(
+                f"{self.row['kernel']} kernel disagrees: {what} {name}: "
+                f"rel_l2 vs plain {e_plain:.3e}, vs torch.fft {e_lib:.3e}")
+        self.row["cases"] += 1
+        self.row["rel_l2_plain"] = max(self.row["rel_l2_plain"], e_plain)
+        self.row["rel_l2_library"] = max(self.row["rel_l2_library"], e_lib)
+        self.row["max_abs_err"] = max(self.row["max_abs_err"],
+                                      float((y - plain).abs().max()))
+
+
+def check_stockham(device, gen, dtype) -> Worst:
+    import torch
+    ops, ref = kernel_ops("stockham_pallas")
+    name = str(dtype).removeprefix("torch.")
+    w = Worst("stockham_pallas", name)
+    w.row["max_n"] = ops.MAX_N[dtype]
+    for n in CHECK_NS + (ops.MAX_N[dtype],):
+        for radix in CHECK_RADICES:
+            for batch in CHECK_BATCHES:
+                x = torch.randn((batch, n), dtype=dtype, device=device,
+                                generator=gen)
+                fits = ops.smem_bytes(n, 8, x.element_size(), 2) \
+                    <= ops.SMEM_LIMIT_BYTES
+                tile = 8 if fits else 1   # 37 rows: a ragged last tile
+                for inverse in (False, True):
+                    y = ops.fft(x, inverse, radix=radix, tile_b=tile)
+                    torch.cuda.synchronize(device)
+                    w.add(y, ref.stockham_ref(x, radix, inverse),
+                          (torch.fft.ifft if inverse else torch.fft.fft)(x),
+                          f"n={n} radix={radix} batch={batch} "
+                          f"inverse={inverse}")
+    return w
+
+
+def check_fft2(device, gen, dtype) -> Worst:
+    import torch
+    ops, ref = kernel_ops("fft2_pallas")
+    name = str(dtype).removeprefix("torch.")
+    w = Worst("fft2_pallas", name)
+    w.row["max_elems"] = ops.MAX_ELEMS[dtype]
+    for n1, n2 in FFT2_SHAPES[name]:
+        x = torch.randn((CHECK_ROWS, n1, n2), dtype=dtype, device=device,
+                        generator=gen)
+        fits = ops.smem_bytes(n1 * n2, 8, x.element_size(), 2) \
+            <= ops.SMEM_LIMIT_BYTES
+        for radix in CHECK_RADICES:
+            for tile in ((1, 8) if fits else (1,)):
+                for inverse in (False, True):
+                    y = ops.fft2(x, inverse, radix=radix, tile_b=tile)
+                    torch.cuda.synchronize(device)
+                    w.add(y, ref.fft2_ref(x, radix, inverse),
+                          (torch.fft.ifft2 if inverse else torch.fft.fft2)(x),
+                          f"{n1}x{n2} radix={radix} tile_b={tile} "
+                          f"inverse={inverse}")
+    return w
+
+
+def check_fourstep(device, gen, dtype) -> Worst:
+    import torch
+    ops, ref = kernel_ops("fft4step")
+    name = str(dtype).removeprefix("torch.")
+    w = Worst("fft4step", name)
+    w.row["max_n"] = ops.MAX_N[dtype]
+    for n in FOURSTEP_NS + (ops.MAX_N[dtype],):
+        x = torch.randn((CHECK_ROWS, n), dtype=dtype, device=device,
+                        generator=gen)
+        n1, n2 = ops.choose_factors(n)
+        fits = ops.smem_bytes(n1, n2, 8, x.element_size()) \
+            <= ops.SMEM_LIMIT_BYTES
+        for tile in ((1, 8) if fits else (1,)):
+            for inverse in (False, True):
+                y = ops.fft(x, inverse, tile_b=tile)
+                torch.cuda.synchronize(device)
+                w.add(y, ref.fft4step_ref(x, inverse),
+                      (torch.fft.ifft if inverse else torch.fft.fft)(x),
+                      f"n={n} ({n1}x{n2}) tile_b={tile} inverse={inverse}")
+    return w
+
+
+def check_kernels(device) -> dict:
+    """Every kernel vs its plain version (on the card) and vs torch.fft;
+    raises on a miss.  Returns the worst errors per kernel and dtype."""
+    import torch
     gen = torch.Generator(device=device).manual_seed(2017)
     worst = {}
-    for dtype in (torch.complex64, torch.complex128):
-        name = str(dtype).removeprefix("torch.")
-        w = {"dtype": name, "cases": 0, "rel_l2_plain": 0.0,
-             "rel_l2_library": 0.0, "max_abs_err": 0.0,
-             "max_n": ops.MAX_N[dtype]}
-        for n in CHECK_NS + (ops.MAX_N[dtype],):
-            for radix in CHECK_RADICES:
-                for batch in CHECK_BATCHES:
-                    x = torch.randn((batch, n), dtype=dtype, device=device,
-                                    generator=gen)
-                    fits = ops.smem_bytes(n, 8, x.element_size(), 2) \
-                        <= ops.SMEM_LIMIT_BYTES
-                    tile = 8 if fits else 1   # 37 rows: a ragged last tile
-                    for inverse in (False, True):
-                        y = ops.fft(x, inverse, radix=radix, tile_b=tile)
-                        torch.cuda.synchronize(device)
-                        plain = ref.stockham_ref(x, radix, inverse)
-                        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
-                        e_plain, e_lib = rel_l2(y, plain), rel_l2(y, lib)
-                        if not (e_plain <= PLAIN_TOL[name]
-                                and e_lib <= LIBRARY_TOL[name]):
-                            raise AssertionError(
-                                f"stockham kernel disagrees: n={n} radix={radix} "
-                                f"batch={batch} {name} inverse={inverse}: "
-                                f"rel_l2 vs plain {e_plain:.3e}, "
-                                f"vs torch.fft {e_lib:.3e}")
-                        w["cases"] += 1
-                        w["rel_l2_plain"] = max(w["rel_l2_plain"], e_plain)
-                        w["rel_l2_library"] = max(w["rel_l2_library"], e_lib)
-                        w["max_abs_err"] = max(w["max_abs_err"], float(
-                            (y - plain).abs().max()))
-        emit({"check": "kernel_vs_plain", **w})
-        worst[name] = w
+    for kernel, check in (("stockham_pallas", check_stockham),
+                          ("fft2_pallas", check_fft2),
+                          ("fft4step", check_fourstep)):
+        for dtype in (torch.complex64, torch.complex128):
+            w = check(device, gen, dtype)
+            emit(w.row)
+            worst[(kernel, w.row["dtype"])] = w.row
     return worst
 
 
+def _reset_counts() -> None:
+    for kernel, _, _ in KERNELS:
+        ops, _ = kernel_ops(kernel)
+        ops.LAUNCHES = 0
+        ops.LAUNCH_SHAPES.clear()
+
+
+def _read_counts() -> dict:
+    counts = {}
+    for kernel, _, _ in KERNELS:
+        ops, _ = kernel_ops(kernel)
+        counts[kernel] = (ops.LAUNCHES, dict(ops.LAUNCH_SHAPES))
+    return counts
+
+
 def run_main_path(device) -> dict:
-    """Session.run over both clients on P1-P5; returns per-node summaries
-    and the launch counts of the kernel during the run."""
+    """Session.run of each client on its problems; each path runs with the
+    launch counts set to 0 just before it and read just after.  Returns the
+    per-node summaries, and per kernel the launches and launch shapes of
+    its own client's path."""
     from repro_torch.core.client import TorchContext
     from repro_torch.core.clients import torch_fft
     from repro_torch.core.suite import Session, SuiteSpec
     from repro_torch.core.tree import build_tree
-    from repro_torch.kernels.stockham_pallas import ops
 
     session = Session(TorchContext(device))
-    summary = {"nodes": [], "launches": {}}
-    ops.LAUNCHES = 0
-    ops.LAUNCH_SHAPES.clear()
-    for client in CLIENTS:
-        before = ops.LAUNCHES
-        for pname, extents, kind, precision, batch in PROBLEMS:
+    problems = {p[0]: p[1:] for p in PROBLEMS}
+    summary = {"nodes": [], "launches": {}, "shapes": {}}
+    for client, names, kernel in PATHS:
+        cls = getattr(torch_fft, client)
+        _reset_counts()
+        node_launches = []
+        for pname in names:
+            extents, kind, precision, batch = problems[pname]
             spec = SuiteSpec(clients=(client,), extents=(extents,),
                              kinds=(kind,), precisions=(precision,),
                              batch=batch, warmups=1, repetitions=3,
                              plan_cache=True, output=None)
-            nodes = build_tree([getattr(torch_fft, client)], [extents],
-                               kinds=(kind,), precisions=(precision,),
-                               batch=batch)
-            n0 = ops.LAUNCHES
+            nodes = build_tree([cls], [extents], kinds=(kind,),
+                               precisions=(precision,), batch=batch)
+            n0 = sum(c for c, _ in _read_counts().values())
+            t0 = time.perf_counter()
             rs = session.run(spec, nodes=nodes)
             if rs.failures():
                 raise AssertionError(f"{client} {pname} failed: "
@@ -168,25 +296,58 @@ def run_main_path(device) -> dict:
             cold = [r.time_ms for r in rs.query(op="init_forward")
                     if r.plan_cache == "miss"]
             transforms = 2 * (spec.warmups + spec.repetitions)
+            launched = sum(c for c, _ in _read_counts().values()) - n0
             node = {"node": pname, "client": client,
                     "path": nodes[0].path, "device": val[0].device,
                     "execute_forward_ms": med("execute_forward"),
                     "execute_inverse_ms": med("execute_inverse"),
                     "init_forward_ms": med("init_forward"),
                     "init_forward_cold_ms": cold[0] if cold else None,
-                    "kernel_launches_per_transform":
-                        (ops.LAUNCHES - n0) / transforms}
+                    "kernel_launches_per_transform": launched / transforms,
+                    "node_s": time.perf_counter() - t0}
             emit(node)
             summary["nodes"].append(node)
-        summary["launches"][client] = ops.LAUNCHES - before
-    summary["shapes"] = dict(ops.LAUNCH_SHAPES)
-    summary["total"] = ops.LAUNCHES
-    emit({"main_path_launches": summary["launches"]})
-    if summary["launches"]["TorchFFT"] != 0:
-        raise AssertionError("the torch.fft client launched the Stockham kernel")
-    if summary["launches"]["TorchStockhamPallas"] <= 0:
-        raise AssertionError("TorchStockhamPallas never launched the kernel")
+            node_launches.append(launched)
+        counts = _read_counts()
+        emit({"main_path": client, "launches": {k: c for k, (c, _) in
+                                                counts.items()}})
+        others = {k: c for k, (c, _) in counts.items() if k != kernel and c}
+        if others:
+            raise AssertionError(f"{client} launched other kernels: {others}")
+        if kernel is not None:
+            launches, shapes = counts[kernel]
+            if launches <= 0 or not all(node_launches):
+                raise AssertionError(f"{client} did not launch {kernel} on "
+                                     f"every node: {node_launches}")
+            summary["launches"][kernel] = launches
+            summary["shapes"][kernel] = shapes
     return summary
+
+
+def check_failed_node(device) -> None:
+    """TorchFft2Pallas on P1 (rank 3) is a failed node that launched no
+    kernel and ran no transform."""
+    from repro_torch.core.client import Problem, TorchContext
+    from repro_torch.core.clients.torch_fft import TorchFft2Pallas
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.core.tree import BenchNode
+
+    _, extents, kind, precision, batch = PROBLEMS[0]
+    _reset_counts()
+    rs = Session(TorchContext(device)).run(
+        SuiteSpec(output=None, warmups=1, repetitions=3),
+        nodes=[BenchNode(TorchFft2Pallas,
+                         Problem(extents, kind, precision, batch))])
+    launched = {k: c for k, (c, _) in _read_counts().items() if c}
+    fails = rs.failures()
+    if (len(fails) != 1 or fails[0].op != "validate"
+            or "rank-2 only" not in fails[0].error
+            or rs.query(op="execute_forward") or launched):
+        raise AssertionError(f"TorchFft2Pallas on P1 is not a clean failed "
+                             f"node: {[(r.op, r.error) for r in fails]}, "
+                             f"launches {launched}")
+    emit({"check": "failed_node", "client": "TorchFft2Pallas", "node": "P1",
+          "error": fails[0].error})
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -206,64 +367,144 @@ def _events_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def check_main_path_shapes(device, shapes: dict) -> dict:
-    """At every (n, rows, dtype) the main path launched, the kernel with the
-    main path's own knobs (radix 8, default tile) against the plain oracle
-    in both directions; raises above ``PLAIN_TOL``.  Returns the worst
-    rel-L2 and absolute error per shape."""
-    import torch
-    from repro_torch.kernels.stockham_pallas import ops, ref
+class Shape:
+    """One (kernel, launch shape) of the main path: its input, the kernel
+    call with the main path's knobs, the plain versions, the torch.fft
+    call of the same function, and the work it does."""
 
-    gen = torch.Generator(device=device).manual_seed(5)
-    errors = {}
-    for n, rows, dname in sorted(shapes):
+    def __init__(self, kernel: str, key: tuple, device, gen):
+        import torch
+        self.kernel, self.key = kernel, key
+        self.ops, self.ref = kernel_ops(kernel)
+        dname = key[-1]
         dtype = getattr(torch, dname)
-        x = torch.randn((rows, n), dtype=dtype, device=device, generator=gen)
+        if kernel == "fft2_pallas":
+            n1, n2, rows, _ = key
+            self.shape = {"n1": n1, "n2": n2, "rows": rows, "dtype": dname}
+            sig = (n1, n2)
+        else:
+            n, rows, _ = key
+            self.shape = {"n": n, "rows": rows, "dtype": dname}
+            sig = (n,)
+        self.x = torch.randn((rows, *sig), dtype=dtype, device=device,
+                             generator=gen)
+        self.n = math.prod(sig)
+        self.rows = rows
+        self.dname = dname
+
+    def kernel_call(self, inverse: bool = False, plan=None):
+        fn = self.ops.fft2 if self.kernel == "fft2_pallas" else self.ops.fft
+        return fn(self.x, inverse, twiddles=plan)
+
+    def oracle(self, inverse: bool):
+        if self.kernel == "stockham_pallas":
+            return self.ref.stockham_ref(self.x, 8, inverse)
+        if self.kernel == "fft2_pallas":
+            return self.ref.fft2_ref(self.x, 8, inverse)
+        return self.ref.fft4step_ref(self.x, inverse)
+
+    def plan(self):
+        """The forward plan, and the plain version of the kernel's own
+        arithmetic on it (what ``plain_ms`` times)."""
+        device, dtype = self.x.device, self.x.dtype
+        if self.kernel == "stockham_pallas":
+            t = self.ops.make_twiddles(self.n, 8, False, dtype, device)
+            return t, lambda: self.ref.apply_stages(self.x, t.tw, t.radices,
+                                                    t.bases, False)
+        if self.kernel == "fft2_pallas":
+            n1, n2 = self.shape["n1"], self.shape["n2"]
+            t = self.ops.make_twiddles2(n1, n2, 8, False, dtype, device)
+            return t, lambda: self.ref.apply2(self.x, t.tw, t.radices1,
+                                              t.radices2, t.bases1, t.bases2,
+                                              False)
+        t = self.ops.make_tables(self.n, False, dtype, device)
+        return t, lambda: self.ref.apply_fourstep(self.x, t.w1, t.w2, t.t)
+
+    def library(self):
+        import torch
+        if self.kernel == "fft2_pallas":
+            return torch.fft.fft2(self.x)
+        return torch.fft.fft(self.x)
+
+    def bound(self) -> tuple[float, str]:
+        """The least time for this function: bytes (one read and one write
+        of the signal) over the HBM rate, or the 5 n log2(n) flops per
+        signal that a length-n DFT needs over the dtype's peak, whichever
+        is larger.  The same for every kernel, whatever its algorithm."""
+        itemsize = 16 if self.dname == "complex128" else 8
+        bytes_ms = 2 * self.rows * self.n * itemsize / HBM_BYTES_PER_S * 1e3
+        flops = 5 * self.n * math.log2(self.n) * self.rows
+        ops_ms = flops / PEAK_FLOPS[self.dname] * 1e3
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms \
+            else (ops_ms, "operations")
+
+    def algorithm_ops_ms(self) -> float | None:
+        """The four-step kernel's own flops, 8(n1 + n2) + 6 per point, over
+        the dtype's peak: what its algorithm costs beyond the bound (None
+        for the Stockham-stage kernels, whose flops are the 5 n log2(n))."""
+        if self.kernel != "fft4step":
+            return None
+        n1, n2 = self.ops.choose_factors(self.n)
+        flops = (8 * (n1 + n2) + 6) * self.n * self.rows
+        return flops / PEAK_FLOPS[self.dname] * 1e3
+
+
+def _shapes(main_path: dict, device, seed: int):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for kernel, shapes in main_path["shapes"].items():
+        for key in sorted(shapes):
+            yield Shape(kernel, key, device, gen), shapes[key]
+
+
+def check_main_path_shapes(device, main_path: dict) -> dict:
+    """At every shape the main path launched each kernel with, the kernel
+    with the main path's own knobs (radix 8, default tile) against its
+    plain oracle in both directions; raises above ``PLAIN_TOL``.  Returns
+    the worst rel-L2 and absolute error per shape."""
+    import torch
+    errors = {}
+    for s, _ in _shapes(main_path, device, 5):
         rel = err = 0.0
         for inverse in (False, True):
-            y = ops.fft(x, inverse)
-            want = ref.stockham_ref(x, 8, inverse)
+            y = s.kernel_call(inverse)
+            want = s.oracle(inverse)
+            torch.cuda.synchronize(device)
             e = rel_l2(y, want)
-            if not e <= PLAIN_TOL[dname]:
+            if not e <= PLAIN_TOL[s.dname]:
                 raise AssertionError(
-                    f"stockham kernel disagrees at a main-path shape: n={n} "
-                    f"rows={rows} {dname} inverse={inverse} tile_b="
-                    f"{ops.default_tile_b(n, rows, x.element_size(), 2)}: "
-                    f"rel_l2 vs plain {e:.3e}")
+                    f"{s.kernel} kernel disagrees at a main-path shape "
+                    f"{s.shape} inverse={inverse}: rel_l2 vs plain {e:.3e}")
             rel = max(rel, e)
             err = max(err, float((y - want).abs().max()))
             del y, want
-        errors[(n, rows, dname)] = {"rel_l2_plain": rel, "max_abs_err": err}
-        emit({"check": "main_path_shape", "n": n, "rows": rows,
-              "dtype": dname, **errors[(n, rows, dname)]})
+        errors[(s.kernel, s.key)] = {"rel_l2_plain": rel, "max_abs_err": err}
+        emit({"check": "main_path_shape", "kernel": s.kernel, **s.shape,
+              **errors[(s.kernel, s.key)]})
+        del s
+        torch.cuda.empty_cache()
     return errors
 
 
-def time_kernels(device, shapes: dict, errors: dict) -> list[dict]:
+def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
     """Kernel, plain and torch.fft times at every main-path shape."""
     import torch
-    from repro_torch.kernels.stockham_pallas import ops, ref
-
-    gen = torch.Generator(device=device).manual_seed(7)
     rows_out = []
-    for (n, rows, dname), launches in sorted(shapes.items()):
-        dtype = getattr(torch, dname)
-        x = torch.randn((rows, n), dtype=dtype, device=device, generator=gen)
-        tw = ops.make_twiddles(n, 8, False, dtype, device)
-        kernel = lambda: ops.fft(x, twiddles=tw)
-        plain = lambda: ref.apply_stages(x, tw.tw, tw.radices, tw.bases, False)
-        nbytes = 2 * rows * n * x.element_size()
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 5 * n * math.log2(n) * rows / PEAK_FLOPS[dname] * 1e3
-        row = {"n": n, "rows": rows, "dtype": dname, "launches": launches,
-               "ms": _events_ms(kernel, 20),
+    for s, launches in _shapes(main_path, device, 7):
+        plan, plain = s.plan()
+        bound_ms, bound_by = s.bound()
+        row = {"kernel": s.kernel, **s.shape, "launches": launches,
+               "ms": _events_ms(lambda: s.kernel_call(plan=plan), 20),
                "plain_ms": _events_ms(plain, 5),
-               "library_ms": _events_ms(lambda: torch.fft.fft(x), 20),
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               **errors[(n, rows, dname)]}
+               "library_ms": _events_ms(s.library, 20),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "algorithm_ops_ms": s.algorithm_ops_ms(),
+               "bytes_moved": 2 * s.rows * s.n * s.x.element_size(),
+               **errors[(s.kernel, s.key)]}
         emit({"timing": row})
         rows_out.append(row)
+        del s, plan, plain
+        torch.cuda.empty_cache()
     return rows_out
 
 
@@ -278,30 +519,38 @@ def main() -> int:
         return 1
     sys.path.insert(0, SRC)
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     emit(card_info())
     emit({"build_s": build()})
-    emit({"kernels": ["stockham_pallas"]})
+    emit({"kernels": [k for k, _, _ in KERNELS]})
     checks = check_kernels(device)
     main_path = run_main_path(device)
-    errors = check_main_path_shapes(device, main_path["shapes"])
-    timings = time_kernels(device, main_path["shapes"], errors)
+    check_failed_node(device)
+    errors = check_main_path_shapes(device, main_path)
+    timings = time_kernels(device, main_path, errors)
 
-    # the headline shape: the one that moved the most bytes on the main path
-    head = max(timings, key=lambda t: t["launches"] * t["rows"] * t["n"]
-               * (16 if t["dtype"] == "complex128" else 8))
-    emit({"kernels": [{
-        "name": "stockham_pallas", "route": "cuda",
-        "source": "src/repro_torch/csrc/stockham.cu",
-        "replaces": "src/repro/kernels/stockham_pallas/stockham_pallas.py:177",
-        "launches": main_path["launches"]["TorchStockhamPallas"],
-        "max_abs_err": max(head["max_abs_err"],
-                           *(c["max_abs_err"] for c in checks.values())),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": {"n": head["n"], "rows": head["rows"], "dtype": head["dtype"]},
-    }]})
+    summary = []
+    for kernel, source, replaces in KERNELS:
+        mine = [t for t in timings if t["kernel"] == kernel]
+        # the headline shape: the one that moved the most bytes on the
+        # main path
+        head = max(mine, key=lambda t: t["launches"] * t["bytes_moved"])
+        shape = {k: head[k] for k in ("n", "n1", "n2", "rows", "dtype")
+                 if k in head}
+        summary.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": main_path["launches"][kernel],
+            "max_abs_err": max(head["max_abs_err"],
+                               *(c["max_abs_err"] for (k, _), c in
+                                 checks.items() if k == kernel)),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": shape,
+        })
+    emit({"total_s": time.perf_counter() - t_start})
+    emit({"kernels": summary})
     emit(card_info())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

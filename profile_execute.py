@@ -4,8 +4,8 @@ one GPU, for the port's clients (``src/repro_torch``).
 
     python3 profile_execute.py [--src DIR] [--problems P1,P4] [--reps 20]
 
-For each problem (the shapes of ``chip_smoke.py``) and client it builds the
-plan once, runs one warm forward/inverse pair, then prints one JSON line
+For each problem (the shapes of ``chip_smoke.py``) and client that can take
+it it builds the plan once, runs one warm forward/inverse pair, then prints one JSON line
 per op:
 
 * ``host_ms``: median host-clock time of the op over ``--reps`` calls (the
@@ -41,8 +41,11 @@ PROBLEMS = {
     "P3": ((4096,), "Outplace_Complex", "float", 16384),
     "P4": ((3072, 3072), "Outplace_Real", "float", 1),
     "P5": ((945,), "Inplace_Real", "float", 65536),
+    "P6": ((128, 128), "Outplace_Real", "float", 8192),
+    "P7": ((64, 64), "Inplace_Complex", "double", 8192),
 }
-CLIENTS = ("TorchFFT", "TorchStockhamPallas")
+CLIENTS = ("TorchFFT", "TorchStockhamPallas", "TorchFourStepPallas",
+           "TorchFft2Pallas")
 TOP_OPS = 12
 
 
@@ -119,6 +122,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.core.benchmark import make_input
+    from repro_torch.core.candidates import backend_supports
     from repro_torch.core.client import Problem, TorchContext
     from repro_torch.core.clients import torch_fft
 
@@ -128,7 +132,10 @@ def main() -> int:
         extents, kind, precision, batch = PROBLEMS[pname]
         problem = Problem(extents, kind, precision, batch)
         for cname in CLIENTS:
-            client = getattr(torch_fft, cname)(problem, context)
+            cls = getattr(torch_fft, cname)
+            if not backend_supports(cls.backend_filter, problem):
+                continue
+            client = cls(problem, context)
             client.allocate()
             client.init_forward()
             client.init_inverse()

@@ -1,5 +1,5 @@
 """The planner's candidate vocabulary: a backend plus its knobs, and which
-axis lengths each backend can transform on Hopper.
+problems each backend can transform on Hopper.
 
 The backend keys are the reference package's (``xla``,
 ``stockham_pallas``, ...), and :meth:`Candidate.key` renders the same plan
@@ -15,10 +15,6 @@ from typing import Any
 
 from .client import Problem
 from .extents import _factors_only
-
-#: Backends of this slice: ``xla`` is the vendor library (``torch.fft``,
-#: cuFFT on the card), ``stockham_pallas`` the hand-written kernel.
-BACKENDS = ("xla", "stockham_pallas")
 
 _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)(?:\((.*)\))?$")
 
@@ -61,21 +57,28 @@ def _smooth7(n: int) -> bool:
     return n >= 1 and _factors_only(n, (2, 3, 5, 7))
 
 
+def _torch_dtype(precision: str):
+    import torch
+    return torch.complex64 if precision == "float" else torch.complex128
+
+
 def stockham_max_n(precision: str) -> int:
     """Longest axis the Stockham kernel holds in one block's shared memory."""
-    import torch
-
     from ..kernels.stockham_pallas.ops import MAX_N
-    return MAX_N[torch.complex64 if precision == "float" else torch.complex128]
+    return MAX_N[_torch_dtype(precision)]
 
 
 def axis_feasible(backend: str, n: int, precision: str = "float") -> bool:
     """Can ``backend`` transform one batched axis of engine length ``n``
-    (see :func:`axis_engine_n`) on Hopper?"""
+    (see :func:`axis_engine_n`) on Hopper?  Whole-transform backends other
+    than ``xla`` have no per-axis form."""
     if backend == "xla":
         return True
     if backend == "stockham_pallas":
         return _smooth7(n) and n <= stockham_max_n(precision)
+    if backend == "fourstep_pallas":
+        from ..kernels.fft4step.ops import feasible
+        return feasible(n, _torch_dtype(precision))
     return False
 
 
@@ -88,3 +91,28 @@ def axis_engine_n(problem: Problem, axis: int) -> int:
         return n
     return n // 2 if n % 2 == 0 and n > 1 else n
 
+
+def fft2_feasible(problem: Problem) -> bool:
+    """The fused rank-2 kernel holds the whole n1 x n2 engine tile (the
+    packed n1 x n2/2 one for a real kind) in one block's shared memory;
+    real kinds need an even last extent."""
+    from ..kernels.fft2_pallas.ops import MAX_ELEMS, pow2
+    exts = problem.extents
+    if len(exts) != 2 or not all(pow2(v) for v in exts):
+        return False
+    if not (problem.complex_input or exts[-1] % 2 == 0):
+        return False
+    tile = exts[0] * axis_engine_n(problem, 1)
+    return tile <= MAX_ELEMS[_torch_dtype(problem.precision)]
+
+
+def backend_supports(backend: str, problem: Problem) -> bool:
+    """Can ``backend`` run ``problem`` on Hopper (the reference's rules,
+    with the Hopper caps in place of the VMEM ones)?"""
+    if backend == "fft2_pallas":
+        return fft2_feasible(problem)
+    if backend == "xla":
+        return True
+    return all(axis_feasible(backend, axis_engine_n(problem, i),
+                             problem.precision)
+               for i in range(problem.rank))

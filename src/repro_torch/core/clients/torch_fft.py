@@ -7,14 +7,24 @@
                    ``nd.fftn``, with the packed half-length path for real
                    kinds (client ``TorchStockhamPallas``; knobs: tile_b,
                    radix)
+  fourstep_pallas  the hand-written fused four-step kernel
+                   (``csrc/fft4step.cu``), per axis like the Stockham
+                   kernel (client ``TorchFourStepPallas``; knob: tile_b)
+  fft2_pallas      the hand-written fused rank-2 kernel (``csrc/fft2.cu``):
+                   the whole 2-D transform in one launch, real kinds
+                   through ``rfft.rfftn_packed`` (client ``TorchFft2Pallas``;
+                   knobs: tile_b, radix); rank 2 only
 
 A client owns the device buffers and the built transforms of ONE Problem.
 ``init_forward``/``init_inverse`` are the measured build: for the kernel
-backend they compute the twiddle tables (and, for real kinds, the R2C pack
-table) on the host and upload them to the device; ``execute_*`` builds no
-table.  Without a PlanCache every run rebuilds (planning stays a measured
-quantity, paper Figs. 4/5); with one, the first run pays the build and
-later runs reuse it, with hit/miss events surfaced per op.
+backends they compute the twiddle tables (and, for real kinds, the R2C
+pack table) on the host and upload them to the device; ``execute_*``
+builds no table.  A problem a kernel cannot take (over its Hopper cap, the
+wrong rank) fails in ``init_forward``: the node is recorded as failed,
+never handed to another backend.  Without a PlanCache every run rebuilds
+(planning stays a measured quantity, paper Figs. 4/5); with one, the first
+run pays the build and later runs reuse it, with hit/miss events surfaced
+per op.
 """
 
 from __future__ import annotations
@@ -26,7 +36,10 @@ import numpy as np
 import torch
 
 from ...fft import nd
+from ...fft import rfft as rfft_mod
 from ...fft.reference import half_roots
+from ...kernels.fft2_pallas import ops as f2_ops
+from ...kernels.fft4step import ops as fs_ops
 from ...kernels.stockham_pallas import ops as sp_ops
 from ..candidates import Candidate, axis_engine_n
 from ..client import FFTClient, Problem, TorchContext
@@ -55,34 +68,71 @@ def _complex_dtype(problem: Problem) -> torch.dtype:
 
 
 def _twiddle_table(problem: Problem, cand: Candidate, inverse: bool,
-                   device) -> dict[int, sp_ops.Twiddles]:
-    """The Stockham plan of every engine length the problem's axes need."""
-    radix = cand.opts().get("radix", 8)
-    lengths = {axis_engine_n(problem, i) for i in range(problem.rank)}
-    return {n: sp_ops.make_twiddles(n, radix, inverse, _complex_dtype(problem),
-                                    device)
-            for n in sorted(lengths) if n > 1}
-
-
-def _engine(cand: Candidate, table: dict[int, sp_ops.Twiddles]) -> Callable:
-    """cfft(x, inverse=False) along the LAST axis through the kernel, bound
-    to the prebuilt twiddles of each length."""
-    if cand.backend != "stockham_pallas":
+                   device) -> dict:
+    """The plan of every engine length the problem's axes need: Stockham
+    twiddles, or the four-step kernel's W1/W2/T tables."""
+    dtype = _complex_dtype(problem)
+    if cand.backend == "stockham_pallas":
+        radix = cand.opts().get("radix", 8)
+        make = lambda n: sp_ops.make_twiddles(n, radix, inverse, dtype, device)
+    elif cand.backend == "fourstep_pallas":
+        make = lambda n: fs_ops.make_tables(n, inverse, dtype, device)
+    else:
         raise ValueError(f"unknown backend {cand.backend!r}")
+    lengths = {axis_engine_n(problem, i) for i in range(problem.rank)}
+    return {n: make(n) for n in sorted(lengths) if n > 1}
+
+
+def _engine(cand: Candidate, table: dict) -> Callable:
+    """cfft(x, inverse=False) along the LAST axis through the kernel, bound
+    to the prebuilt table of each length."""
     opts = cand.opts()
-    tile_b, radix = opts.get("tile_b"), opts.get("radix", 8)
+    tile_b = opts.get("tile_b")
+    if cand.backend == "stockham_pallas":
+        radix = opts.get("radix", 8)
 
-    def cfft(x, inverse=False):
-        n = x.shape[-1]
-        return sp_ops.fft(x, inverse, tile_b=tile_b, radix=radix,
-                          twiddles=table[n] if n > 1 else None)
-
+        def cfft(x, inverse=False):
+            n = x.shape[-1]
+            return sp_ops.fft(x, inverse, tile_b=tile_b, radix=radix,
+                              twiddles=table[n] if n > 1 else None)
+    elif cand.backend == "fourstep_pallas":
+        def cfft(x, inverse=False):
+            n = x.shape[-1]
+            return fs_ops.fft(x, inverse, tile_b=tile_b,
+                              twiddles=table[n] if n > 1 else None)
+    else:
+        raise ValueError(f"unknown backend {cand.backend!r}")
     return cfft
 
 
-def _bytes(table: dict[int, sp_ops.Twiddles],
-           roots: torch.Tensor | None = None) -> int:
-    return sum(t.nbytes for t in table.values()) + (
+def _fft2_twiddles(problem: Problem, cand: Candidate, inverse: bool,
+                   device) -> f2_ops.Twiddles2 | None:
+    """The fused rank-2 kernel's plan for the problem's engine tile (the
+    packed n1 x n2/2 one for a real kind); raises for another rank or a
+    tile over the kernel's cap."""
+    if problem.rank != 2:
+        raise ValueError(
+            f"fft2_pallas is rank-2 only, got rank {problem.rank}")
+    n1, n2 = problem.extents[0], axis_engine_n(problem, 1)
+    if n1 * n2 == 1:
+        return None
+    return f2_ops.make_twiddles2(n1, n2, cand.opts().get("radix", 8), inverse,
+                                 _complex_dtype(problem), device)
+
+
+def _fft2_engine(cand: Candidate,
+                 twiddles: f2_ops.Twiddles2 | None) -> Callable:
+    """Whole-transform engine cfft2(x, inverse=False) over the LAST TWO
+    axes: the fused rank-2 kernel, bound to its prebuilt twiddles."""
+    opts = cand.opts()
+    tile_b, radix = opts.get("tile_b"), opts.get("radix", 8)
+    return lambda x, inverse=False: f2_ops.fft2(x, inverse, tile_b=tile_b,
+                                                radix=radix,
+                                                twiddles=twiddles)
+
+
+def _bytes(*tables, roots: torch.Tensor | None = None) -> int:
+    return sum(t.nbytes for t in tables if t is not None) + (
         roots.nbytes if roots is not None else 0)
 
 
@@ -102,13 +152,22 @@ def _forward_fn(problem: Problem, cand: Candidate, device) -> Transform:
         if problem.complex_input:
             return Transform(lambda x: torch.fft.fftn(x, dim=axes))
         return Transform(lambda x: torch.fft.rfftn(x, dim=axes))
+    if cand.backend == "fft2_pallas":
+        tw = _fft2_twiddles(problem, cand, False, device)
+        eng2 = _fft2_engine(cand, tw)
+        if problem.complex_input:
+            return Transform(eng2, _bytes(tw))
+        roots = _pack_roots(problem, False, device)
+        return Transform(lambda x: rfft_mod.rfftn_packed(x, eng2, 2, roots),
+                         _bytes(tw, roots=roots))
     table = _twiddle_table(problem, cand, False, device)
     eng = _engine(cand, table)
     if problem.complex_input:
-        return Transform(lambda x: nd.fftn(x, eng, axes=axes), _bytes(table))
+        return Transform(lambda x: nd.fftn(x, eng, axes=axes),
+                         _bytes(*table.values()))
     roots = _pack_roots(problem, False, device)
     return Transform(lambda x: nd.rfftn(x, eng, axes=axes, roots=roots),
-                     _bytes(table, roots))
+                     _bytes(*table.values(), roots=roots))
 
 
 def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
@@ -118,15 +177,23 @@ def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
             return Transform(lambda y: torch.fft.ifftn(y, dim=axes))
         return Transform(lambda y: torch.fft.irfftn(y, s=problem.extents,
                                                     dim=axes))
+    if cand.backend == "fft2_pallas":
+        tw = _fft2_twiddles(problem, cand, True, device)
+        eng2 = _fft2_engine(cand, tw)
+        if problem.complex_input:
+            return Transform(lambda y: eng2(y, inverse=True), _bytes(tw))
+        roots = _pack_roots(problem, True, device)
+        return Transform(lambda y: rfft_mod.irfftn_packed(
+            y, problem.extents, eng2, roots), _bytes(tw, roots=roots))
     table = _twiddle_table(problem, cand, True, device)
     eng = _engine(cand, table)
     if problem.complex_input:
         return Transform(lambda y: nd.fftn(y, eng, axes=axes, inverse=True),
-                         _bytes(table))
+                         _bytes(*table.values()))
     roots = _pack_roots(problem, True, device)
     return Transform(lambda y: nd.irfftn(y, problem.extents, eng, axes=axes,
                                          roots=roots),
-                     _bytes(table, roots))
+                     _bytes(*table.values(), roots=roots))
 
 
 class TorchFFTClient(FFTClient):
@@ -189,7 +256,8 @@ class TorchFFTClient(FFTClient):
             2 if not self.problem.complex_input else 1)
 
     def get_plan_size(self) -> int:
-        """Bytes of the device twiddle and pack tables the plan holds."""
+        """Bytes of the device twiddle, DFT and pack tables the plan
+        holds."""
         return self._plan_bytes
 
     # --- planning ---------------------------------------------------------
@@ -261,3 +329,15 @@ class TorchFFT(TorchFFTClient):
 class TorchStockhamPallas(TorchFFTClient):
     title = "TorchStockhamPallas"
     backend_filter = "stockham_pallas"
+
+
+@register_client()
+class TorchFourStepPallas(TorchFFTClient):
+    title = "TorchFourStepPallas"
+    backend_filter = "fourstep_pallas"
+
+
+@register_client()
+class TorchFft2Pallas(TorchFFTClient):
+    title = "TorchFft2Pallas"
+    backend_filter = "fft2_pallas"

@@ -4,8 +4,10 @@ Each ``*.cu`` under ``repro_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`.
 Nothing builds at import time: the first call that needs a library builds
 it into ``build/kernels/`` at the root of the checkout, keyed by a hash of
-the source and the flags, so an unchanged source is compiled once.  A failed
-build raises with nvcc's own error output.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+unchanged source is compiled once and an edited header rebuilds every
+library.  Libraries of different sources build concurrently when several
+threads ask for them.  A failed build raises with nvcc's own error output.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -45,8 +48,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -69,6 +74,8 @@ def _compile(name: str, target: Path) -> None:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             target = _target(name)

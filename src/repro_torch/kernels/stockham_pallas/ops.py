@@ -117,25 +117,49 @@ class Twiddles:
         return self.tw.numel() * self.tw.element_size()
 
 
+def stage_bases(offsets: tuple[tuple[int, ...], ...]) -> tuple[int, ...]:
+    """Each stage's base in the packed vector (its u = 1 offset), from
+    ``pack_twiddles``' per-(stage, u) offsets."""
+    return tuple(o[0] for o in offsets)
+
+
+def packed_length(radices: tuple[int, ...]) -> int:
+    """Twiddles one axis' schedule uses, without ``pack_twiddles``'
+    padding."""
+    length, cur = 0, int(np.prod(radices))
+    for r in radices:
+        cur //= r
+        length += (r - 1) * cur
+    return length
+
+
+def direction_of(twi: np.ndarray) -> bool | None:
+    """The direction a packed imaginary plane was built for, or None when
+    every twiddle is 1 (a single-stage schedule serves both directions):
+    the first stage with m > 1 holds W_cur^1 at its p = 1 slot, whose
+    imaginary part has the transform's sign."""
+    nontrivial = np.flatnonzero(np.abs(twi) > 0)
+    return bool(twi[nontrivial[0]] > 0) if nontrivial.size else None
+
+
+def interleave(twr: np.ndarray, twi: np.ndarray, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """Real and imaginary planes as one interleaved complex vector of
+    ``dtype`` on ``device``."""
+    planes = np.stack([twr, twi], axis=-1)
+    tw = torch.view_as_complex(torch.from_numpy(np.ascontiguousarray(planes)))
+    return tw.to(device=device, dtype=dtype)
+
+
 def _from_planes(twr: np.ndarray, twi: np.ndarray,
                  offsets: tuple[tuple[int, ...], ...], dtype: torch.dtype,
                  device) -> Twiddles:
     radices = tuple(len(o) + 1 for o in offsets)
-    n = int(np.prod(radices))
-    length, cur = 0, n
-    for r in radices:
-        cur //= r
-        length += (r - 1) * cur
-    planes = np.stack([twr[0, :length], twi[0, :length]], axis=-1)
-    tw = torch.view_as_complex(torch.from_numpy(np.ascontiguousarray(planes)))
-    inverse = None
-    nontrivial = np.flatnonzero(np.abs(twi[0, :length]) > 0)
-    if nontrivial.size:
-        # the first stage with m > 1 holds W_cur^1 at its p = 1 slot,
-        # whose imaginary part has the transform's sign
-        inverse = bool(twi[0, nontrivial[0]] > 0)
-    return Twiddles(n, radices, tuple(o[0] for o in offsets),
-                    tw.to(device=device, dtype=dtype), inverse)
+    length = packed_length(radices)
+    return Twiddles(int(np.prod(radices)), radices, stage_bases(offsets),
+                    interleave(twr[0, :length], twi[0, :length], dtype,
+                               device),
+                    direction_of(twi[0, :length]))
 
 
 def make_twiddles(n: int, radix: int, inverse: bool, dtype: torch.dtype,

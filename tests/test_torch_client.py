@@ -1,12 +1,16 @@
 """The port's harness and FFT clients against the reference package.
 
 * a CPU ``Session.run`` over ``TorchFFT`` and ``TorchStockhamPallas``
-  validates every node (ranks 1-3, 4 kinds, 2 precisions);
+  validates every node (ranks 1-3, 4 kinds, 2 precisions), and so does one
+  over ``TorchFourStepPallas`` and ``TorchFft2Pallas`` (rank 2 only);
 * the result schema is the reference's, column for column;
 * the clients' forward output matches the reference's ``_forward_fn`` on
   the same input (the reference's ``stockham_pallas`` in Pallas interpret
   mode), within rel-L2 1e-5 in float and 1e-12 in double: the same
-  algorithm and twiddles, only the summation order differs;
+  algorithm and twiddles, only the summation order differs; the same for
+  the four-step and fused rank-2 clients;
+* a problem over a kernel's Hopper cap, or of the wrong rank, is a failed
+  node, never a result of another backend;
 * byte accounting, plan keys, the device rule and the import rule.
 """
 
@@ -29,15 +33,21 @@ from repro.core.clients import jax_fft
 from repro.core.results import columns_for as ref_columns_for
 from repro_torch.core import extents
 from repro_torch.core.benchmark import BenchmarkConfig, run_node
-from repro_torch.core.candidates import Candidate, axis_engine_n, axis_feasible
+from repro_torch.core.candidates import (Candidate, axis_engine_n,
+                                        axis_feasible, backend_supports,
+                                        fft2_feasible)
 from repro_torch.core.client import KINDS, Problem, TorchContext
-from repro_torch.core.clients.torch_fft import (TorchFFT, TorchStockhamPallas,
+from repro_torch.core.clients.torch_fft import (TorchFFT, TorchFft2Pallas,
+                                                TorchFourStepPallas,
+                                                TorchStockhamPallas,
                                                 _forward_fn)
 from repro_torch.core.plan import PlanRigor
 from repro_torch.core.results import open_sink
 from repro_torch.core.suite import Session, SuiteSpec
 from repro_torch.core.timer import Timer, timed
 from repro_torch.core.tree import BenchNode, build_tree, select
+from repro_torch.kernels.fft2_pallas import ops as f2_ops
+from repro_torch.kernels.fft4step import ops as fs_ops
 from repro_torch.kernels.stockham_pallas import ops
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -205,7 +215,20 @@ def test_hopper_cap_in_feasibility_and_as_a_failed_node(cpu):
     assert not axis_feasible("stockham_pallas", 8192, "double")
     assert not axis_feasible("stockham_pallas", 97, "float")
     assert axis_feasible("xla", 16384) and axis_feasible("xla", 97)
+    # the fused rank-2 kernel has no per-axis form (as in the reference);
+    # whole problems are held to its Hopper cap, the packed tile for a
+    # real kind: 8192 points in complex64, 4096 in complex128
     assert not axis_feasible("fft2_pallas", 64)
+    assert fft2_feasible(Problem((64, 128), "Outplace_Complex", "float"))
+    assert not fft2_feasible(Problem((128, 128), "Outplace_Complex", "float"))
+    assert not fft2_feasible(Problem((64, 128), "Inplace_Complex", "double"))
+    assert fft2_feasible(Problem((128, 128), "Outplace_Real", "float"))
+    assert not fft2_feasible(Problem((4, 4, 8), "Outplace_Complex"))
+    assert axis_feasible("fourstep_pallas", 14464, "float")
+    assert not axis_feasible("fourstep_pallas", 16384, "float")
+    assert axis_feasible("fourstep_pallas", 7216, "double")
+    assert not axis_feasible("fourstep_pallas", 8192, "double")
+    assert not axis_feasible("fourstep_pallas", 131, "float")
     # real kinds: the packed inner axis runs at n/2, an odd one at n
     real = Problem((16, 28812), "Outplace_Real", "float")
     assert [axis_engine_n(real, i) for i in (0, 1)] == [16, 14406]
@@ -298,3 +321,153 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+NEW_CLIENTS = {
+    "TorchFourStepPallas": ("fourstep_pallas", TorchFourStepPallas, fs_ops),
+    "TorchFft2Pallas": ("fft2_pallas", TorchFft2Pallas, f2_ops),
+}
+#: Extents each new client takes: four-step per axis at any rank, the
+#: fused rank-2 kernel on power-of-two rank-2 tiles.
+NEW_EXTENTS = {"TorchFourStepPallas": ((16,), (8, 12), (4, 4, 8), (945,)),
+               "TorchFft2Pallas": ((8, 16), (16, 4), (1, 8), (8, 2))}
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("client", list(NEW_CLIENTS))
+def test_new_clients_validate_every_node(client, precision, cpu):
+    kernel_ops = NEW_CLIENTS[client][2]
+    spec = SuiteSpec(clients=(client,), extents=NEW_EXTENTS[client],
+                     kinds=KINDS, precisions=(precision,), warmups=1,
+                     repetitions=2, output=None)
+    launches = kernel_ops.LAUNCHES
+    rs = Session(cpu).run(spec)
+    val = rs.query(op="validate")
+    assert len(val) == 4 * len(KINDS)
+    assert all(r.success for r in val), [r.error for r in rs.failures()]
+    assert {r.library for r in val} == {client}
+    assert kernel_ops.LAUNCHES == launches      # CPU tensors never launch
+
+
+def _plan_bytes(client, problem):
+    """Both directions' tables of the client's plan, built here."""
+    dtype = torch.complex64 if problem.precision == "float" \
+        else torch.complex128
+    n_last = axis_engine_n(problem, problem.rank - 1)
+    total = 0
+    for inverse in (False, True):
+        if client == "TorchFft2Pallas":
+            total += f2_ops.make_twiddles2(problem.extents[0], n_last, 8,
+                                           inverse, dtype, "cpu").nbytes
+        else:
+            lengths = {axis_engine_n(problem, i) for i in range(problem.rank)}
+            total += sum(fs_ops.make_tables(n, inverse, dtype, "cpu").nbytes
+                         for n in lengths)
+        if not problem.complex_input:
+            total += problem.extents[-1] // 2 * dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("client", list(NEW_CLIENTS))
+def test_new_client_forward_matches_reference_forward_fn(client, kind,
+                                                         precision, cpu):
+    backend, cls, _ = NEW_CLIENTS[client]
+    extents = (8, 16) if client == "TorchFft2Pallas" else (8, 12)
+    problem = Problem(extents, kind, precision, batch=2)
+    x = rand_input(problem, seed=7)
+    want = np.asarray(jax_fft._forward_fn(
+        RefProblem(extents, kind, precision, 2),
+        ref_candidates.Candidate(backend))(x))
+    got, back, c = _forward_via_client(cls, problem, x, cpu)
+    assert got.shape == want.shape
+    assert rel_l2(got, want) <= TOL[precision]
+    assert rel_l2(back, x) <= TOL[precision]
+    assert c.get_plan_size() == _plan_bytes(client, problem) > 0
+
+
+@pytest.mark.parametrize("kind", ["Outplace_Real", "Inplace_Complex"])
+@pytest.mark.parametrize("client", list(NEW_CLIENTS))
+def test_new_clients_execute_builds_no_table(client, kind, cpu, monkeypatch):
+    """Twiddle, DFT and pack tables are plan state: built in ``init_*``,
+    never in ``execute_*``."""
+    from repro_torch.fft import rfft as port_rfft
+
+    problem = Problem((8, 16), kind, "double", batch=2)
+    x = rand_input(problem, seed=3)
+    client_obj = NEW_CLIENTS[client][1](problem, cpu)
+    client_obj.allocate()
+    client_obj.init_forward()
+    client_obj.init_inverse()
+    client_obj.upload(x)
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a table was built inside execute")
+
+    monkeypatch.setattr(port_rfft, "half_roots", no_build)
+    monkeypatch.setattr(f2_ops, "make_twiddles2", no_build)
+    monkeypatch.setattr(fs_ops, "make_tables", no_build)
+    client_obj.execute_forward()
+    client_obj.execute_inverse()
+    assert rel_l2(client_obj.download(), x) <= TOL["double"]
+
+
+def test_new_clients_fail_what_their_kernels_cannot_take(cpu):
+    """Over a Hopper cap, a wrong rank or extent: a failed node whose error
+    names the reason, never a result of another backend."""
+    cases = [
+        (TorchFft2Pallas, Problem((4, 4, 8), "Outplace_Complex"),
+         "rank-2 only, got rank 3"),
+        (TorchFft2Pallas, Problem((128, 128), "Outplace_Complex", "float"),
+         "caps at n1*n2=8192"),
+        (TorchFft2Pallas, Problem((64, 128), "Inplace_Complex", "double"),
+         "caps at n1*n2=4096"),
+        (TorchFft2Pallas, Problem((8, 12), "Outplace_Real"), "power-of-two"),
+        (TorchFourStepPallas, Problem((16384,), "Outplace_Complex", "float"),
+         "caps at n=14464"),
+        (TorchFourStepPallas, Problem((8, 131), "Outplace_Complex"),
+         "factorization"),
+    ]
+    spec = SuiteSpec(output=None, warmups=0, repetitions=1)
+    rs = Session(cpu).run(spec, nodes=[BenchNode(cls, p) for cls, p, _ in cases])
+    fails = rs.failures()
+    assert len(fails) == len(cases) and len(rs.query(op="validate")) == len(cases)
+    for row, (_, _, reason) in zip(fails, cases):
+        assert row.op == "validate" and reason in row.error, row.error
+        assert not rs.query(op="execute_forward", library=row.library,
+                            extents=row.extents)
+
+
+def test_support_rules_match_reference_below_the_caps():
+    """Where no cap binds, the port's support matrix is the reference's."""
+    exts = ((16,), (945,), (131,), (8, 12), (8, 16), (1, 8), (16, 1),
+            (4, 4, 8), (64, 32), (7, 9))
+    for ext in exts:
+        for kind in KINDS:
+            for precision in ("float", "double"):
+                port = Problem(ext, kind, precision)
+                ref = RefProblem(ext, kind, precision)
+                for backend in ("xla", "stockham_pallas", "fourstep_pallas",
+                                "fft2_pallas"):
+                    assert backend_supports(backend, port) == \
+                        ref_candidates.backend_supports(backend, ref), \
+                        (backend, ext, kind, precision)
+
+
+def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):
+    """An edited shared header (``csrc/*.cuh``) gives every library a new
+    build target, so no stale library is reused; nothing is compiled."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "a.cu").write_text('#include "s.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no header\n")
+    (tmp_path / "s.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.sources() == ["a", "b"]
+    before = {n: _build._target(n) for n in ("a", "b")}
+    assert before == {n: _build._target(n) for n in ("a", "b")}
+    (tmp_path / "s.cuh").write_text("// v2\n")
+    after = {n: _build._target(n) for n in ("a", "b")}
+    assert all(after[n] != before[n] for n in ("a", "b"))
+    assert {p.parent for p in after.values()} == {_build.BUILD_DIR}

@@ -17,6 +17,10 @@ import torch
 
 from repro_torch.core.client import KINDS, TorchContext
 from repro_torch.core.suite import Session, SuiteSpec
+from repro_torch.kernels.fft2_pallas import ops as f2_ops
+from repro_torch.kernels.fft2_pallas import ref as f2_ref
+from repro_torch.kernels.fft4step import ops as fs_ops
+from repro_torch.kernels.fft4step import ref as fs_ref
 from repro_torch.kernels.stockham_pallas import ops, ref
 
 PLAIN_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
@@ -81,3 +85,101 @@ def test_session_on_card_launches_the_kernel(cuda_device):
     assert not rs.failures(), [r.error for r in rs.failures()]
     assert {r.device for r in rs.rows} == {torch.cuda.get_device_name(0)}
     assert ops.LAUNCHES > before
+
+
+def _rand(rows, shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    size = (rows, *shape)
+    return torch.from_numpy(rng.standard_normal(size) +
+                            1j * rng.standard_normal(size)).to(device, dtype)
+
+
+def _tiles(fits) -> tuple[int, ...]:
+    """Tile 1, and 8 (37 rows: a ragged last tile of 5) where it fits."""
+    return (1, 8) if fits(8) else (1,)
+
+
+FFT2_SHAPES = {
+    torch.complex64: ((2, 2), (1, 8), (8, 1), (4, 16), (16, 4), (32, 32),
+                      (8, 256), (64, 128), (128, 64), (2, 4096)),
+    torch.complex128: ((2, 2), (1, 8), (8, 1), (4, 16), (16, 4), (32, 32),
+                       (8, 256), (64, 64), (32, 128), (4096, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_fft2_kernel_against_plain_and_library(cuda_device, dtype):
+    """2x2 up to the cap, every radix and direction, tile 1 and a ragged
+    last tile, one launch per call."""
+    for n1, n2 in FFT2_SHAPES[dtype]:
+        x = _rand(37, (n1, n2), dtype, cuda_device, n1 * 7 + n2)
+        fits = lambda t: f2_ops.smem_bytes(n1 * n2, t, x.element_size(), 2) \
+            <= f2_ops.SMEM_LIMIT_BYTES
+        for radix in (2, 4, 8):
+            for tile in _tiles(fits):
+                for inverse in (False, True):
+                    before = f2_ops.LAUNCHES
+                    y = f2_ops.fft2(x, inverse, radix=radix, tile_b=tile)
+                    torch.cuda.synchronize(cuda_device)
+                    assert f2_ops.LAUNCHES == before + 1
+                    plain = f2_ref.fft2_ref(x, radix, inverse)
+                    lib = (torch.fft.ifft2 if inverse else torch.fft.fft2)(x)
+                    case = (n1, n2, radix, tile, inverse)
+                    assert rel_l2(y, plain) <= PLAIN_TOL[dtype], case
+                    assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_fourstep_kernel_against_plain_and_library(cuda_device, dtype):
+    """Square, ragged-split and radix357 lengths up to the cap, tile 1 and
+    a ragged last tile, both directions, one launch per call."""
+    for n in (2, 4, 60, 100, 945, 1024, 3072, 4096, fs_ops.MAX_N[dtype]):
+        x = _rand(37, (n,), dtype, cuda_device, n)
+        n1, n2 = fs_ops.choose_factors(n)
+        fits = lambda t: fs_ops.smem_bytes(n1, n2, t, x.element_size()) \
+            <= fs_ops.SMEM_LIMIT_BYTES
+        for tile in _tiles(fits):
+            for inverse in (False, True):
+                before = fs_ops.LAUNCHES
+                y = fs_ops.fft(x, inverse, tile_b=tile)
+                torch.cuda.synchronize(cuda_device)
+                assert fs_ops.LAUNCHES == before + 1
+                plain = fs_ref.fft4step_ref(x, inverse)
+                lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+                assert rel_l2(y, plain) <= PLAIN_TOL[dtype], (n, tile, inverse)
+                assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, tile, inverse)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda_device):
+    x = torch.zeros((4, 16, 16), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        f2_ops.fft2(x.transpose(0, 1))
+    with pytest.raises(ValueError, match="caps at n1\\*n2=8192"):
+        f2_ops.fft2(torch.zeros((1, 128, 128), dtype=torch.complex64,
+                                device=cuda_device))
+    with pytest.raises(ValueError, match="tile_b"):
+        f2_ops.fft2(torch.zeros((4, 64, 128), dtype=torch.complex64,
+                                device=cuda_device), tile_b=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs_ops.fft(x[:, 0, :].transpose(0, 1))
+    with pytest.raises(ValueError, match="caps at n="):
+        fs_ops.fft(torch.zeros((1, 16384), dtype=torch.complex64,
+                               device=cuda_device))
+    with pytest.raises(ValueError, match="tile_b"):
+        fs_ops.fft(torch.zeros((4, 4096), dtype=torch.complex64,
+                               device=cuda_device), tile_b=4)
+
+
+@pytest.mark.cuda
+def test_session_on_card_launches_the_new_kernels(cuda_device):
+    spec = SuiteSpec(clients=("TorchFourStepPallas", "TorchFft2Pallas"),
+                     extents=((8, 16), (64, 32)), kinds=KINDS,
+                     precisions=("float", "double"), warmups=1,
+                     repetitions=2, output=None)
+    f2_before, fs_before = f2_ops.LAUNCHES, fs_ops.LAUNCHES
+    rs = Session(TorchContext()).run(spec)
+    assert not rs.failures(), [r.error for r in rs.failures()]
+    assert f2_ops.LAUNCHES > f2_before and fs_ops.LAUNCHES > fs_before
