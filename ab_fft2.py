@@ -1,13 +1,15 @@
-"""Time the fft2 and Stockham kernels of one source tree on one GPU.
+"""Time the fft2, Stockham and four-step kernels of one source tree on
+one GPU.
 
     python3 ab_fft2.py SRC_DIR LABEL
 
 SRC_DIR is the ``src/`` of a checkout (this one, or a parent unpacked
 with ``git archive`` into ``build/``).  Prints one JSON line: the median
 of 50 CUDA-event times (after 3 warm calls) of the fft2 kernel at the
-main path's P7 and P6 shapes and of the Stockham kernel at 64 x 524288
-complex128 and 4096 x 16384 complex64.  To compare two trees, run it on
-each in turns (A, B, B, A) in one call, one process per run.
+main path's P7 and P6 shapes, and of the Stockham and four-step kernels
+at 64 x 524288 complex128 and 4096 x 16384 complex64.  To compare two
+trees, run it on each in turns (A, B, B, A) in one call, one process per
+run.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 #: (n1, n2, dtype) of the fft2 kernel: P7's and P6's engine tiles, 8192 each
 FFT2_SHAPES = ((64, 64, torch.complex128), (128, 64, torch.complex64))
-#: (n, rows, dtype) of the Stockham kernel
+#: (n, rows, dtype) of the Stockham and four-step kernels
 STOCKHAM_SHAPES = ((64, 524288, torch.complex128),
                    (4096, 16384, torch.complex64))
 
@@ -44,6 +46,7 @@ def main() -> None:
     src, label = sys.argv[1], sys.argv[2]
     sys.path.insert(0, src)
     from repro_torch.kernels.fft2_pallas import ops as f2
+    from repro_torch.kernels.fft4step import ops as fs
     from repro_torch.kernels.stockham_pallas import ops as sp
 
     dev = torch.device("cuda", 0)
@@ -60,6 +63,9 @@ def main() -> None:
         tw = sp.make_twiddles(n, 8, False, dt, dev)
         row[f"stockham {n}x{rows} {dt}"] = median_ms(
             lambda: sp.fft(x, False, twiddles=tw))
+        tables = fs.make_tables(n, False, dt, dev)
+        row[f"fourstep {n}x{rows} {dt}"] = median_ms(
+            lambda: fs.fft(x, False, twiddles=tables))
         del x
     print(json.dumps(row), flush=True)
 

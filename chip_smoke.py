@@ -17,11 +17,20 @@
    path went through its kernel and through no other;
 5. shows that ``TorchFft2Pallas`` on a problem its kernel cannot take (P1,
    rank 3) is a failed node that launched nothing;
-6. holds each kernel against its plain version at every shape the main
-   path launched it with (the main path's own knobs, both directions),
-   then times it there beside its plain version, ``torch.fft`` and its
-   bound;
-7. prints the kernel summary and, as the last line,
+6. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P9 (the
+   reference's picks, each node launching its pick's kernels and no
+   other; the ``dft_matmul`` kernel's main path, on P8 and P9), under
+   MEASURE with a wisdom file under ``build/`` (every candidate of the
+   port's ``candidates()`` built and timed finite), the pinned kernel
+   clients under PATIENT into the same file (each sweeping only its own
+   knobs), every swept candidate's forward against torch.fft's on
+   MEASURE's input, then under WISDOM_ONLY on that file (every node
+   planned from wisdom, launching only the recorded pick's kernels);
+7. holds each kernel against its plain version at every shape the main
+   path and the sweeps launched it with (radix 8 and the default tile,
+   both directions), then times it at the main path's shapes beside its
+   plain version, ``torch.fft`` and its bound;
+8. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -62,6 +71,8 @@ FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096)
 #: rows of the fixed-case checks: tile 1, and tile 8 (a ragged last tile
 #: of 5) where 8 signals fit one block
 CHECK_ROWS = 37
+#: dft_matmul kernel: every length class up to its cap of 128
+DFT_NS = (1, 2, 3, 7, 8, 64, 100, 127, 128)
 #: kernel vs its plain version: same algorithm and twiddles, only the
 #: summation order differs.
 PLAIN_TOL = {"complex64": 1e-5, "complex128": 1e-12}
@@ -77,8 +88,31 @@ PROBLEMS = (
     ("P5", (945,), "Inplace_Real", "float", 65536),
     ("P6", (128, 128), "Outplace_Real", "float", 8192),
     ("P7", (64, 64), "Inplace_Complex", "double", 8192),
+    ("P8", (128,), "Outplace_Complex", "float", 524288),
+    ("P9", (100,), "Inplace_Real", "double", 655360),
 )
-ALL = tuple(p[0] for p in PROBLEMS)
+ALL = ("P1", "P2", "P3", "P4", "P5", "P6", "P7")
+#: A problem whose PATIENT grid holds fused rank-2 knobs (P6 and P7 sit at
+#: the kernel's cap, where no batch tile but the default fits a block).
+PATIENT_PROBLEMS = (
+    ("F1", (32, 32), "Outplace_Complex", "float", 262144),
+)
+#: The pinned clients' PATIENT paths: (client, problem); each sweeps only
+#: its own kernel's knobs.
+PATIENT_PATHS = (("TorchStockhamPallas", "P5"), ("TorchFourStepPallas", "P5"),
+                 ("TorchFft2Pallas", "F1"))
+#: TorchPlanned's ESTIMATE picks on P1-P9: the reference's
+#: ``repro.core.costmodel.estimate_choice`` (tests/test_torch_planner.py
+#: holds the port's picks to it).
+ESTIMATE_PICKS = {"P1": "xla", "P2": "xla", "P3": "fourstep_pallas",
+                  "P4": "xla", "P5": "fourstep_pallas", "P6": "fft2_pallas",
+                  "P7": "fft2_pallas", "P8": "dft", "P9": "dft"}
+#: The kernel each planner backend launches (none for torch.fft and the
+#: plain-torch baselines).
+BACKEND_KERNEL = {"stockham_pallas": "stockham_pallas",
+                  "fourstep_pallas": "fft4step", "fft2_pallas": "fft2_pallas",
+                  "dft": "dft_matmul"}
+WISDOM_PATH = os.path.join(ROOT, "build", "chip_smoke_wisdom.json")
 #: Each client's main path: (client, its problems, the kernel it runs).
 PATHS = (
     ("TorchFFT", ALL, None),
@@ -94,6 +128,8 @@ KERNELS = (
      "src/repro/kernels/fft2_pallas/fft2_pallas.py:63"),
     ("fft4step", "src/repro_torch/csrc/fft4step.cu",
      "src/repro/kernels/fft4step/fft4step.py:70"),
+    ("dft_matmul", "src/repro_torch/csrc/dft.cu",
+     "src/repro/kernels/dft_matmul/dft_matmul.py:45"),
 )
 
 
@@ -226,6 +262,33 @@ def check_fourstep(device, gen, dtype) -> Worst:
     return w
 
 
+def check_dft(device, gen, dtype) -> Worst:
+    import torch
+    ops, ref = kernel_ops("dft_matmul")
+    name = str(dtype).removeprefix("torch.")
+    w = Worst("dft_matmul", name)
+    w.row["max_n"] = 128
+    for n in DFT_NS:
+        x = torch.randn((CHECK_ROWS, n), dtype=dtype, device=device,
+                        generator=gen)
+        for tile in (1, 8):     # 37 rows in tiles of 8: a ragged last tile
+            for inverse in (False, True):
+                y = ops.dft(x, inverse, tile_b=tile)
+                torch.cuda.synchronize(device)
+                w.add(y, _dft_plain(ref, x, inverse),
+                      (torch.fft.ifft if inverse else torch.fft.fft)(x),
+                      f"n={n} tile_b={tile} inverse={inverse}")
+    return w
+
+
+def _dft_plain(ref, x, inverse: bool):
+    """The reference's plain DFT on planes, normalized as ``ops.dft``."""
+    import torch
+    yr, yi = ref.dft_ref(x.real.contiguous(), x.imag.contiguous(), inverse)
+    y = torch.complex(yr, yi)
+    return y / x.shape[-1] if inverse else y
+
+
 def check_kernels(device) -> dict:
     """Every kernel vs its plain version (on the card) and vs torch.fft;
     raises on a miss.  Returns the worst errors per kernel and dtype."""
@@ -234,7 +297,8 @@ def check_kernels(device) -> dict:
     worst = {}
     for kernel, check in (("stockham_pallas", check_stockham),
                           ("fft2_pallas", check_fft2),
-                          ("fft4step", check_fourstep)):
+                          ("fft4step", check_fourstep),
+                          ("dft_matmul", check_dft)):
         for dtype in (torch.complex64, torch.complex128):
             w = check(device, gen, dtype)
             emit(w.row)
@@ -350,6 +414,247 @@ def check_failed_node(device) -> None:
           "error": fails[0].error})
 
 
+def _problem(pname: str):
+    from repro_torch.core.client import Problem
+    _, extents, kind, precision, batch = next(
+        p for p in PROBLEMS + PATIENT_PROBLEMS if p[0] == pname)
+    return Problem(extents, kind, precision, batch)
+
+
+def _kernels_of(cand, rank: int) -> set:
+    """The kernels a plan runs (none for torch.fft and the baselines)."""
+    return {BACKEND_KERNEL[a.backend] for a in cand.per_axis(rank)
+            if a.backend in BACKEND_KERNEL}
+
+
+def _counts() -> dict:
+    return {k: c for k, (c, _) in _read_counts().items()}
+
+
+def _launch_shapes() -> dict:
+    """Per kernel, the shapes launched since the counts were last set to
+    0."""
+    return {k: shapes for k, (c, shapes) in _read_counts().items() if c}
+
+
+def check_candidates(device, pname: str, cands) -> dict:
+    """Every candidate's forward, as MEASURE builds and runs it on MEASURE's
+    own input, against the ``xla`` (torch.fft) candidate's within
+    ``LIBRARY_TOL``: a wrong but fast plan could otherwise win a sweep and
+    be replayed from wisdom.  Raises on a miss."""
+    import torch
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.clients.torch_fft import _forward_fn
+    from repro_torch.core.plan import measure_input
+
+    problem = _problem(pname)
+    dname = "complex64" if problem.precision == "float" else "complex128"
+    x = measure_input(problem, device)
+    want = _forward_fn(problem, Candidate("xla"), device)(x)
+    worst, checked = 0.0, 0
+    for cand in cands:
+        if cand.key() == "xla":
+            continue
+        y = _forward_fn(problem, cand, device)(x)
+        torch.cuda.synchronize(device)
+        e = rel_l2(y, want)
+        if not (y.shape == want.shape and e <= LIBRARY_TOL[dname]):
+            raise AssertionError(
+                f"{pname} candidate {cand.key()} disagrees with torch.fft: "
+                f"shape {tuple(y.shape)}, rel_l2 {e:.3e}")
+        worst, checked = max(worst, e), checked + 1
+        del y
+    row = {"check": "candidates_vs_torch_fft", "node": pname,
+           "candidates": checked, "rel_l2_library": worst}
+    emit(row)
+    del x, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def _planned_node(session, pname: str, rigor: str,
+                  wisdom: str | None = None, client: str = "TorchPlanned"
+                  ) -> dict:
+    """``Session.run`` of a planning client (``TorchPlanned``, or a client
+    pinned to one backend) on one problem under ``rigor``: every node
+    valid; returns the node's summary with its plan and the kernel
+    launches of its run."""
+    from repro_torch.core.clients import torch_fft
+    from repro_torch.core.plan import PlanCache, PlanRigor
+    from repro_torch.core.suite import SuiteSpec
+    from repro_torch.core.tree import BenchNode
+
+    cls = getattr(torch_fft, client)
+    problem = _problem(pname)
+    spec = SuiteSpec(rigor=rigor, wisdom=wisdom, warmups=1, repetitions=3,
+                     plan_cache=True, output=None)
+    before = _counts()
+    t0 = time.perf_counter()
+    rs = session.run(spec, nodes=[BenchNode(cls, problem)])
+    node_s = time.perf_counter() - t0
+    launched = {k: c - before[k] for k, c in _counts().items()}
+    if rs.failures():
+        raise AssertionError(f"{client} {rigor} {pname} failed: "
+                             f"{[r.error for r in rs.failures()]}")
+    val = rs.query(op="validate")
+    if len(val) != 1 or not val[0].success:
+        raise AssertionError(f"{client} {rigor} {pname}: no successful "
+                             "validate row")
+    plan, event = session.plan_cache.plan(
+        PlanCache.plan_key(session.device_kind, problem, PlanRigor(rigor),
+                           scope=cls.backend_filter or "*"), lambda: None)
+    if event != "hit" or plan is None:
+        raise AssertionError(f"{client} {rigor} {pname}: no plan")
+    med = lambda op: statistics.median(
+        r.time_ms for r in rs.query(op=op) if r.run >= 0)
+    cold = [r.time_ms for r in rs.query(op="init_forward")
+            if r.plan_cache == "miss"]
+    return {"node": pname, "client": client, "rigor": rigor,
+            "pick": plan.candidate.key(), "plan_source": plan.source,
+            "row_plan_sources": sorted({r.plan_source for r in rs.rows
+                                        if r.library == client
+                                        and r.op != "validate"}),
+            "plan_ms": plan.plan_time_ms,
+            "init_forward_cold_ms": cold[0] if cold else None,
+            "execute_forward_ms": med("execute_forward"),
+            "execute_inverse_ms": med("execute_inverse"),
+            "launches": launched, "measured_ms": plan.measured_ms,
+            "node_s": node_s, "_plan": plan}
+
+
+def _check_launches(node: dict, rank: int) -> None:
+    """The node launched its pick's kernels and no other."""
+    want = _kernels_of(node["_plan"].candidate, rank)
+    wrong = {k: c for k, c in node["launches"].items()
+             if (c > 0) != (k in want)}
+    if wrong:
+        raise AssertionError(
+            f"{node['client']} {node['rigor']} {node['node']}: pick "
+            f"{node['pick']} runs {sorted(want)}, launched "
+            f"{node['launches']}")
+
+
+def _emit_node(node: dict) -> None:
+    emit({k: v for k, v in node.items() if k != "_plan"})
+
+
+def run_planner(device) -> dict:
+    """The planner's paths on P1-P9: ESTIMATE (the dft_matmul kernel's main
+    path: the launch counts are set to 0 just before it and read just
+    after), MEASURE with a fresh wisdom file, the pinned clients' PATIENT
+    sweeps into the same file, every swept candidate's forward against
+    torch.fft's, and WISDOM_ONLY on that file.  Returns the ESTIMATE
+    path's dft_matmul launches and launch shapes, and the shapes the
+    sweeps launched each kernel with."""
+    from repro_torch.core.candidates import candidates
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.clients import torch_fft
+    from repro_torch.core.suite import Session
+    from repro_torch.core.wisdom import Wisdom
+
+    names = [p[0] for p in PROBLEMS]
+    table = {p: {"node": p} for p in names}
+
+    session = Session(TorchContext(device))
+    _reset_counts()
+    for pname in names:
+        node = _planned_node(session, pname, "estimate")
+        _emit_node(node)
+        if node["pick"] != ESTIMATE_PICKS[pname]:
+            raise AssertionError(f"TorchPlanned ESTIMATE {pname} picked "
+                                 f"{node['pick']}, the reference picks "
+                                 f"{ESTIMATE_PICKS[pname]}")
+        _check_launches(node, _problem(pname).rank)
+        table[pname].update(estimate_pick=node["pick"],
+                            estimate_init_forward_cold_ms=node[
+                                "init_forward_cold_ms"],
+                            estimate_execute_forward_ms=node[
+                                "execute_forward_ms"])
+    dft_ops, _ = kernel_ops("dft_matmul")
+    launches, shapes = dft_ops.LAUNCHES, dict(dft_ops.LAUNCH_SHAPES)
+    emit({"main_path": "TorchPlanned estimate", "launches": _counts()})
+    if launches <= 0:
+        raise AssertionError("TorchPlanned ESTIMATE did not launch dft_matmul")
+
+    if os.path.exists(WISDOM_PATH):
+        os.remove(WISDOM_PATH)
+    session = Session(TorchContext(device))
+    _reset_counts()
+    for pname in names:
+        node = _planned_node(session, pname, "measure", WISDOM_PATH)
+        _emit_node(node)
+        want = {c.key() for c in candidates(_problem(pname))}
+        times = node["measured_ms"]
+        if node["plan_source"] != "measure" or set(times) != want \
+                or not all(math.isfinite(t) for t in times.values()):
+            raise AssertionError(
+                f"TorchPlanned MEASURE {pname}: source {node['plan_source']}"
+                f", candidates {sorted(want)}, timed {times}")
+        table[pname].update(measure_pick=node["pick"],
+                            measure_init_forward_cold_ms=node[
+                                "init_forward_cold_ms"],
+                            measure_execute_forward_ms=node[
+                                "execute_forward_ms"],
+                            candidates=len(times))
+    sweep_shapes = [_launch_shapes()]
+    emit({"main_path": "TorchPlanned measure", "launches": _counts()})
+
+    session = Session(TorchContext(device))
+    _reset_counts()
+    for client, pname in PATIENT_PATHS:
+        node = _planned_node(session, pname, "patient", WISDOM_PATH, client)
+        _emit_node(node)
+        problem = _problem(pname)
+        backend = getattr(torch_fft, client).backend_filter
+        want = {c.key() for c in candidates(problem, patient=True)
+                if c.backend == backend}
+        times = node["measured_ms"]
+        if node["plan_source"] != "patient" or len(want) < 2 \
+                or set(times) != want \
+                or not all(math.isfinite(t) for t in times.values()):
+            raise AssertionError(
+                f"{client} PATIENT {pname}: source {node['plan_source']}, "
+                f"knobs {sorted(want)}, timed {times}")
+        _check_launches(node, problem.rank)
+        rec = Wisdom(WISDOM_PATH, device_kind=session.device_kind).lookup(
+            problem, scope=backend)
+        if rec is None or rec.key() != node["pick"]:
+            raise AssertionError(f"{client} PATIENT {pname}: wisdom holds "
+                                 f"{rec and rec.key()}, picked {node['pick']}")
+    sweep_shapes.append(_launch_shapes())
+    emit({"main_path": "pinned clients patient", "launches": _counts()})
+
+    for pname in names:
+        check_candidates(device, pname, candidates(_problem(pname)))
+    for client, pname in PATIENT_PATHS:
+        backend = getattr(torch_fft, client).backend_filter
+        check_candidates(device, pname, [
+            c for c in candidates(_problem(pname), patient=True)
+            if c.backend == backend])
+
+    session = Session(TorchContext(device))
+    for pname in names:
+        node = _planned_node(session, pname, "wisdom_only", WISDOM_PATH)
+        _emit_node(node)
+        if node["plan_source"] != "wisdom" \
+                or node["row_plan_sources"] != ["wisdom"] \
+                or node["pick"] != table[pname]["measure_pick"]:
+            raise AssertionError(
+                f"TorchPlanned WISDOM_ONLY {pname}: source "
+                f"{node['plan_source']} (rows {node['row_plan_sources']}), "
+                f"pick {node['pick']}, MEASURE picked "
+                f"{table[pname]['measure_pick']}")
+        _check_launches(node, _problem(pname).rank)
+        table[pname].update(wisdom_init_forward_cold_ms=node[
+                                "init_forward_cold_ms"],
+                            wisdom_execute_forward_ms=node[
+                                "execute_forward_ms"])
+    for pname in names:
+        emit({"planning": table[pname]})
+    return {"launches": launches, "shapes": shapes,
+            "sweep_shapes": sweep_shapes}
+
+
 def _events_ms(fn, reps: int) -> float:
     """Median of ``reps`` single-call times from CUDA events (after one
     warm call)."""
@@ -393,10 +698,14 @@ class Shape:
         self.dname = dname
 
     def kernel_call(self, inverse: bool = False, plan=None):
+        if self.kernel == "dft_matmul":
+            return self.ops.dft(self.x, inverse, matrix=plan)
         fn = self.ops.fft2 if self.kernel == "fft2_pallas" else self.ops.fft
         return fn(self.x, inverse, twiddles=plan)
 
     def oracle(self, inverse: bool):
+        if self.kernel == "dft_matmul":
+            return _dft_plain(self.ref, self.x, inverse)
         if self.kernel == "stockham_pallas":
             return self.ref.stockham_ref(self.x, 8, inverse)
         if self.kernel == "fft2_pallas":
@@ -407,6 +716,9 @@ class Shape:
         """The forward plan, and the plain version of the kernel's own
         arithmetic on it (what ``plain_ms`` times)."""
         device, dtype = self.x.device, self.x.dtype
+        if self.kernel == "dft_matmul":
+            m = self.ops.make_matrix(self.n, False, dtype, device)
+            return m, lambda: self.ref.apply_dft(self.x, m.w)
         if self.kernel == "stockham_pallas":
             t = self.ops.make_twiddles(self.n, 8, False, dtype, device)
             return t, lambda: self.ref.apply_stages(self.x, t.tw, t.radices,
@@ -439,14 +751,18 @@ class Shape:
             else (ops_ms, "operations")
 
     def algorithm_ops_ms(self) -> float | None:
-        """The four-step kernel's own flops, 8(n1 + n2) + 6 per point, over
-        the dtype's peak: what its algorithm costs beyond the bound (None
-        for the Stockham-stage kernels, whose flops are the 5 n log2(n))."""
-        if self.kernel != "fft4step":
+        """The kernel's own flops over the dtype's peak, what its algorithm
+        costs beyond the bound: 8(n1 + n2) + 6 per point for the four-step
+        kernel, 8n for the direct DFT (None for the Stockham-stage kernels,
+        whose flops are the 5 n log2(n))."""
+        if self.kernel == "fft4step":
+            n1, n2 = self.ops.choose_factors(self.n)
+            per_point = 8 * (n1 + n2) + 6
+        elif self.kernel == "dft_matmul":
+            per_point = 8 * self.n
+        else:
             return None
-        n1, n2 = self.ops.choose_factors(self.n)
-        flops = (8 * (n1 + n2) + 6) * self.n * self.rows
-        return flops / PEAK_FLOPS[self.dname] * 1e3
+        return per_point * self.n * self.rows / PEAK_FLOPS[self.dname] * 1e3
 
 
 def _shapes(main_path: dict, device, seed: int):
@@ -458,7 +774,8 @@ def _shapes(main_path: dict, device, seed: int):
 
 
 def check_main_path_shapes(device, main_path: dict) -> dict:
-    """At every shape the main path launched each kernel with, the kernel
+    """At every shape the main path (and the planner's sweeps) launched
+    each kernel with, the kernel
     with the main path's own knobs (radix 8, default tile) against its
     plain oracle in both directions; raises above ``PLAIN_TOL``.  Returns
     the worst rel-L2 and absolute error per shape."""
@@ -518,6 +835,8 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    # the plain versions' products run in full fp32, as the kernels do
+    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -527,7 +846,16 @@ def main() -> int:
     checks = check_kernels(device)
     main_path = run_main_path(device)
     check_failed_node(device)
-    errors = check_main_path_shapes(device, main_path)
+    planner = run_planner(device)
+    main_path["launches"]["dft_matmul"] = planner["launches"]
+    main_path["shapes"]["dft_matmul"] = planner["shapes"]
+    checked = {k: dict(v) for k, v in main_path["shapes"].items()}
+    for sweep in planner["sweep_shapes"]:
+        for kernel, shapes in sweep.items():
+            for key, n in shapes.items():
+                checked.setdefault(kernel, {}).setdefault(key, 0)
+                checked[kernel][key] += n
+    errors = check_main_path_shapes(device, {"shapes": checked})
     timings = time_kernels(device, main_path, errors)
 
     summary = []

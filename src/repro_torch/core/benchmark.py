@@ -25,6 +25,7 @@ from .results import ResultSink, Row
 from .schedule import FFT_SCHEDULE, Runner
 from .timer import Timer
 from .tree import BenchNode
+from .wisdom import Wisdom
 
 DEFAULT_ERROR_BOUND = 1e-5
 DEFAULT_WARMUPS = 2
@@ -67,7 +68,7 @@ def roundtrip_error(x: np.ndarray, y: np.ndarray) -> float:
 def run_node(node: BenchNode, *, context: TorchContext,
              config: BenchmarkConfig, writer: ResultSink,
              plan_cache: Optional[PlanCache] = None,
-             verbose: bool = False) -> None:
+             wisdom: Optional[Wisdom] = None, verbose: bool = False) -> None:
     """Drive one tree node through its schedule; record rows, never raise
     (a failed config is a recorded failure)."""
     p = node.problem
@@ -80,20 +81,27 @@ def run_node(node: BenchNode, *, context: TorchContext,
     schedule = FFT_SCHEDULE
     host_in = make_input(p, cfg.seed)
     runner = Runner(schedule, cfg.warmups, cfg.repetitions)
+    # the run's client, live when its record is emitted: every row of the
+    # run learns where its plan came from
+    holder: dict = {}
 
     def emit(rec):
         # a warmup record carries only its cold-build ops
         ops = (tuple(op for op, ev in rec.cache.items() if ev == "miss")
                if rec.warmup else schedule.op_names)
+        source = getattr(holder.get("client"), "plan_source", "")
         for op in ops:
             writer.add(Row(**base, run=rec.run, op=op,
                            time_ms=rec.times[op],
                            bytes=rec.nbytes.get(op, 0),
-                           plan_cache=rec.cache.get(op, "")))
+                           plan_cache=rec.cache.get(op, ""),
+                           plan_source=source))
 
     def make_client():
-        return node.client_cls(p, context, rigor=cfg.rigor,
-                               plan_cache=plan_cache)
+        holder["client"] = node.client_cls(p, context, rigor=cfg.rigor,
+                                           wisdom=wisdom,
+                                           plan_cache=plan_cache)
+        return holder["client"]
 
     try:
         _, last_out = runner.run(make_client, host_in, on_record=emit)
@@ -124,6 +132,7 @@ def run_node(node: BenchNode, *, context: TorchContext,
 def run_nodes(nodes: Sequence[BenchNode], *, context: TorchContext,
               config: BenchmarkConfig, writer: ResultSink,
               plan_cache: Optional[PlanCache] = None,
+              wisdom: Optional[Wisdom] = None,
               verbose: bool = False) -> ResultSink:
     """The suite loop: timed context create, every node, context destroy."""
     with Timer() as t_ctx:
@@ -133,6 +142,6 @@ def run_nodes(nodes: Sequence[BenchNode], *, context: TorchContext,
                    t_ctx.time_ms))
     for node in nodes:
         run_node(node, context=context, config=config, writer=writer,
-                 plan_cache=plan_cache, verbose=verbose)
+                 plan_cache=plan_cache, wisdom=wisdom, verbose=verbose)
     context.destroy()
     return writer

@@ -1,14 +1,21 @@
-"""The planner's candidate vocabulary: a backend plus its knobs, and which
-problems each backend can transform on Hopper.
+"""The planner's candidate space: backends, feasibility on Hopper, and
+enumeration.
 
 The backend keys are the reference package's (``xla``,
 ``stockham_pallas``, ...), and :meth:`Candidate.key` renders the same plan
-keys, so a plan the reference or a wisdom record selected runs the same
-schedule here (:meth:`Candidate.from_key`).
+keys, per-axis ``nd[...]`` ones included, so a plan the reference or a
+wisdom record selected runs the same schedule here
+(:meth:`Candidate.from_key`).  Feasibility follows the reference's rules
+with each kernel's Hopper cap (227 KB of shared memory per block) in place
+of the TPU's VMEM budgets, and the PATIENT grid offers only the knobs a
+kernel honors at the problem's shape.  Enumeration prunes per-axis
+assignments by the active cost model (:mod:`.costmodel`), imported lazily
+as in the reference.
 """
 
 from __future__ import annotations
 
+import itertools
 import re
 from dataclasses import dataclass
 from typing import Any
@@ -18,31 +25,70 @@ from .extents import _factors_only
 
 _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)(?:\((.*)\))?$")
 
+#: Whole-transform backends: one engine call covers every axis, so the
+#: separable path's transpose traffic never happens.
+FUSED_ND = ("xla", "fft2_pallas")
+
+#: Every backend the port's planner knows, in the reference's enumeration
+#: (preference-tie) order.  The reference's ``sixstep``, ``chirpz_pallas``
+#: and ``bluestein`` wait for the large-N/oddshape slice; its distributed
+#: decompositions for the distributed one.
+BACKENDS = ("xla", "stockham", "fourstep", "dft", "fourstep_pallas",
+            "stockham_pallas", "fft2_pallas")
+
 
 @dataclass(frozen=True)
 class Candidate:
-    """One point in the planner's search space: a backend applied to every
-    axis, with its knobs (``options``, in key order)."""
+    """One point in the planner's search space: a backend with its knobs
+    (``options``, in key order) applied to every axis, or -- when ``axes``
+    is non-empty -- a per-axis assignment with the placeholder backend
+    ``'nd'``: ``axes[i]`` transforms ``extents[i]``, outermost first.
+    ``mesh`` is a distributed selection's device-mesh shape, carried so
+    wisdom records of the reference's distributed plans read back whole;
+    the port runs none."""
 
     backend: str
     options: tuple[tuple[str, Any], ...] = ()
+    axes: tuple["Candidate", ...] = ()
+    mesh: tuple[int, ...] = ()
 
     def opts(self) -> dict[str, Any]:
         return dict(self.options)
 
+    def per_axis(self, rank: int) -> tuple["Candidate", ...]:
+        """The axis-by-axis assignment this candidate denotes: its explicit
+        ``axes``, or the same (backend, knobs) replicated across ``rank``."""
+        if self.axes:
+            if len(self.axes) != rank:
+                raise ValueError(
+                    f"candidate assigns {len(self.axes)} axes to a rank-"
+                    f"{rank} problem: {self.key()}")
+            return self.axes
+        return (Candidate(self.backend, self.options),) * rank
+
     def key(self) -> str:
+        if self.axes:
+            return "nd[" + ";".join(a.key() for a in self.axes) + "]"
+        base = self.backend
+        if self.mesh:
+            base += "[" + "x".join(str(s) for s in self.mesh) + "]"
         o = ",".join(f"{k}={v}" for k, v in self.options)
-        return f"{self.backend}({o})" if o else self.backend
+        return f"{base}({o})" if o else base
 
     @classmethod
     def from_key(cls, key: str) -> "Candidate":
-        """Parse a plan key such as ``stockham_pallas(radix=4,tile_b=16)``.
-        Integer knob values come back as ints.  Per-axis (``nd[...]``) and
-        mesh (``slab[4]``) keys belong to later slices and raise."""
-        m = _KEY.match(key.strip())
+        """Parse a plan key such as ``stockham_pallas(radix=4,tile_b=16)``
+        or ``nd[dft;fourstep_pallas(tile_b=8)]``.  Integer knob values come
+        back as ints.  Mesh keys (``slab[4]``) belong to the distributed
+        slice and raise."""
+        key = key.strip()
+        if key.startswith("nd[") and key.endswith("]"):
+            return cls("nd", axes=tuple(cls.from_key(k)
+                                        for k in key[3:-1].split(";")))
+        m = _KEY.match(key)
         if m is None:
-            raise ValueError(f"unsupported plan key {key!r} (homogeneous "
-                             "'backend(k=v,...)' keys only)")
+            raise ValueError(f"unsupported plan key {key!r} ('backend(k=v,"
+                             "...)' and 'nd[...]' keys only)")
         backend, body = m.group(1), m.group(2)
         options = []
         for item in filter(None, (body or "").split(",")):
@@ -51,6 +97,14 @@ class Candidate:
                 raise ValueError(f"bad knob {item!r} in plan key {key!r}")
             options.append((k, int(v) if re.fullmatch(r"-?\d+", v) else v))
         return cls(backend, tuple(options))
+
+
+def _pow2(n: int) -> bool:
+    return n >= 1 and (n & (n - 1)) == 0
+
+
+def _smooth(n: int) -> bool:
+    return n >= 1 and _factors_only(n, (2, 3, 5, 7, 11, 13))
 
 
 def _smooth7(n: int) -> bool:
@@ -74,6 +128,13 @@ def axis_feasible(backend: str, n: int, precision: str = "float") -> bool:
     than ``xla`` have no per-axis form."""
     if backend == "xla":
         return True
+    if backend == "stockham":
+        return _pow2(n)
+    if backend == "fourstep":
+        return _smooth(n)
+    if backend == "dft":
+        from ..kernels.dft_matmul.dft_matmul import MAX_N
+        return 1 <= n <= MAX_N
     if backend == "stockham_pallas":
         return _smooth7(n) and n <= stockham_max_n(precision)
     if backend == "fourstep_pallas":
@@ -90,6 +151,20 @@ def axis_engine_n(problem: Problem, axis: int) -> int:
     if problem.complex_input or axis < problem.rank - 1:
         return n
     return n // 2 if n % 2 == 0 and n > 1 else n
+
+
+def axis_elems(problem: Problem, axis: int) -> int:
+    """Complex elements the transform carries while working on ``axis``:
+    the whole signal for complex kinds; for real kinds the packed half on
+    the innermost axis (even n) and the n_last//2 + 1 half-spectrum on
+    every outer one."""
+    if problem.complex_input:
+        return problem.n_elems
+    n_last = problem.extents[-1]
+    rows = problem.n_elems // n_last
+    if axis == problem.rank - 1:
+        return rows * (n_last // 2) if n_last % 2 == 0 else problem.n_elems
+    return rows * (n_last // 2 + 1)
 
 
 def fft2_feasible(problem: Problem) -> bool:
@@ -116,3 +191,102 @@ def backend_supports(backend: str, problem: Problem) -> bool:
     return all(axis_feasible(backend, axis_engine_n(problem, i),
                              problem.precision)
                for i in range(problem.rank))
+
+
+def knobs_fit(problem: Problem, cand: Candidate) -> bool:
+    """Does every launch of ``cand``'s kernel on ``problem`` fit one block
+    with its ``tile_b`` (and ``radix``) knobs?  A tile is capped at the
+    rows a launch has, as the wrappers cap it."""
+    from ..kernels.fft2_pallas import fft2_pallas as f2
+    from ..kernels.fft4step import fft4step as fs
+    from ..kernels.stockham_pallas import stockham_pallas as sp
+    from ..kernels.stockham_pallas.ops import SMEM_LIMIT_BYTES, smem_bytes
+
+    opts = cand.opts()
+    tile_b, radix = opts.get("tile_b"), opts.get("radix", 8)
+    if tile_b is None:
+        return True
+    itemsize = 8 if problem.precision == "float" else 16
+    if cand.backend == "fft2_pallas":
+        n1, n2 = problem.extents[0], axis_engine_n(problem, 1)
+        stages = sum(map(len, f2.schedules(n1, n2, radix)))
+        tile = min(tile_b, problem.batch)
+        return n1 * n2 == 1 or f2.smem_bytes(n1 * n2, tile, itemsize,
+                                             stages) <= SMEM_LIMIT_BYTES
+    for axis in range(problem.rank):
+        n = axis_engine_n(problem, axis)
+        if n == 1:
+            continue   # a length-1 axis launches nothing
+        tile = min(tile_b, axis_elems(problem, axis) // n)
+        if cand.backend == "stockham_pallas":
+            need = smem_bytes(n, tile, itemsize, len(sp.radix_schedule(n, radix)))
+        elif cand.backend == "fourstep_pallas":
+            need = fs.smem_bytes(*fs.choose_factors(n), tile, itemsize)
+        else:
+            continue
+        if need > SMEM_LIMIT_BYTES:
+            return False
+    return True
+
+
+def candidates(problem: Problem, patient: bool = False) -> list[Candidate]:
+    """Enumerate feasible (backend, knob) combinations for a problem: the
+    vendor path, every homogeneous backend that supports the problem, the
+    per-axis assignments for rank >= 2 (pruned by the bytes-moved model),
+    and under ``patient`` the kernels' knobs (batch tiles, radix
+    schedules) -- those that fit a block at this problem's shape."""
+    out: list[Candidate] = [Candidate("xla")]
+    for b in BACKENDS[1:]:
+        if backend_supports(b, problem):
+            out.append(Candidate(b))
+    if problem.rank >= 2:
+        out += _mixed_candidates(problem, limit=12 if patient else 6)
+    if patient:
+        extra = []
+        for c in out:
+            if c.options or c.axes:
+                continue
+            if c.backend == "fourstep_pallas":
+                for tb in (4, 8, 16):
+                    extra.append(Candidate("fourstep_pallas", (("tile_b", tb),)))
+            elif c.backend == "stockham_pallas":
+                for tb in (4, 16):
+                    for radix in (4, 8):
+                        extra.append(Candidate(
+                            "stockham_pallas",
+                            (("radix", radix), ("tile_b", tb))))
+            elif c.backend == "fft2_pallas":
+                for tb in (2, 8):
+                    for radix in (4, 8):
+                        extra.append(Candidate(
+                            "fft2_pallas",
+                            (("radix", radix), ("tile_b", tb))))
+        out += [c for c in extra if knobs_fit(problem, c)]
+    return out
+
+
+def _mixed_candidates(problem: Problem, limit: int) -> list[Candidate]:
+    """Per-axis backend assignments, pruned by the bytes-moved model: each
+    axis keeps its two separable backends with the fewest modeled passes at
+    its engine length; the cross product, minus homogeneous assignments,
+    is ranked by the full ND model and cut to ``limit``."""
+    from .costmodel import estimate_bytes_moved, hbm_passes
+
+    per_axis: list[list[str]] = []
+    for i in range(problem.rank):
+        n_eng = axis_engine_n(problem, i)
+        feas = [b for b in BACKENDS
+                if b not in FUSED_ND
+                and axis_feasible(b, n_eng, problem.precision)]
+        feas.sort(key=lambda b: hbm_passes(b, n_eng, problem.precision))
+        per_axis.append(feas[:2])
+    scored = []
+    for combo in itertools.product(*per_axis):
+        if len(set(combo)) == 1:
+            continue  # homogeneous: already in the candidate list
+        cand = Candidate("nd", axes=tuple(Candidate(b) for b in combo))
+        cost = estimate_bytes_moved(problem, cand)
+        if cost != float("inf"):
+            scored.append((cost, cand))
+    scored.sort(key=lambda t: t[0])
+    return [cand for _, cand in scored[:limit]]

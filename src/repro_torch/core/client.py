@@ -93,10 +93,12 @@ class TorchContext:
             self.device = torch.device("cuda", 0)
         self.device_kind = "?"
 
-    def create(self) -> None:  # timed once
+    def discover_kind(self) -> str:
+        """The device kind that wisdom and cost tables are keyed by:
+        ``"cpu"``, or the card's name.  Raises when the device is
+        missing."""
         if self.device.type == "cpu":
-            self.device_kind = "cpu"
-            return
+            return "cpu"
         if self.device.type != "cuda":
             raise RuntimeError(f"unsupported device {self.device}")
         if not torch.cuda.is_available() \
@@ -104,10 +106,14 @@ class TorchContext:
             raise RuntimeError(
                 f"device {self.device} is not available: no CUDA GPU found "
                 "(pass device='cpu' to run on the CPU)")
-        self.device_kind = torch.cuda.get_device_name(self.device)
-        from ..kernels import _build
-        for name in _build.sources():
-            _build.library(name)
+        return torch.cuda.get_device_name(self.device)
+
+    def create(self) -> None:  # timed once
+        self.device_kind = self.discover_kind()
+        if self.device.type == "cuda":
+            from ..kernels import _build
+            for name in _build.sources():
+                _build.library(name)
 
     def destroy(self) -> None:
         pass

@@ -14,6 +14,21 @@
                    the whole 2-D transform in one launch, real kinds
                    through ``rfft.rfftn_packed`` (client ``TorchFft2Pallas``;
                    knobs: tile_b, radix); rank 2 only
+  dft              the hand-written batched direct DFT kernel
+                   (``csrc/dft.cu``) for axes up to 128 points, per axis
+                   (knob: tile_b); it has no client of its own, as in the
+                   reference: the planner reaches it (ESTIMATE's rank-1
+                   pin and per-axis ``nd[...]`` plans)
+  stockham,        the reference's plain baselines in torch
+  fourstep         (``fft/stockham.py``, ``fft/fourstep.py``; clients
+                   ``TorchStockham``, ``TorchFourStep``)
+
+``TorchPlanned`` is the open planner: its rigor (ESTIMATE, MEASURE,
+PATIENT, WISDOM_ONLY) picks the backend, or a per-axis assignment
+(``nd[...]``), from every candidate.  The pinned clients take the rigors
+too: MEASURE/PATIENT sweep only their own backend's knobs, with wisdom
+scoped by the backend.  A plan naming a backend the port lacks (from
+wisdom or a key) is a failed node that names it.
 
 A client owns the device buffers and the built transforms of ONE Problem.
 ``init_forward``/``init_inverse`` are the measured build: for the kernel
@@ -29,22 +44,26 @@ per op.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ...fft import nd
+from ...fft import fourstep, nd, stockham
 from ...fft import rfft as rfft_mod
 from ...fft.reference import half_roots
+from ...kernels.dft_matmul import ops as dft_ops
 from ...kernels.fft2_pallas import ops as f2_ops
 from ...kernels.fft4step import ops as fs_ops
 from ...kernels.stockham_pallas import ops as sp_ops
-from ..candidates import Candidate, axis_engine_n
+from ..candidates import Candidate, axis_engine_n, candidates
 from ..client import FFTClient, Problem, TorchContext
-from ..plan import Plan, PlanCache, PlanRigor, cached_build, make_plan
+from ..plan import (Plan, PlanCache, PlanRigor, cached_build, make_plan,
+                    measure_plan)
 from ..registry import register_client
+from ..wisdom import Wisdom
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64,
@@ -67,42 +86,63 @@ def _complex_dtype(problem: Problem) -> torch.dtype:
     return torch.complex64 if problem.precision == "float" else torch.complex128
 
 
-def _twiddle_table(problem: Problem, cand: Candidate, inverse: bool,
-                   device) -> dict:
-    """The plan of every engine length the problem's axes need: Stockham
-    twiddles, or the four-step kernel's W1/W2/T tables."""
-    dtype = _complex_dtype(problem)
+def _axis_table(cand: Candidate, n: int, inverse: bool, dtype: torch.dtype,
+                device):
+    """The plan state of one kernel axis of engine length ``n``: Stockham
+    twiddles, the four-step kernel's W1/W2/T tables or the DFT matrix
+    (None for the plain-torch baselines, and for a length-1 axis, which
+    the FFT kernels return untouched)."""
+    if cand.backend == "dft":
+        return dft_ops.make_matrix(n, inverse, dtype, device)
+    if n == 1:
+        return None
     if cand.backend == "stockham_pallas":
-        radix = cand.opts().get("radix", 8)
-        make = lambda n: sp_ops.make_twiddles(n, radix, inverse, dtype, device)
-    elif cand.backend == "fourstep_pallas":
-        make = lambda n: fs_ops.make_tables(n, inverse, dtype, device)
-    else:
-        raise ValueError(f"unknown backend {cand.backend!r}")
-    lengths = {axis_engine_n(problem, i) for i in range(problem.rank)}
-    return {n: make(n) for n in sorted(lengths) if n > 1}
+        return sp_ops.make_twiddles(n, cand.opts().get("radix", 8), inverse,
+                                    dtype, device)
+    if cand.backend == "fourstep_pallas":
+        return fs_ops.make_tables(n, inverse, dtype, device)
+    return None
 
 
-def _engine(cand: Candidate, table: dict) -> Callable:
-    """cfft(x, inverse=False) along the LAST axis through the kernel, bound
-    to the prebuilt table of each length."""
+def _engine(cand: Candidate, table) -> Callable:
+    """cfft(x, inverse=False) along the LAST axis for one axis of the plan,
+    a kernel bound to that axis's prebuilt table.  A backend the port lacks
+    raises with its name."""
     opts = cand.opts()
     tile_b = opts.get("tile_b")
     if cand.backend == "stockham_pallas":
         radix = opts.get("radix", 8)
+        return lambda x, inverse=False: sp_ops.fft(
+            x, inverse, tile_b=tile_b, radix=radix, twiddles=table)
+    if cand.backend == "fourstep_pallas":
+        return lambda x, inverse=False: fs_ops.fft(x, inverse, tile_b=tile_b,
+                                                   twiddles=table)
+    if cand.backend == "dft":
+        return lambda x, inverse=False: dft_ops.dft(x, inverse, tile_b=tile_b,
+                                                    matrix=table)
+    if cand.backend == "stockham":
+        return stockham.fft
+    if cand.backend == "fourstep":
+        return fourstep.fft
+    raise ValueError(f"backend {cand.backend!r} of plan {cand.key()} is not "
+                     "in the port")
 
-        def cfft(x, inverse=False):
-            n = x.shape[-1]
-            return sp_ops.fft(x, inverse, tile_b=tile_b, radix=radix,
-                              twiddles=table[n] if n > 1 else None)
-    elif cand.backend == "fourstep_pallas":
-        def cfft(x, inverse=False):
-            n = x.shape[-1]
-            return fs_ops.fft(x, inverse, tile_b=tile_b,
-                              twiddles=table[n] if n > 1 else None)
-    else:
-        raise ValueError(f"unknown backend {cand.backend!r}")
-    return cfft
+
+def _axis_engines(problem: Problem, cand: Candidate, inverse: bool,
+                  device) -> tuple[list[Callable], int]:
+    """One engine per axis from the (possibly per-axis) plan, and the bytes
+    of their tables; axes with the same backend, knobs and engine length
+    share one table."""
+    dtype = _complex_dtype(problem)
+    tables: dict = {}
+    engines = []
+    for axis, c in enumerate(cand.per_axis(problem.rank)):
+        n = axis_engine_n(problem, axis)
+        key = (c.key(), n)
+        if key not in tables:
+            tables[key] = _axis_table(c, n, inverse, dtype, device)
+        engines.append(_engine(c, tables[key]))
+    return engines, _bytes(*tables.values())
 
 
 def _fft2_twiddles(problem: Problem, cand: Candidate, inverse: bool,
@@ -160,14 +200,12 @@ def _forward_fn(problem: Problem, cand: Candidate, device) -> Transform:
         roots = _pack_roots(problem, False, device)
         return Transform(lambda x: rfft_mod.rfftn_packed(x, eng2, 2, roots),
                          _bytes(tw, roots=roots))
-    table = _twiddle_table(problem, cand, False, device)
-    eng = _engine(cand, table)
+    engines, nbytes = _axis_engines(problem, cand, False, device)
     if problem.complex_input:
-        return Transform(lambda x: nd.fftn(x, eng, axes=axes),
-                         _bytes(*table.values()))
+        return Transform(lambda x: nd.fftn(x, engines, axes=axes), nbytes)
     roots = _pack_roots(problem, False, device)
-    return Transform(lambda x: nd.rfftn(x, eng, axes=axes, roots=roots),
-                     _bytes(*table.values(), roots=roots))
+    return Transform(lambda x: nd.rfftn(x, engines, axes=axes, roots=roots),
+                     nbytes + _bytes(roots=roots))
 
 
 def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
@@ -185,15 +223,14 @@ def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
         roots = _pack_roots(problem, True, device)
         return Transform(lambda y: rfft_mod.irfftn_packed(
             y, problem.extents, eng2, roots), _bytes(tw, roots=roots))
-    table = _twiddle_table(problem, cand, True, device)
-    eng = _engine(cand, table)
+    engines, nbytes = _axis_engines(problem, cand, True, device)
     if problem.complex_input:
-        return Transform(lambda y: nd.fftn(y, eng, axes=axes, inverse=True),
-                         _bytes(*table.values()))
+        return Transform(lambda y: nd.fftn(y, engines, axes=axes,
+                                           inverse=True), nbytes)
     roots = _pack_roots(problem, True, device)
-    return Transform(lambda y: nd.irfftn(y, problem.extents, eng, axes=axes,
-                                         roots=roots),
-                     _bytes(*table.values(), roots=roots))
+    return Transform(lambda y: nd.irfftn(y, problem.extents, engines,
+                                         axes=axes, roots=roots),
+                     nbytes + _bytes(roots=roots))
 
 
 class TorchFFTClient(FFTClient):
@@ -201,15 +238,16 @@ class TorchFFTClient(FFTClient):
     binary per library (gearshifft_cufft, gearshifft_fftw, ...)."""
 
     title = "torchfft"
-    backend_filter: str = "xla"
+    backend_filter: str | None = "xla"   # None: the open planner
     rigor = PlanRigor.ESTIMATE
 
     def __init__(self, problem: Problem, context: TorchContext,
-                 rigor: PlanRigor | None = None,
+                 rigor: PlanRigor | None = None, wisdom: Wisdom | None = None,
                  plan_cache: PlanCache | None = None):
         super().__init__(problem, context)
         if rigor is not None:
             self.rigor = rigor
+        self.wisdom = wisdom
         self.device = context.device
         self.plan_cache = plan_cache
         self.cache_events: dict[str, str] = {}
@@ -264,15 +302,63 @@ class TorchFFTClient(FFTClient):
     def _device_kind(self) -> str:
         return getattr(self.context, "device_kind", "?")
 
-    def _select(self) -> Candidate:
-        make = lambda: make_plan(self.problem, self.rigor, self.backend_filter)
-        if self.plan_cache is not None:
-            pkey = PlanCache.plan_key(self._device_kind(), self.problem,
-                                      self.rigor, scope=self.backend_filter)
-            self.plan, _ = self.plan_cache.plan(pkey, make)
+    def _make_plan(self) -> Plan | None:
+        """The open planner (``backend_filter`` None) plans with every
+        rigor over every candidate.  A client pinned to one backend
+        searches only that backend's knobs, with wisdom scoped by the
+        backend, as in the reference."""
+        build = lambda c: _forward_fn(self.problem, c, self.device)
+        if self.backend_filter is None:
+            return make_plan(self.problem, self.rigor, build=build,
+                             wisdom=self.wisdom, device=self.device)
+        t0 = time.perf_counter()
+        ms = lambda: (time.perf_counter() - t0) * 1e3
+        measured = self.rigor in (PlanRigor.MEASURE, PlanRigor.PATIENT)
+        if (measured or self.rigor is PlanRigor.WISDOM_ONLY) \
+                and self.wisdom is not None:
+            cand = self.wisdom.lookup(self.problem, scope=self.backend_filter)
+            if cand is not None and cand.backend == self.backend_filter:
+                return Plan(self.problem, cand, self.rigor, ms(),
+                            source="wisdom")
+        if self.rigor is PlanRigor.WISDOM_ONLY:
+            return None   # fftw NULL plan: no persisted selection, no sweep
+        cands = [c for c in candidates(
+            self.problem, patient=(self.rigor is PlanRigor.PATIENT))
+            if c.backend == self.backend_filter] \
+            or [Candidate(self.backend_filter)]
+        if measured and len(cands) > 1:
+            cand, timings = measure_plan(self.problem, build, cands,
+                                         self.device)
+            if self.wisdom is not None:   # persist the tuned knobs
+                self.wisdom.record(self.problem, cand,
+                                   scope=self.backend_filter,
+                                   measured_ms=timings.get(cand.key()),
+                                   rigor=self.rigor.value)
         else:
-            self.plan = make()
-        return self.plan.candidate
+            cand, timings = cands[0], {}
+        return Plan(self.problem, cand, self.rigor, ms(), timings,
+                    source=self.rigor.value if timings else "estimate")
+
+    def _select(self) -> Candidate | None:
+        if self.plan_cache is not None:
+            # memoized selection: a MEASURE/PATIENT sweep runs at most once
+            # per problem and scope
+            pkey = PlanCache.plan_key(self._device_kind(), self.problem,
+                                      self.rigor,
+                                      scope=self.backend_filter or "*")
+            plan, _ = self.plan_cache.plan(pkey, self._make_plan)
+        else:
+            plan = self._make_plan()
+        if plan is None:
+            return None
+        self.plan = plan
+        return plan.candidate
+
+    @property
+    def plan_source(self) -> str:
+        """Where this client's plan came from (``Plan.source``): the result
+        rows' ``plan_source`` column when wisdom is attached."""
+        return self.plan.source if self.plan is not None else ""
 
     def _build(self, op: str, direction: str, cand: Candidate,
                make: Callable) -> Transform:
@@ -288,6 +374,8 @@ class TorchFFTClient(FFTClient):
 
     def init_forward(self) -> None:
         cand = self._select()
+        if cand is None:
+            raise RuntimeError("NULL plan (wisdom miss)")  # fftw semantics
         self._fwd = self._build("init_forward", "forward", cand, _forward_fn)
         self._plan_bytes = self._fwd.plan_bytes
 
@@ -341,3 +429,22 @@ class TorchFourStepPallas(TorchFFTClient):
 class TorchFft2Pallas(TorchFFTClient):
     title = "TorchFft2Pallas"
     backend_filter = "fft2_pallas"
+
+
+@register_client()
+class TorchStockham(TorchFFTClient):
+    title = "TorchStockham"
+    backend_filter = "stockham"
+
+
+@register_client()
+class TorchFourStep(TorchFFTClient):
+    title = "TorchFourStep"
+    backend_filter = "fourstep"
+
+
+@register_client()
+class TorchPlanned(TorchFFTClient):
+    """Planner-driven client: the rigor decides the backend, fftw-style."""
+    title = "TorchPlanned"
+    backend_filter = None

@@ -1,0 +1,268 @@
+"""The planner's bytes-moved cost model (ESTIMATE), as a fittable table.
+
+The reference package's model with its coefficients unchanged: the
+:class:`CostCoefficients` defaults are the reference's, bit for bit, and a
+coefficient-table file (``load_tables``/``save_tables``) written by either
+package reads the same in the other.  No table has been fitted on the
+H100 yet, so ESTIMATE ranks by the hand-written pass counts.
+
+Two things differ, both for Hopper:
+
+* the kernels' feasibility is the Hopper cap of each kernel, which depends
+  on the precision (the Stockham kernel holds 14406 complex64 or 7203
+  complex128 points in one block, the four-step kernel 14464 / 7216, the
+  fused rank-2 kernel 8192 / 4096), where the reference prices
+  ``stockham_pallas`` with a VMEM budget apart from its cap.  So
+  :meth:`CostModel.hbm_passes` takes the precision, and
+  :meth:`CostModel.estimate` passes the problem's;
+* the distributed branch is left out (the port has no distributed
+  backends).
+
+A module-level *active* model (:func:`get_active_model`,
+:func:`set_active_model`, :func:`use_model`) is what ``hbm_passes``,
+``estimate_bytes_moved`` and ``estimate_choice`` consult, so a Session that
+installs a table re-ranks ESTIMATE picks and per-axis pruning at once.
+"""
+
+from __future__ import annotations
+
+import json
+import warnings
+from contextlib import contextmanager
+from dataclasses import dataclass, fields
+from typing import Optional
+
+from .candidates import (FUSED_ND, Candidate, _smooth7, axis_elems,
+                         axis_engine_n, axis_feasible, candidates,
+                         fft2_feasible)
+from .client import Problem
+from .extents import next_pow2 as _next_pow2
+
+#: Schema stamped into coefficient-table files; loaders reject others.
+COSTMODEL_SCHEMA_VERSION = 1
+
+
+@dataclass(frozen=True)
+class CostCoefficients:
+    """Every fittable constant of the bytes-moved model, with the
+    reference's hand-written values as defaults (the distributed and
+    chirp ones too, so a table file round-trips whole)."""
+
+    xla_smooth_passes: float = 2.0
+    xla_chirp_passes: float = 6.0
+    stockham_stage_passes: float = 1.0
+    fourstep_level_passes: float = 2.0
+    dft_passes: float = 1.0
+    fourstep_pallas_passes: float = 1.0
+    stockham_pallas_passes: float = 1.0
+    sixstep_passes: float = 5.0
+    chirpz_smooth_passes: float = 5.0
+    chirpz_pow2_passes: float = 13.0
+    bluestein_stage_passes: float = 3.0
+    bluestein_setup_passes: float = 2.0
+    transpose_passes: float = 2.0
+    dist_link_cost: float = 4.0
+    dist_a2a_latency_bytes: float = float(1 << 20)
+    dist1d_twiddle_passes: float = 1.0
+    # rank-1 problems at or below this inner engine length go straight to
+    # the single-product dft kernel
+    dft_pin_max_n: int = 128
+
+    def to_dict(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in fields(self)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CostCoefficients":
+        known = {f.name for f in fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            warnings.warn(f"ignoring unknown cost coefficients: {unknown}")
+        return cls(**{k: (int(v) if k == "dft_pin_max_n" else float(v))
+                      for k, v in d.items() if k in known})
+
+
+DEFAULT_COEFFICIENTS = CostCoefficients()
+
+
+class CostModel:
+    """Bytes-moved model over one :class:`CostCoefficients` table;
+    ``device_kind`` labels the device it was fitted for (``"default"``: the
+    hand-written table) and ``source`` its provenance."""
+
+    def __init__(self, coeffs: CostCoefficients = DEFAULT_COEFFICIENTS,
+                 device_kind: str = "default",
+                 source: str = "hand-written defaults"):
+        self.coeffs = coeffs
+        self.device_kind = device_kind
+        self.source = source
+
+    def __repr__(self) -> str:
+        return f"CostModel({self.device_kind!r}, source={self.source!r})"
+
+    def hbm_passes(self, backend: str, n: int,
+                   precision: str = "float") -> float:
+        """Modeled device-memory round trips of the whole signal for one
+        length-n transform; ``inf`` marks a choice the backend cannot run
+        at this length and precision on Hopper."""
+        c = self.coeffs
+        if not axis_feasible(backend, n, precision):
+            return float("inf")
+        if backend == "xla":
+            if _smooth7(n):
+                return c.xla_smooth_passes
+            # a non-smooth length sends the vendor library down its chirp
+            # fallback at the padded power-of-two length
+            return c.xla_chirp_passes * (_next_pow2(2 * n - 1) / n)
+        if backend == "stockham":
+            return c.stockham_stage_passes * float(max(1, n.bit_length() - 1))
+        if backend == "fourstep":
+            levels, m = 1, n
+            while m > 128:
+                m = -(-m // 128)
+                levels += 1
+            return c.fourstep_level_passes * levels
+        if backend == "dft":
+            return c.dft_passes
+        if backend == "fourstep_pallas":
+            return c.fourstep_pallas_passes
+        if backend == "stockham_pallas":
+            return c.stockham_pallas_passes
+        return float("inf")
+
+    def estimate(self, problem: Problem, cand: Candidate) -> float:
+        """Modeled device-memory bytes for the full transform under
+        ``cand`` (``inf``: infeasible on Hopper).  Whole-transform
+        backends move the signal their passes with no transpose traffic;
+        separable assignments pay, per axis, the engine's passes at its
+        engine length plus two transpose passes for every non-innermost
+        axis, each pass reading and writing the axis's live elements."""
+        c = self.coeffs
+        complex_itemsize = 16 if problem.precision == "double" else 8
+        if cand.mesh:
+            return float("inf")   # the port has no distributed backends
+        if cand.backend in FUSED_ND:
+            elems = axis_elems(problem, problem.rank - 1)
+            if cand.backend == "xla":
+                passes = max(self.hbm_passes("xla", axis_engine_n(problem, i))
+                             for i in range(problem.rank))
+            else:          # fft2_pallas: one read + one write of the tile
+                if not fft2_feasible(problem):
+                    return float("inf")
+                passes = 1.0
+            return passes * 2.0 * elems * complex_itemsize
+        total = 0.0
+        for axis, ax_cand in enumerate(cand.per_axis(problem.rank)):
+            n_eng = axis_engine_n(problem, axis)
+            passes = self.hbm_passes(ax_cand.backend, n_eng,
+                                     problem.precision)
+            if passes == float("inf"):
+                return passes
+            if axis != problem.rank - 1:
+                passes += c.transpose_passes
+            total += (passes * 2.0 * axis_elems(problem, axis)
+                      * complex_itemsize)
+        return total
+
+    def estimate_choice(self, problem: Problem) -> Candidate:
+        """The ESTIMATE heuristic: tiny rank-1 problems go straight to the
+        dft kernel (launch overhead dominates traffic there); everything
+        else takes the candidate that moves the fewest modeled bytes, ties
+        keeping the earlier entry (the vendor path first, per-axis
+        assignments last)."""
+        cands = candidates(problem)
+        by_backend = {c.backend: c for c in cands}
+        if "dft" in by_backend and problem.rank == 1 \
+                and problem.extents[-1] <= self.coeffs.dft_pin_max_n:
+            return by_backend["dft"]
+        best, best_cost = by_backend["xla"], float("inf")
+        for c in cands:
+            cost = self.estimate(problem, c)
+            if cost < best_cost:
+                best, best_cost = c, cost
+        return best
+
+
+#: The hand-written model, installed by default.
+DEFAULT_MODEL = CostModel()
+
+_active_model: CostModel = DEFAULT_MODEL
+
+
+def get_active_model() -> CostModel:
+    """The model the planner consults."""
+    return _active_model
+
+
+def set_active_model(model: Optional[CostModel]) -> CostModel:
+    """Install ``model`` (None restores the default); returns the previous
+    active model."""
+    global _active_model
+    prev = _active_model
+    _active_model = model if model is not None else DEFAULT_MODEL
+    return prev
+
+
+@contextmanager
+def use_model(model: Optional[CostModel]):
+    """Scoped :func:`set_active_model`: a Session installs its device's
+    table for the duration of a run and restores the previous one."""
+    prev = set_active_model(model)
+    try:
+        yield get_active_model()
+    finally:
+        set_active_model(prev)
+
+
+def hbm_passes(backend: str, n: int, precision: str = "float") -> float:
+    return get_active_model().hbm_passes(backend, n, precision)
+
+
+def estimate_bytes_moved(problem: Problem, cand: Candidate) -> float:
+    return get_active_model().estimate(problem, cand)
+
+
+def estimate_choice(problem: Problem) -> Candidate:
+    return get_active_model().estimate_choice(problem)
+
+
+def load_tables(path: str) -> dict[str, CostModel]:
+    """Load a coefficient-table file (``{"schema": 1, "tables":
+    {device_kind: {coeff: value}}, ...}``); raises on another schema."""
+    with open(path) as f:
+        doc = json.load(f)
+    schema = doc.get("schema")
+    if schema != COSTMODEL_SCHEMA_VERSION:
+        raise ValueError(
+            f"cost-model table {path} has schema {schema!r}; this reader "
+            f"understands v{COSTMODEL_SCHEMA_VERSION}")
+    source = doc.get("generated_by", path)
+    return {kind: CostModel(CostCoefficients.from_dict(tbl), kind,
+                            source=f"{source} [{kind}]")
+            for kind, tbl in doc.get("tables", {}).items()}
+
+
+def save_tables(path: str, models: dict[str, CostModel],
+                meta: Optional[dict] = None) -> None:
+    doc = {"schema": COSTMODEL_SCHEMA_VERSION, **(meta or {}),
+           "tables": {kind: m.coeffs.to_dict()
+                      for kind, m in sorted(models.items())}}
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def model_for_device(device_kind: str,
+                     tables: "dict[str, CostModel] | str") -> CostModel:
+    """The table for ``device_kind``: an exact match, then a
+    case-insensitive prefix match, then ``"default"``, else the
+    hand-written model."""
+    if isinstance(tables, str):
+        tables = load_tables(tables)
+    if device_kind in tables:
+        return tables[device_kind]
+    dk = device_kind.lower()
+    for kind, model in sorted(tables.items()):
+        k = kind.lower()
+        if k != "default" and (dk.startswith(k) or k.startswith(dk)):
+            return model
+    return tables.get("default", DEFAULT_MODEL)

@@ -29,6 +29,14 @@ def _factors_only(n: int, primes: Sequence[int]) -> bool:
     return n == 1
 
 
+def next_pow2(v: int) -> int:
+    """Smallest power of two >= v."""
+    m = 1
+    while m < v:
+        m *= 2
+    return m
+
+
 def next_smooth(v: int, primes: Sequence[int] = (2, 3, 5, 7)) -> int:
     """Smallest integer >= v whose prime factors all lie in ``primes``."""
     v = max(1, v)

@@ -1,15 +1,17 @@
 """Suite descriptions + the Session facade.
 
 * :class:`SuiteSpec`: a frozen description of one benchmark run with
-  explicit extents: clients, extents, kinds, precisions, batch, warmups,
-  repetitions, error bound, seed, plan-cache policy, output, verbosity.
-* :class:`Session`: owns the device context, the (shareable) plan cache
-  and the result sinks.  ``Session.run(spec)`` returns a
-  :class:`ResultSet`.
+  explicit extents: clients, extents, kinds, precisions, batch, planner
+  rigor, warmups, repetitions, error bound, seed, plan-cache policy,
+  wisdom path, cost-model table, output, verbosity.
+* :class:`Session`: owns the device context, the wisdom store, the
+  (shareable) plan cache and the result sinks.  ``Session.run(spec)``
+  returns a :class:`ResultSet`.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence
 
@@ -21,6 +23,7 @@ from .registry import get_client
 from .results import (ResultSink, Row, aggregate_rows, columns_for,
                       open_sink)
 from .tree import BenchNode, build_tree
+from .wisdom import Wisdom
 
 
 def _as_extent(v) -> tuple[int, ...]:
@@ -40,11 +43,14 @@ class SuiteSpec:
     kinds: tuple[str, ...] = KINDS
     precisions: tuple[str, ...] = ("float",)
     batch: int = 1
+    rigor: str = "estimate"
     warmups: int = 1
     repetitions: int = 3
     error_bound: float = 1e-5
     seed: int = 2017
     plan_cache: bool = True
+    wisdom: Optional[str] = None                # wisdom JSON path
+    costmodel: Optional[str] = None             # coefficient table path
     output: Optional[str] = "result.csv"        # None = in-memory only
     verbose: bool = False
 
@@ -54,6 +60,11 @@ class SuiteSpec:
         norm(self, "extents", tuple(_as_extent(e) for e in self.extents))
         norm(self, "kinds", tuple(self.kinds))
         norm(self, "precisions", tuple(self.precisions))
+        if isinstance(self.rigor, PlanRigor):
+            norm(self, "rigor", self.rigor.value)
+        if self.rigor not in {r.value for r in PlanRigor}:
+            raise ValueError(f"unknown rigor {self.rigor!r}; known: "
+                             f"{[r.value for r in PlanRigor]}")
         bad = set(self.kinds) - set(KINDS)
         if bad:
             raise ValueError(f"unknown kind(s) {sorted(bad)}; known: {KINDS}")
@@ -78,7 +89,7 @@ class SuiteSpec:
     def benchmark_config(self) -> BenchmarkConfig:
         return BenchmarkConfig(
             warmups=self.warmups, repetitions=self.repetitions,
-            error_bound=self.error_bound, rigor=PlanRigor.ESTIMATE,
+            error_bound=self.error_bound, rigor=PlanRigor(self.rigor),
             seed=self.seed)
 
 
@@ -132,13 +143,24 @@ class _TeeSink(ResultSink):
 
 class Session:
     """Owns what a run needs besides its description: the device context,
-    the plan cache and the result sinks.  Reusing one Session across
-    ``run`` calls shares the plan cache."""
+    the wisdom store, the plan cache and the result sinks.  Reusing one
+    Session across ``run`` calls shares the plan cache."""
 
     def __init__(self, context: Optional[TorchContext] = None,
-                 plan_cache: Optional[PlanCache] = None):
+                 plan_cache: Optional[PlanCache] = None,
+                 wisdom: Optional[Wisdom] = None):
         self.context = context if context is not None else TorchContext()
         self._plan_cache = plan_cache
+        self._wisdom = wisdom
+        self._device_kind: Optional[str] = None
+
+    @property
+    def device_kind(self) -> str:
+        """The context's device kind (``"cpu"`` or the card's name): the
+        key wisdom records and cost tables are stored under."""
+        if self._device_kind is None:
+            self._device_kind = self.context.discover_kind()
+        return self._device_kind
 
     @property
     def plan_cache(self) -> PlanCache:
@@ -147,22 +169,44 @@ class Session:
             self._plan_cache = PlanCache()
         return self._plan_cache
 
+    def _resolve_wisdom(self, spec: SuiteSpec) -> Optional[Wisdom]:
+        if self._wisdom is not None:
+            return self._wisdom
+        if spec.wisdom:
+            return Wisdom(spec.wisdom, device_kind=self.device_kind)
+        return None
+
     def run(self, spec: SuiteSpec,
             nodes: Optional[Sequence[BenchNode]] = None) -> ResultSet:
-        """Execute the spec (or the given ``nodes``); returns the rows."""
+        """Execute the spec (or the given ``nodes``); returns the rows.
+        A cost-model table named by the spec is the active model for the
+        run; wisdom is saved after a MEASURE or PATIENT run."""
         if nodes is None:
             nodes = spec.build_nodes()
         cache = self.plan_cache if spec.plan_cache else None
-        columns = columns_for(cache is not None)
+        wisdom = self._resolve_wisdom(spec)
+        columns = columns_for(cache is not None,
+                              plan_source=wisdom is not None)
         collector = _CollectorSink(columns)
         sinks: list[ResultSink] = [collector]
         if spec.output:
             sinks.append(open_sink(spec.output, columns=columns))
         writer = _TeeSink(sinks)
+        if spec.costmodel:
+            from .costmodel import model_for_device, use_model
+            model_cm = use_model(model_for_device(self.device_kind,
+                                                  spec.costmodel))
+        else:
+            model_cm = nullcontext()
         try:
-            run_nodes(nodes, context=self.context,
-                      config=spec.benchmark_config(), writer=writer,
-                      plan_cache=cache, verbose=spec.verbose)
+            with model_cm:
+                run_nodes(nodes, context=self.context,
+                          config=spec.benchmark_config(), writer=writer,
+                          plan_cache=cache, wisdom=wisdom,
+                          verbose=spec.verbose)
         finally:
             writer.save()
+        if wisdom is not None and spec.rigor in (PlanRigor.MEASURE.value,
+                                                 PlanRigor.PATIENT.value):
+            wisdom.save()
         return ResultSet(collector.rows, columns)

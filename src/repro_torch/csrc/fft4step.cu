@@ -50,7 +50,7 @@
 
 #include <atomic>
 
-#include "stockham_stages.cuh"  // Cx, mul
+#include "stockham_stages.cuh"  // Cx, mul, cfma
 
 namespace {
 
@@ -59,16 +59,6 @@ constexpr int kMaxN1 = 128;
 constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
 constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
 constexpr int kMaxDevices = 64;
-
-// acc + a * b, as four FMAs
-template <typename T>
-__device__ __forceinline__ Cx<T> cfma(Cx<T> a, Cx<T> b, Cx<T> acc) {
-  acc.re = acc.re + a.re * b.re;
-  acc.re = acc.re - a.im * b.im;
-  acc.im = acc.im + a.re * b.im;
-  acc.im = acc.im + a.im * b.re;
-  return acc;
-}
 
 // RT x RT outputs per thread and pass (the register tile)
 template <typename T, bool INV, int RT>

@@ -3,10 +3,10 @@
 // Stockham stage over a tile of rows (run_stage).
 //
 // Included by stockham.cu (the fused 1-D kernel), fft2.cu (the fused
-// rank-2 kernel: its row stages and, with cols = n2, its column stages)
-// and fft4step.cu
-// (which takes Cx and mul).  Everything here lives in an anonymous
-// namespace: each kernel library is its own translation unit.
+// rank-2 kernel: its row stages and, with cols = n2, its column stages),
+// fft4step.cu (which takes Cx, mul and cfma) and dft.cu (Cx, cfma).
+// Everything here lives in an anonymous namespace: each kernel library is
+// its own translation unit.
 
 #pragma once
 
@@ -34,6 +34,16 @@ __device__ __forceinline__ Cx<T> mul(Cx<T> a, Cx<T> b) {
 template <typename T>
 __device__ __forceinline__ Cx<T> scale(Cx<T> a, T s) {
   return {a.re * s, a.im * s};
+}
+// acc + a * b, as four FMAs (the complex products of fft4step.cu and
+// dft.cu)
+template <typename T>
+__device__ __forceinline__ Cx<T> cfma(Cx<T> a, Cx<T> b, Cx<T> acc) {
+  acc.re = acc.re + a.re * b.re;
+  acc.re = acc.re - a.im * b.im;
+  acc.im = acc.im + a.re * b.im;
+  acc.im = acc.im + a.im * b.re;
+  return acc;
 }
 // a * W_4^1: -i for the forward transform, +i for the inverse (a swap).
 template <bool INV, typename T>

@@ -179,16 +179,22 @@ def test_alloc_size_matches_reference(kind):
 def test_candidate_from_key_round_trips_reference_keys():
     keys = set()
     for ext, kind in (((4096,), "Outplace_Complex"), ((64, 48), "Outplace_Real"),
-                      ((945,), "Inplace_Real")):
+                      ((945,), "Inplace_Real"), ((256, 256, 256), "Outplace_Real")):
         for c in ref_candidates.candidates(RefProblem(ext, kind), patient=True):
-            if not c.axes and not c.mesh:
+            if not c.mesh:
                 keys.add((c.key(), c))
-    assert "stockham_pallas(radix=4,tile_b=16)" in {k for k, _ in keys}
+    all_keys = {k for k, _ in keys}
+    assert "stockham_pallas(radix=4,tile_b=16)" in all_keys
+    assert "nd[fourstep_pallas;stockham_pallas;dft]" in all_keys
     for key, ref in keys:
         cand = Candidate.from_key(key)
         assert cand.key() == key
         assert cand.backend == ref.backend and cand.opts() == ref.opts()
-    for bad in ("nd[xla;stockham_pallas]", "slab[4]", "x(radix)"):
+        assert [(a.backend, a.opts()) for a in cand.axes] == \
+            [(a.backend, a.opts()) for a in ref.axes]
+    knobbed = Candidate.from_key("nd[dft;stockham_pallas(radix=4,tile_b=16)]")
+    assert knobbed.per_axis(2)[1].opts() == {"radix": 4, "tile_b": 16}
+    for bad in ("slab[4]", "x(radix)", "nd[]", "nd[dft;slab[4]]"):
         with pytest.raises(ValueError):
             Candidate.from_key(bad)
 
@@ -241,6 +247,8 @@ def test_hopper_cap_in_feasibility_and_as_a_failed_node(cpu):
 
 
 def test_non_estimate_rigor_is_a_failed_node(cpu):
+    """MEASURE plans (and validates); WISDOM_ONLY with no wisdom is fftw's
+    NULL plan: a failed node that ran no transform."""
     cpu.create()
     rows = []
 
@@ -252,8 +260,14 @@ def test_non_estimate_rigor_is_a_failed_node(cpu):
     run_node(node, context=cpu, writer=Sink(),
              config=BenchmarkConfig(warmups=0, repetitions=1,
                                     rigor=PlanRigor.MEASURE))
-    assert rows[-1].op == "validate" and not rows[-1].success
-    assert "planner: later slice" in rows[-1].error
+    assert rows[-1].op == "validate" and rows[-1].success, rows[-1].error
+    assert {r.rigor for r in rows} == {"measure"}
+    rows.clear()
+    run_node(node, context=cpu, writer=Sink(),
+             config=BenchmarkConfig(warmups=0, repetitions=1,
+                                    rigor=PlanRigor.WISDOM_ONLY))
+    assert [r.op for r in rows] == ["validate"] and not rows[-1].success
+    assert "NULL plan (wisdom miss)" in rows[-1].error
 
 
 def test_plan_cache_reuses_builds(cpu):

@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.client import KINDS, TorchContext
+from repro_torch.core.client import KINDS, Problem, TorchContext
+from repro_torch.core.clients.torch_fft import TorchPlanned
 from repro_torch.core.suite import Session, SuiteSpec
+from repro_torch.core.tree import BenchNode
+from repro_torch.kernels.dft_matmul import ops as dft_ops
+from repro_torch.kernels.dft_matmul import ref as dft_ref
 from repro_torch.kernels.fft2_pallas import ops as f2_ops
 from repro_torch.kernels.fft2_pallas import ref as f2_ref
 from repro_torch.kernels.fft4step import ops as fs_ops
@@ -183,3 +187,59 @@ def test_session_on_card_launches_the_new_kernels(cuda_device):
     rs = Session(TorchContext()).run(spec)
     assert not rs.failures(), [r.error for r in rs.failures()]
     assert f2_ops.LAUNCHES > f2_before and fs_ops.LAUNCHES > fs_before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_dft_kernel_against_plain_and_library(cuda_device, dtype):
+    """Every length class up to the cap of 128, tile 1 and a ragged last
+    tile (37 rows in tiles of 8), both directions, one launch per call."""
+    for n in (1, 2, 3, 7, 8, 64, 100, 127, 128):
+        x = _rand(37, (n,), dtype, cuda_device, n)
+        for tile in (1, 8):
+            for inverse in (False, True):
+                before = dft_ops.LAUNCHES
+                y = dft_ops.dft(x, inverse, tile_b=tile)
+                torch.cuda.synchronize(cuda_device)
+                assert dft_ops.LAUNCHES == before + 1
+                yr, yi = dft_ref.dft_ref(x.real.contiguous(),
+                                         x.imag.contiguous(), inverse)
+                plain = torch.complex(yr, yi) / (n if inverse else 1)
+                lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+                assert rel_l2(y, plain) <= PLAIN_TOL[dtype], (n, tile, inverse)
+                assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, tile, inverse)
+
+
+@pytest.mark.cuda
+def test_dft_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros((8, 16), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        dft_ops.dft(x.transpose(0, 1))
+    with pytest.raises(ValueError, match="caps at n=128"):
+        dft_ops.dft(torch.zeros((1, 129), dtype=torch.complex64,
+                                device=cuda_device))
+    with pytest.raises(ValueError, match="tile_b"):
+        dft_ops.dft(torch.zeros((256, 128), dtype=torch.complex128,
+                                device=cuda_device), tile_b=200)
+
+
+@pytest.mark.cuda
+def test_planner_on_card_runs_the_dft_kernel(cuda_device, tmp_path):
+    """ESTIMATE pins a short rank-1 problem to the dft kernel; MEASURE
+    times every candidate on the card and writes wisdom; WISDOM_ONLY runs
+    the recorded pick."""
+    problem = Problem((100,), "Inplace_Real", "double", 64)
+    nodes = [BenchNode(TorchPlanned, problem)]
+    session = Session(TorchContext())
+    before = dft_ops.LAUNCHES
+    rs = session.run(SuiteSpec(output=None), nodes=nodes)
+    assert not rs.failures(), [r.error for r in rs.failures()]
+    assert dft_ops.LAUNCHES > before
+    wisdom = str(tmp_path / "wisdom.json")
+    for rigor in ("measure", "wisdom_only"):
+        rs = session.run(SuiteSpec(rigor=rigor, wisdom=wisdom, output=None),
+                         nodes=nodes)
+        assert not rs.failures(), [r.error for r in rs.failures()]
+        sources = {r.plan_source for r in rs.rows
+                   if r.library == "TorchPlanned" and r.op != "validate"}
+        assert sources == {"measure" if rigor == "measure" else "wisdom"}
