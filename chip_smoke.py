@@ -26,11 +26,22 @@
    knobs), every swept candidate's forward against torch.fft's on
    MEASURE's input, then under WISDOM_ONLY on that file (every node
    planned from wisdom, launching only the recorded pick's kernels);
-7. holds each kernel against its plain version at every shape the main
+7. holds the fused fftconv kernel against its plain version and the
+   float64 oracle on fixed cases (every k, ragged tiles, every tile that
+   fits), then drives its path: the port's kernel table
+   (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
+   through ``Session.run``, every node validated and launching its
+   client's kernel and no other, each kernel client's download against
+   its plain counterpart; then the fused and unfused fftconv clients at a
+   Hyena long convolution's width (F2, F3), with the launch counts set to
+   0 before the table and read after F3;
+8. holds each kernel against its plain version at every shape the main
    path and the sweeps launched it with (radix 8 and the default tile,
-   both directions), then times it at the main path's shapes beside its
-   plain version, ``torch.fft`` and its bound;
-8. prints the kernel summary and, as the last line,
+   both directions; fftconv against its plain version and the float64
+   oracle), then times it at the main path's shapes beside its plain
+   version, the library call (``torch.fft``; for fftconv the unfused
+   ``torch.fft`` path) and its bound;
+9. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -54,7 +65,7 @@ SRC = os.path.join(ROOT, "src")
 #: H100 SXM data sheet: HBM3 rate, and the highest full-precision peak of
 #: each type (fp32 outside the tensor cores; fp64 on the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"complex64": 67e12, "complex128": 67e12}
+PEAK_FLOPS = {"complex64": 67e12, "complex128": 67e12, "float32": 67e12}
 
 CHECK_NS = (2, 3, 8, 12, 100, 945, 1024, 3072, 4096)
 CHECK_RADICES = (2, 4, 8)
@@ -130,7 +141,38 @@ KERNELS = (
      "src/repro/kernels/fft4step/fft4step.py:70"),
     ("dft_matmul", "src/repro_torch/csrc/dft.cu",
      "src/repro/kernels/dft_matmul/dft_matmul.py:45"),
+    ("fftconv", "src/repro_torch/csrc/fftconv.cu",
+     "src/repro/kernels/fftconv/fftconv.py:72"),
 )
+#: fftconv kernel against its plain version and the float64 oracle: the
+#: same arithmetic in another summation order; a float32 model of it
+#: agrees with float64 convolution to ~3e-7 at n = 16384.
+CONV_TOL = 1e-5
+#: fftconv fixed cases: every side k the length rule yields, (C, B) with a
+#: ragged last tile of 5 in tiles of 4, and the reference test's cases
+#: (C, B, L, K).
+CONV_KS = (1, 2, 4, 8, 16, 32, 64, 128)
+CONV_CB = ((1, 1), (3, 5))
+CONV_REFERENCE_CASES = ((2, 4, 100, 5), (1, 1, 512, 64), (3, 2, 1000, 24),
+                        (2, 8, 8000, 128))
+#: fftconv at a Hyena long convolution's width (d_model 768, a filter as
+#: long as the sequence; Poli et al. 2023): (name, channels, signals per
+#: channel, L = K).  n = 4096 (k = 64) and n = 16384 (k = 128, the cap).
+CONV_WIDTHS = (("F2", 768, 32, 2048), ("F3", 768, 8, 8192))
+#: The kernel each kernel-table client launches (None: plain torch or
+#: torch.fft only), and the pairs whose downloads must agree.
+TABLE_KERNEL = {"KernelFft4StepCuda": "fft4step",
+                "KernelFourStepTorch": None,
+                "KernelStockhamPallasCuda": "stockham_pallas",
+                "KernelStockhamTorch": None,
+                "KernelFftconvFused": "fftconv",
+                "KernelFftconvUnfused": None,
+                "KernelFft2PallasCuda": "fft2_pallas",
+                "KernelFft2Separable": "stockham_pallas"}
+TABLE_PAIRS = (("KernelFft4StepCuda", "KernelFourStepTorch"),
+               ("KernelStockhamPallasCuda", "KernelStockhamTorch"),
+               ("KernelFftconvFused", "KernelFftconvUnfused"),
+               ("KernelFft2PallasCuda", "KernelFft2Separable"))
 
 
 def emit(obj) -> None:
@@ -304,6 +346,167 @@ def check_kernels(device) -> dict:
             emit(w.row)
             worst[(kernel, w.row["dtype"])] = w.row
     return worst
+
+
+def _conv_inputs(device, gen, c, b, L, K):
+    import torch
+    x = torch.randn((c, b, L), device=device, generator=gen)
+    h = torch.randn((c, K), device=device, generator=gen) / math.sqrt(K)
+    return x, h
+
+
+def _conv_errors(ops, ref, x, h, tile_b):
+    """One launch of the fftconv kernel against its plain version on the
+    same operands and against the float64 oracle: (rel-L2 plain, rel-L2
+    oracle, max abs error against plain)."""
+    import torch
+    op = ops.prepare(x, h, tile_b=tile_b)
+    y = ops.run_kernel(op)
+    plain = op.plain()
+    torch.cuda.synchronize(x.device)
+    oracle = ref.fftconv_ref(x.double(), h.double(), op.k ** 2)
+    return (rel_l2(y, plain), rel_l2(y.double(), oracle),
+            float((y - plain).abs().max()))
+
+
+def check_fftconv(device) -> dict:
+    """The fftconv kernel on fixed cases against its plain version and the
+    float64 oracle (both within ``CONV_TOL``); raises on a miss.  Returns
+    the worst errors."""
+    import torch
+    ops, ref = kernel_ops("fftconv")
+    gen = torch.Generator(device=device).manual_seed(2023)
+    row = {"check": "kernel_vs_plain", "kernel": "fftconv",
+           "dtype": "float32", "cases": 0, "rel_l2_plain": 0.0,
+           "rel_l2_oracle": 0.0, "max_abs_err": 0.0}
+    cases = []
+    for k in CONV_KS:
+        n = k * k
+        tiles = [t for t in (1, 2, 3, 4)
+                 if ops.smem_bytes(k, t) <= ops.SMEM_LIMIT_BYTES]
+        for c, b in CONV_CB:
+            for L, K in ((n, 1), ((n + 1) // 2, (n + 1) // 2)):
+                cases += [(c, b, L, K, t) for t in tiles]
+    cases += [(*case, None) for case in CONV_REFERENCE_CASES]
+    for c, b, L, K, tile in cases:
+        x, h = _conv_inputs(device, gen, c, b, L, K)
+        e_plain, e_oracle, err = _conv_errors(ops, ref, x, h, tile)
+        if not (e_plain <= CONV_TOL and e_oracle <= CONV_TOL):
+            raise AssertionError(
+                f"fftconv kernel disagrees: C={c} B={b} L={L} K={K} "
+                f"tile_b={tile}: rel_l2 vs plain {e_plain:.3e}, vs the "
+                f"float64 oracle {e_oracle:.3e}")
+        row["cases"] += 1
+        row["rel_l2_plain"] = max(row["rel_l2_plain"], e_plain)
+        row["rel_l2_oracle"] = max(row["rel_l2_oracle"], e_oracle)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    emit(row)
+    return row
+
+
+def _recording(cls):
+    """``cls`` (its title inherited) keeping its last download."""
+    class Recording(cls):
+        last = None
+
+        def download(self):
+            out = super().download()
+            Recording.last = out
+            return out
+    return Recording
+
+
+def _table_node(session, cls, problem, spec) -> tuple[dict, object]:
+    """``Session.run`` of one kernel-table client: the node validated,
+    launching its client's kernel and no other.  Returns the node's
+    summary and its download."""
+    from repro_torch.core.tree import BenchNode
+    rec = _recording(cls)
+    before = _counts()
+    t0 = time.perf_counter()
+    rs = session.run(spec, nodes=[BenchNode(rec, problem)])
+    node_s = time.perf_counter() - t0
+    launched = {k: c - before[k] for k, c in _counts().items()
+                if c != before[k]}
+    title = cls.title
+    val = rs.query(op="validate")
+    if rs.failures() or len(val) != 1 or not val[0].success:
+        raise AssertionError(f"{title} {problem.extents} failed: "
+                             f"{[r.error for r in rs.failures()]}")
+    want = TABLE_KERNEL[title]
+    if set(launched) != ({want} if want else set()):
+        raise AssertionError(f"{title} should launch {want}, launched "
+                             f"{launched}")
+    node = {"client": title, "extents": "x".join(map(str, problem.extents)),
+            "batch": problem.batch, "device": val[0].device,
+            "execute_forward_ms": statistics.median(
+                r.time_ms for r in rs.query(op="execute_forward")),
+            "launches": launched, "node_s": node_s}
+    return node, rec.last
+
+
+def _agree(a, b, what: str, device) -> float:
+    import torch
+    e = rel_l2(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+    if not e <= CONV_TOL:
+        raise AssertionError(f"{what}: rel_l2 {e:.3e} > {CONV_TOL}")
+    return e
+
+
+def run_fftconv_path(device) -> dict:
+    """The fftconv kernel's main path, with the launch counts set to 0
+    just before it and read just after: the port's kernel table at the
+    reference's sizes (``Session.run`` of every spec; each kernel client's
+    download against its plain counterpart at ``CONV_TOL``), then the
+    fused and unfused fftconv clients at F2 and F3 (the fused download
+    against the unfused one).  Returns per kernel the launches and launch
+    shapes of the path."""
+    from dataclasses import replace
+
+    from repro_torch.benchmarks import table_kernels as tk
+    from repro_torch.core.client import Problem, TorchContext
+    from repro_torch.core.suite import Session, SuiteSpec
+
+    session = Session(TorchContext(device))
+    _reset_counts()
+    for spec in tk.SPECS:
+        spec = replace(spec, repetitions=3)
+        outs = {}
+        for node in spec.build_nodes():
+            row, outs[node.client_cls.title] = _table_node(
+                session, node.client_cls, node.problem, spec)
+            row["table"] = tk.NAMES[row["client"]]
+            emit(row)
+        for kernel, plain in TABLE_PAIRS:
+            if kernel in outs:
+                a, b = outs[kernel], outs[plain]
+                if kernel == "KernelFftconvFused":   # (1, L, C*B) -> (C, B, L)
+                    b = b.reshape(a.shape[-1], -1).T.reshape(a.shape)
+                emit({"check": "table_pair", "kernel_client": kernel,
+                      "plain_client": plain,
+                      "rel_l2": _agree(a, b, f"{kernel} vs {plain}",
+                                       device)})
+    spec = SuiteSpec(warmups=1, repetitions=3, plan_cache=False, output=None)
+    for name, c, b, L in CONV_WIDTHS:
+        widths = {"channels": c, "signals": b, "taps": L}
+        problem = Problem((L,), "Outplace_Real", "float", 1)
+        outs = {}
+        for cls in (tk.FftconvFusedKernel, tk.FftconvUnfusedKernel):
+            row, outs[cls.title] = _table_node(
+                session, type(cls.__name__, (cls,), widths), problem, spec)
+            emit({"node": name, **widths, **row})
+        fused, unfused = outs["KernelFftconvFused"], outs["KernelFftconvUnfused"]
+        emit({"check": "fused_vs_unfused", "node": name,
+              "rel_l2": _agree(fused, unfused.reshape(L, -1).T.reshape(
+                  fused.shape), f"{name} fused vs unfused", device)})
+        del outs, fused, unfused
+    counts = _read_counts()
+    emit({"main_path": "kernel table + fftconv F2/F3",
+          "launches": {k: c for k, (c, _) in counts.items()}})
+    if counts["fftconv"][0] <= 0:
+        raise AssertionError("the fftconv path did not launch fftconv")
+    return {"launches": {k: c for k, (c, _) in counts.items()},
+            "shapes": {k: shapes for k, (c, shapes) in counts.items() if c}}
 
 
 def _reset_counts() -> None:
@@ -738,6 +941,20 @@ class Shape:
             return torch.fft.fft2(self.x)
         return torch.fft.fft(self.x)
 
+    @property
+    def tol(self) -> float:
+        return PLAIN_TOL[self.dname]
+
+    def pairs(self):
+        """(what, kernel output, plain oracle) of the shape's checks: both
+        directions with the main path's knobs."""
+        for inverse in (False, True):
+            yield f"inverse={inverse}", self.kernel_call(inverse), \
+                self.oracle(inverse)
+
+    def bytes_moved(self) -> int:
+        return 2 * self.rows * self.n * self.x.element_size()
+
     def bound(self) -> tuple[float, str]:
         """The least time for this function: bytes (one read and one write
         of the signal) over the HBM rate, or the 5 n log2(n) flops per
@@ -765,33 +982,122 @@ class Shape:
         return per_point * self.n * self.rows / PEAK_FLOPS[self.dname] * 1e3
 
 
+class ConvShape(Shape):
+    """One fftconv launch shape (C, B, L, K, tile_b) of the main path: its
+    signals and filters, the kernel on prepared operands, the plain
+    version on the same operands, the unfused torch.fft path of the same
+    convolution, and the work it does."""
+
+    def __init__(self, kernel: str, key: tuple, device, gen):
+        self.kernel, self.key = kernel, key
+        self.ops, self.ref = kernel_ops(kernel)
+        c, b, L, K, tile = key
+        self.x, self.h = _conv_inputs(device, gen, c, b, L, K)
+        self.tile = tile
+        self.k = math.isqrt(self.ops._next_square_pow2(L + K - 1))
+        self.n = self.k ** 2
+        self.dname = "float32"
+        self.shape = {"channels": c, "batch": b, "length": L, "taps": K,
+                      "k": self.k, "tile_b": tile, "dtype": "float32"}
+
+    def kernel_call(self, inverse: bool = False, plan=None):
+        """The whole wrapper (``plan`` None), or the kernel alone on
+        prepared operands."""
+        if plan is None:
+            return self.ops.fftconv(self.x, self.h, tile_b=self.tile)
+        return self.ops.run_kernel(plan)
+
+    @property
+    def tol(self) -> float:
+        return CONV_TOL
+
+    def pairs(self):
+        op = self.ops.prepare(self.x, self.h, tile_b=self.tile)
+        y = self.ops.run_kernel(op)
+        yield "plain", y, op.plain()
+        yield "float64 oracle", y.double(), self.ref.fftconv_ref(
+            self.x.double(), self.h.double(), self.n)
+
+    def plan(self):
+        op = self.ops.prepare(self.x, self.h, tile_b=self.tile)
+        return op, op.plain
+
+    def tile_sweep(self) -> dict:
+        """Kernel ms (CUDA events, median of 20) at every tile of 1-4
+        signals that fits a block."""
+        out = {}
+        for t in range(1, 5):
+            if self.ops.smem_bytes(self.k, t) <= self.ops.SMEM_LIMIT_BYTES:
+                op = self.ops.prepare(self.x, self.h, tile_b=t)
+                out[t] = _events_ms(lambda: self.ops.run_kernel(op), 20)
+                del op
+        return out
+
+    def library(self):
+        """The unfused torch.fft path (``fft/fftconv.py``, backend
+        ``xla``) on the same convolution in its (1, L, C*B) layout."""
+        from repro_torch.fft import fftconv
+        if not hasattr(self, "_unfused"):
+            c, b, L = self.x.shape
+            xt = self.x.reshape(c * b, L).T.contiguous()[None]
+            ht = self.h.repeat_interleave(b, dim=0).T.contiguous()
+            self._unfused = (xt, ht)
+        return fftconv.fftconv(*self._unfused, backend="xla")
+
+    def bytes_moved(self) -> int:
+        """What the convolution must move: the (C, B, L) signals read and
+        the (C, B, L) results written once, and the (C, K) taps read
+        once, all float32."""
+        c, b, L = self.x.shape
+        return 4 * (2 * c * b * L + c * self.h.shape[-1])
+
+    def bound(self) -> tuple[float, str]:
+        """The least time for the convolution: its bytes over the HBM
+        rate, or its flops over the fp32 peak, whichever is larger.  The
+        flops: a real length-n FFT (2.5 n log2(n)) of each signal, of each
+        filter and of each product, and the product itself (6 flops on
+        each of the n/2 + 1 bins of each signal)."""
+        c, b = self.x.shape[:2]
+        bytes_ms = self.bytes_moved() / HBM_BYTES_PER_S * 1e3
+        fft = 2.5 * self.n * math.log2(max(self.n, 2))
+        flops = fft * (2 * c * b + c) + 6 * (self.n // 2 + 1) * c * b
+        ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms \
+            else (ops_ms, "operations")
+
+    def algorithm_ops_ms(self) -> float:
+        """The kernel's own 24 k^3 flops per signal over the fp32 peak."""
+        c, b = self.x.shape[:2]
+        return 24 * self.k ** 3 * c * b / PEAK_FLOPS["float32"] * 1e3
+
+
 def _shapes(main_path: dict, device, seed: int):
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     for kernel, shapes in main_path["shapes"].items():
         for key in sorted(shapes):
-            yield Shape(kernel, key, device, gen), shapes[key]
+            cls = ConvShape if kernel == "fftconv" else Shape
+            yield cls(kernel, key, device, gen), shapes[key]
 
 
 def check_main_path_shapes(device, main_path: dict) -> dict:
     """At every shape the main path (and the planner's sweeps) launched
     each kernel with, the kernel
     with the main path's own knobs (radix 8, default tile) against its
-    plain oracle in both directions; raises above ``PLAIN_TOL``.  Returns
+    plain oracle in both directions (fftconv: against its plain version
+    and the float64 oracle); raises above the kernel's tolerance.  Returns
     the worst rel-L2 and absolute error per shape."""
     import torch
     errors = {}
     for s, _ in _shapes(main_path, device, 5):
         rel = err = 0.0
-        for inverse in (False, True):
-            y = s.kernel_call(inverse)
-            want = s.oracle(inverse)
+        for what, y, want in s.pairs():
             torch.cuda.synchronize(device)
             e = rel_l2(y, want)
-            if not e <= PLAIN_TOL[s.dname]:
+            if not e <= s.tol:
                 raise AssertionError(
                     f"{s.kernel} kernel disagrees at a main-path shape "
-                    f"{s.shape} inverse={inverse}: rel_l2 vs plain {e:.3e}")
+                    f"{s.shape} {what}: rel_l2 vs plain {e:.3e}")
             rel = max(rel, e)
             err = max(err, float((y - want).abs().max()))
             del y, want
@@ -816,8 +1122,14 @@ def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
                "library_ms": _events_ms(s.library, 20),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "algorithm_ops_ms": s.algorithm_ops_ms(),
-               "bytes_moved": 2 * s.rows * s.n * s.x.element_size(),
+               "bytes_moved": s.bytes_moved(),
                **errors[(s.kernel, s.key)]}
+        if s.kernel == "fftconv":
+            # the whole wrapper (operands included), and the kernel at
+            # every tile that fits a block: fewer signals per block, more
+            # blocks per SM
+            row["op_ms"] = _events_ms(s.kernel_call, 20)
+            row["tile_sweep_ms"] = s.tile_sweep()
         emit({"timing": row})
         rows_out.append(row)
         del s, plan, plain
@@ -849,8 +1161,15 @@ def main() -> int:
     planner = run_planner(device)
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
+    t_conv = time.perf_counter()
+    checks[("fftconv", "float32")] = check_fftconv(device)
+    conv = run_fftconv_path(device)
+    emit({"fftconv_phases_s": time.perf_counter() - t_conv})
+    main_path["launches"]["fftconv"] = conv["launches"]["fftconv"]
+    main_path["shapes"]["fftconv"] = conv["shapes"]["fftconv"]
     checked = {k: dict(v) for k, v in main_path["shapes"].items()}
-    for sweep in planner["sweep_shapes"]:
+    others = {k: v for k, v in conv["shapes"].items() if k != "fftconv"}
+    for sweep in planner["sweep_shapes"] + [others]:
         for kernel, shapes in sweep.items():
             for key, n in shapes.items():
                 checked.setdefault(kernel, {}).setdefault(key, 0)
@@ -864,8 +1183,9 @@ def main() -> int:
         # the headline shape: the one that moved the most bytes on the
         # main path
         head = max(mine, key=lambda t: t["launches"] * t["bytes_moved"])
-        shape = {k: head[k] for k in ("n", "n1", "n2", "rows", "dtype")
-                 if k in head}
+        shape = {k: head[k] for k in ("n", "n1", "n2", "rows", "channels",
+                                      "batch", "length", "taps", "k",
+                                      "tile_b", "dtype") if k in head}
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -4,11 +4,13 @@ Fig. 1), layered over the generic Runner.
 Per selected tree node: context create (timed once per suite) -> the Runner
 drives the paper's Table-1 sequence (allocate -> init_forward -> upload ->
 execute_forward -> init_inverse -> execute_inverse -> download -> destroy)
-for warmups + repetitions, each operation individually timed.  After the
-last run the round trip is compared against the input (err = sample
-standard deviation of (input - roundtrip); err > eps marks the node
-failed).  A failed node never aborts the suite: it is recorded and the
-suite continues.
+for warmups + repetitions, each operation individually timed; a client
+class with its own ``schedule`` (the kernel table's clients) runs that one
+instead, on its own ``make_host_input``.  After the last run the output is
+validated once: by default the round trip is compared against the input
+(err = sample standard deviation of (input - roundtrip); err > eps marks
+the node failed), or by the client class's own ``check`` hook.  A failed
+node never aborts the suite: it is recorded and the suite continues.
 """
 
 from __future__ import annotations
@@ -78,8 +80,10 @@ def run_node(node: BenchNode, *, context: TorchContext,
                 extents="x".join(map(str, p.extents)), rank=p.rank,
                 extent_class=node.extent_class, precision=p.precision,
                 kind=p.kind, rigor=cfg.rigor.value)
-    schedule = FFT_SCHEDULE
-    host_in = make_input(p, cfg.seed)
+    schedule = getattr(node.client_cls, "schedule", None) or FFT_SCHEDULE
+    make_host = getattr(node.client_cls, "make_host_input", None)
+    host_in = (make_host(p, cfg.seed) if make_host is not None
+               else make_input(p, cfg.seed))
     runner = Runner(schedule, cfg.warmups, cfg.repetitions)
     # the run's client, live when its record is emitted: every row of the
     # run learns where its plan came from
@@ -108,13 +112,20 @@ def run_node(node: BenchNode, *, context: TorchContext,
         if cfg.repetitions <= 0 or last_out is None:
             raise NoRunsError(
                 "no runs executed (repetitions=0 or download never ran)")
-        err = roundtrip_error(host_in, last_out.reshape(host_in.shape))
-        ok = err <= cfg.error_bound
+        check = getattr(node.client_cls, "check", None)
+        if check is not None:
+            ok, msg = check(p, host_in, last_out, cfg.error_bound)
+            detail = msg or "ok"
+        else:
+            err = roundtrip_error(host_in, last_out.reshape(host_in.shape))
+            ok = err <= cfg.error_bound
+            msg = "" if ok else f"roundtrip_err={err:.3e}"
+            detail = f"err={err:.2e}"
         writer.add(Row(**base, run=cfg.repetitions, op="validate",
                        time_ms=0.0, bytes=0, success=bool(ok),
-                       error="" if ok else f"roundtrip_err={err:.3e}"))
+                       error="" if ok else msg))
         if verbose:
-            print(f"[{'ok' if ok else 'FAIL'}] {node.path} err={err:.2e}")
+            print(f"[{'ok' if ok else 'FAIL'}] {node.path} {detail}")
     except NoRunsError as e:
         writer.add(Row(**base, run=0, op="validate", time_ms=0.0,
                        bytes=0, success=False, error=str(e)))

@@ -11,8 +11,9 @@ from __future__ import annotations
 import csv
 import json
 import os
-import statistics
 from dataclasses import dataclass
+
+from .compare import aggregate_result_rows
 
 COLUMNS = [
     "library", "device", "extents", "rank", "extent_class", "precision",
@@ -150,30 +151,8 @@ def open_sink(path: str, fmt: str | None = None,
     raise ValueError(f"unknown sink format {fmt!r}")
 
 
-def percentile(vals, q: float) -> float:
-    """q-th percentile (0..100), linear interpolation between closest
-    ranks (numpy.percentile's default method)."""
-    if not vals:
-        raise ValueError("percentile of empty sequence")
-    s = sorted(vals)
-    if len(s) == 1:
-        return float(s[0])
-    pos = (len(s) - 1) * (q / 100.0)
-    lo = int(pos)
-    hi = min(lo + 1, len(s) - 1)
-    return float(s[lo] + (s[hi] - s[lo]) * (pos - lo))
-
-
 def aggregate_rows(rows, op: str | None = None):
     """``(library, extents, precision, kind, rigor, op, mean, sd, n)`` per
     group of successful rows, sorted by key: the reference package's
     aggregation layout."""
-    groups: dict[tuple, list[float]] = {}
-    for r in rows:
-        if not r.success or (op is not None and r.op != op):
-            continue
-        key = (r.library, r.extents, r.precision, r.kind, r.rigor, r.op)
-        groups.setdefault(key, []).append(r.time_ms)
-    return [(*key, statistics.fmean(v),
-             statistics.stdev(v) if len(v) > 1 else 0.0, len(v))
-            for key, v in sorted(groups.items())]
+    return [a.as_tuple() for a in aggregate_result_rows(rows, op)]

@@ -1,12 +1,13 @@
 """Suite descriptions + the Session facade.
 
 * :class:`SuiteSpec`: a frozen description of one benchmark run with
-  explicit extents: clients, extents, kinds, precisions, batch, planner
-  rigor, warmups, repetitions, error bound, seed, plan-cache policy,
-  wisdom path, cost-model table, output, verbosity.
+  explicit extents: clients, extents, kinds, precisions, batch, planner rigor, warmups, repetitions, error
+  bound, seed, plan-cache policy, wisdom path, cost-model table, output,
+  verbosity.
 * :class:`Session`: owns the device context, the wisdom store, the
   (shareable) plan cache and the result sinks.  ``Session.run(spec)``
-  returns a :class:`ResultSet`.
+  returns a :class:`ResultSet`; :func:`run_suite` runs one spec in a
+  fresh (or given) Session.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence
 
 from .benchmark import BenchmarkConfig, run_nodes
+from .compare import AggRow, aggregate_result_rows
 from .client import KINDS, PRECISIONS, TorchContext
 from .extents import format_extents, parse_extents
 from .plan import PlanCache, PlanRigor
@@ -111,6 +113,11 @@ class ResultSet:
     def aggregate(self, op: Optional[str] = None):
         """mean/stdev per (library, extents, precision, kind, rigor, op)."""
         return aggregate_rows(self.rows, op)
+
+    def aggregate_named(self, op: Optional[str] = None) -> list[AggRow]:
+        """The same grouping with named fields (``a.library``, ``a.mean``,
+        ...): what the benchmark tables consume."""
+        return aggregate_result_rows(self.rows, op)
 
 
 class _CollectorSink(ResultSink):
@@ -210,3 +217,8 @@ class Session:
                                                  PlanRigor.PATIENT.value):
             wisdom.save()
         return ResultSet(collector.rows, columns)
+
+
+def run_suite(spec: SuiteSpec, session: Optional[Session] = None) -> ResultSet:
+    """Run ``spec`` in a fresh Session (on ``cuda:0``) or the given one."""
+    return (session if session is not None else Session()).run(spec)

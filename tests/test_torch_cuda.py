@@ -8,7 +8,9 @@ the reference package, so it also runs where JAX is not installed:
 Tolerances: the kernel against its plain PyTorch version, rel-L2 <= 1e-5
 in float and <= 1e-12 in double (the same algorithm and twiddles, only the
 summation order differs); against ``torch.fft`` the suite's bar, 1e-3 and
-1e-8.
+1e-8.  The fftconv kernel (float32 only) is held at 1e-5 against its plain
+version and against the float64 ``torch.fft`` oracle: a float32 model of
+its arithmetic agrees with float64 convolution to ~3e-7 at n = 16384.
 """
 
 import numpy as np
@@ -25,6 +27,8 @@ from repro_torch.kernels.fft2_pallas import ops as f2_ops
 from repro_torch.kernels.fft2_pallas import ref as f2_ref
 from repro_torch.kernels.fft4step import ops as fs_ops
 from repro_torch.kernels.fft4step import ref as fs_ref
+from repro_torch.kernels.fftconv import ops as conv_ops
+from repro_torch.kernels.fftconv import ref as conv_ref
 from repro_torch.kernels.stockham_pallas import ops, ref
 
 PLAIN_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
@@ -243,3 +247,73 @@ def test_planner_on_card_runs_the_dft_kernel(cuda_device, tmp_path):
         sources = {r.plan_source for r in rs.rows
                    if r.library == "TorchPlanned" and r.op != "validate"}
         assert sources == {"measure" if rigor == "measure" else "wisdom"}
+
+
+def _conv_case(c, b, L, K, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((c, b, L)).astype(np.float32)
+    h = (rng.standard_normal((c, K)) / np.sqrt(K)).astype(np.float32)
+    return x, h
+
+
+def _check_conv(device, x, h, tile_b):
+    """One kernel launch on the card against the plain version on the
+    same operands (1e-5) and the float64 oracle (1e-5)."""
+    xd, hd = torch.from_numpy(x).to(device), torch.from_numpy(h).to(device)
+    op = conv_ops.prepare(xd, hd, tile_b=tile_b)
+    before = conv_ops.LAUNCHES
+    y = conv_ops.fftconv(xd, hd, tile_b=tile_b)
+    torch.cuda.synchronize(device)
+    assert conv_ops.LAUNCHES == before + 1
+    assert y.shape == xd.shape and y.dtype == torch.float32
+    plain = op.plain()
+    oracle = conv_ref.fftconv_ref(xd.double(), hd.double(), op.k ** 2)
+    case = (x.shape, h.shape, op.k, op.tile_b)
+    assert rel_l2(y, plain) <= 1e-5, case
+    assert rel_l2(y.double(), oracle) <= 1e-5, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_fftconv_kernel_against_plain_and_oracle(cuda_device, k):
+    """Every k: one and three channels, one and five signals (five in
+    tiles of 4: a ragged last tile), one tap and L taps, every tile that
+    fits a block."""
+    n = k * k
+    tiles = [t for t in (1, 2, 3, 4) if conv_ops.smem_bytes(k, t)
+             <= conv_ops.SMEM_LIMIT_BYTES]
+    for c, b in ((1, 1), (3, 5)):
+        for L, K in ((n, 1), ((n + 1) // 2, (n + 1) // 2)):
+            x, h = _conv_case(c, b, L, K, seed=k * 31 + c * b + K)
+            assert conv_ops._next_square_pow2(L + K - 1) == n
+            for tile in tiles:
+                _check_conv(cuda_device, x, h, tile)
+
+
+@pytest.mark.cuda
+def test_fftconv_kernel_at_the_cap(cuda_device):
+    """k = 128 with the largest tile that fits (one signal per block); a
+    tile that does not fit raises before any launch."""
+    assert conv_ops.largest_tile_b(128) == 1
+    x, h = _conv_case(2, 3, 16384 - 127, 128, seed=5)
+    _check_conv(cuda_device, x, h, None)
+    before = conv_ops.LAUNCHES
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_ops.fftconv(torch.from_numpy(x).to(cuda_device),
+                         torch.from_numpy(h).to(cuda_device), tile_b=2)
+    assert conv_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kernel_table_on_card(cuda_device):
+    """The kernel table's specs through Session.run on the card: every
+    node validated, the fftconv kernel launched."""
+    from repro_torch.benchmarks import table_kernels as tk
+    from dataclasses import replace
+    before = conv_ops.LAUNCHES
+    session = Session(TorchContext())
+    for spec in tk.SPECS:
+        rs = session.run(replace(spec, warmups=0, repetitions=1))
+        assert not rs.failures(), [r.error for r in rs.failures()]
+        assert len(rs.query(op="validate")) == len(spec.clients)
+    assert conv_ops.LAUNCHES > before
