@@ -1,0 +1,115 @@
+"""Time the port's hand-written kernels of one source tree on one GPU.
+
+    python3 ab_kernels.py SRC_DIR LABEL
+
+SRC_DIR is the ``src/`` of a checkout (this one, or a parent unpacked
+with ``git archive`` into ``build/``).  Prints one JSON line: the median
+of 50 CUDA-event times (after 3 warm calls) of each kernel on prepared
+operands at the main path's shapes: the fft2 kernel at P7's and P6's
+tiles, the Stockham kernel at P7's axis and P3, the four-step kernel at
+the axes of P1-P7 (complex64 and complex128), the dft kernel at P8, and
+the fused fftconv kernel at F2 and F3 (the default tile).  Inputs are
+made on the card from a fixed seed.  To compare two trees, run it on
+each in turns (A, B, B, A) in one call, one process per run.  (Before
+the four-step and fftconv redesign it timed only fft2, Stockham and the
+four-step kernel at P3, under the name ``ab_fft2.py``.)
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import sys
+
+import torch
+
+#: (n1, n2, dtype) of the fft2 kernel: P7's and P6's engine tiles, 8192 each
+FFT2_SHAPES = ((64, 64, torch.complex128), (128, 64, torch.complex64))
+#: (n, rows, dtype) of the Stockham kernel
+STOCKHAM_SHAPES = ((64, 524288, torch.complex128),
+                   (4096, 16384, torch.complex64))
+#: (n, rows, dtype) of the four-step kernel on the main path: P3, P5's
+#: packed axis, P1's packed inner and outer axes, P4's packed and outer
+#: axes, P2's and P7's axes
+FOURSTEP_SHAPES = ((4096, 16384, torch.complex64),
+                   (945, 65536, torch.complex64),
+                   (128, 65536, torch.complex64),
+                   (256, 33024, torch.complex64),
+                   (1536, 3072, torch.complex64),
+                   (3072, 1537, torch.complex64),
+                   (128, 16384, torch.complex128),
+                   (64, 524288, torch.complex128))
+#: (n, rows, dtype) of the dft kernel: P8
+DFT_SHAPES = ((128, 524288, torch.complex64),)
+#: (name, channels, signals, L = K) of the fused fftconv kernel
+CONV_SHAPES = (("F2", 768, 32, 2048), ("F3", 768, 8, 8192))
+
+
+def median_ms(fn, reps: int = 50) -> float:
+    """Median of ``reps`` CUDA-event times of ``fn`` after 3 warm calls."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def main() -> None:
+    src, label = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, src)
+    from repro_torch.kernels.dft_matmul import ops as dft
+    from repro_torch.kernels.fft2_pallas import ops as f2
+    from repro_torch.kernels.fft4step import ops as fs
+    from repro_torch.kernels.fftconv import ops as conv
+    from repro_torch.kernels.stockham_pallas import ops as sp
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    row = {"label": label}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    for n1, n2, dt in FFT2_SHAPES:
+        x = rand((8192, n1, n2), dt)
+        tw = f2.make_twiddles2(n1, n2, 8, False, dt, dev)
+        row[f"fft2 {n1}x{n2} {dt}"] = median_ms(
+            lambda: f2.fft2(x, False, twiddles=tw))
+        del x
+    for n, rows, dt in STOCKHAM_SHAPES:
+        x = rand((rows, n), dt)
+        tw = sp.make_twiddles(n, 8, False, dt, dev)
+        row[f"stockham {n}x{rows} {dt}"] = median_ms(
+            lambda: sp.fft(x, False, twiddles=tw))
+        del x
+    for n, rows, dt in FOURSTEP_SHAPES:
+        x = rand((rows, n), dt)
+        tables = fs.make_tables(n, False, dt, dev)
+        row[f"fourstep {n}x{rows} {dt}"] = median_ms(
+            lambda: fs.fft(x, False, twiddles=tables))
+        del x
+    for n, rows, dt in DFT_SHAPES:
+        x = rand((rows, n), dt)
+        m = dft.make_matrix(n, False, dt, dev)
+        row[f"dft {n}x{rows} {dt}"] = median_ms(
+            lambda: dft.dft(x, False, matrix=m))
+        del x
+    for name, c, b, L in CONV_SHAPES:
+        x = rand((c, b, L), torch.float32)
+        h = rand((c, L), torch.float32) / math.sqrt(L)
+        op = conv.prepare(x, h)
+        row[f"fftconv {name}"] = median_ms(lambda: conv.run_kernel(op))
+        del x, h, op
+    torch.cuda.empty_cache()
+    print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

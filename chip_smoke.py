@@ -40,7 +40,8 @@
    both directions; fftconv against its plain version and the float64
    oracle), then times it at the main path's shapes beside its plain
    version, the library call (``torch.fft``; for fftconv the unfused
-   ``torch.fft`` path) and its bound;
+   ``torch.fft`` path) and its bound, and sweeps the batch tile of the
+   fftconv and four-step kernels there (the check on their defaults);
 9. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -66,6 +67,9 @@ SRC = os.path.join(ROOT, "src")
 #: each type (fp32 outside the tensor cores; fp64 on the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"complex64": 67e12, "complex128": 67e12, "float32": 67e12}
+#: The TF32 tensor-core peak (dense), which the four-step kernel's
+#: complex64 products run at (3xTF32).
+PEAK_TF32 = 495e12
 
 CHECK_NS = (2, 3, 8, 12, 100, 945, 1024, 3072, 4096)
 CHECK_RADICES = (2, 4, 8)
@@ -77,8 +81,9 @@ FFT2_SHAPES = {
     "complex128": ((2, 2), (1, 8), (8, 1), (4, 16), (16, 4), (32, 32),
                    (8, 256), (64, 64), (32, 128), (4096, 1)),
 }
-#: four-step kernel: square, ragged-split and radix357 lengths (and the cap)
-FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096)
+#: four-step kernel: square, ragged-split and radix357 lengths, 8192 (and
+#: the cap: 16384 in complex64)
+FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096, 8192)
 #: rows of the fixed-case checks: tile 1, and tile 8 (a ragged last tile
 #: of 5) where 8 signals fit one block
 CHECK_ROWS = 37
@@ -148,16 +153,17 @@ KERNELS = (
 #: same arithmetic in another summation order; a float32 model of it
 #: agrees with float64 convolution to ~3e-7 at n = 16384.
 CONV_TOL = 1e-5
-#: fftconv fixed cases: every side k the length rule yields, (C, B) with a
-#: ragged last tile of 5 in tiles of 4, and the reference test's cases
-#: (C, B, L, K).
+#: fftconv fixed cases: every length n = k*k the length rule yields, (C, B)
+#: with a ragged last tile of 5 in tiles of 2 to 4 (and 5 signals in a
+#: tile of 6 or more), every tile up to the largest that fits, and the
+#: reference test's cases (C, B, L, K).
 CONV_KS = (1, 2, 4, 8, 16, 32, 64, 128)
 CONV_CB = ((1, 1), (3, 5))
 CONV_REFERENCE_CASES = ((2, 4, 100, 5), (1, 1, 512, 64), (3, 2, 1000, 24),
                         (2, 8, 8000, 128))
 #: fftconv at a Hyena long convolution's width (d_model 768, a filter as
 #: long as the sequence; Poli et al. 2023): (name, channels, signals per
-#: channel, L = K).  n = 4096 (k = 64) and n = 16384 (k = 128, the cap).
+#: channel, L = K).  n = 4096 and n = 16384 (the cap).
 CONV_WIDTHS = (("F2", 768, 32, 2048), ("F3", 768, 8, 8192))
 #: The kernel each kernel-table client launches (None: plain torch or
 #: torch.fft only), and the pairs whose downloads must agree.
@@ -364,7 +370,7 @@ def _conv_errors(ops, ref, x, h, tile_b):
     y = ops.run_kernel(op)
     plain = op.plain()
     torch.cuda.synchronize(x.device)
-    oracle = ref.fftconv_ref(x.double(), h.double(), op.k ** 2)
+    oracle = ref.fftconv_ref(x.double(), h.double(), op.n)
     return (rel_l2(y, plain), rel_l2(y.double(), oracle),
             float((y - plain).abs().max()))
 
@@ -382,8 +388,7 @@ def check_fftconv(device) -> dict:
     cases = []
     for k in CONV_KS:
         n = k * k
-        tiles = [t for t in (1, 2, 3, 4)
-                 if ops.smem_bytes(k, t) <= ops.SMEM_LIMIT_BYTES]
+        tiles = range(1, ops.largest_tile_b(n) + 1)
         for c, b in CONV_CB:
             for L, K in ((n, 1), ((n + 1) // 2, (n + 1) // 2)):
                 cases += [(c, b, L, K, t) for t in tiles]
@@ -935,6 +940,23 @@ class Shape:
         t = self.ops.make_tables(self.n, False, dtype, device)
         return t, lambda: self.ref.apply_fourstep(self.x, t.w1, t.w2, t.t)
 
+    def default_tile(self) -> int:
+        """The four-step kernel's default tile at this shape."""
+        n1, n2 = self.ops.choose_factors(self.n)
+        return self.ops.default_tile_b(n1, n2, self.rows,
+                                       self.x.element_size())
+
+    def tile_sweep(self, plan) -> dict:
+        """Four-step kernel ms (CUDA events, median of 20) at tiles of 1
+        to 32 signals that fit a block."""
+        n1, n2 = self.ops.choose_factors(self.n)
+        return {t: _events_ms(lambda: self.ops.fft(
+                    self.x, False, tile_b=t, twiddles=plan), 20)
+                for t in (1, 2, 4, 8, 16, 32)
+                if t <= self.rows and self.ops.smem_bytes(
+                    n1, n2, t, self.x.element_size())
+                <= self.ops.SMEM_LIMIT_BYTES}
+
     def library(self):
         import torch
         if self.kernel == "fft2_pallas":
@@ -968,18 +990,24 @@ class Shape:
             else (ops_ms, "operations")
 
     def algorithm_ops_ms(self) -> float | None:
-        """The kernel's own flops over the dtype's peak, what its algorithm
-        costs beyond the bound: 8(n1 + n2) + 6 per point for the four-step
-        kernel, 8n for the direct DFT (None for the Stockham-stage kernels,
-        whose flops are the 5 n log2(n))."""
+        """The kernel's own flops over the peak of the units that run them,
+        what its algorithm costs beyond the bound: for the four-step kernel
+        the tensor-core products, 3 * 8 (n1 + n2) TF32 flops per point at
+        the TF32 peak in complex64 (3xTF32) and 8 (n1 + n2) at the fp64
+        peak in complex128; 8n per point for the direct DFT (fp32/fp64 on
+        the CUDA cores); None for the Stockham-stage kernels, whose flops
+        are the 5 n log2(n)."""
+        peak = PEAK_FLOPS[self.dname]
         if self.kernel == "fft4step":
             n1, n2 = self.ops.choose_factors(self.n)
-            per_point = 8 * (n1 + n2) + 6
+            per_point = 8 * (n1 + n2)
+            if self.dname == "complex64":
+                per_point, peak = 3 * per_point, PEAK_TF32
         elif self.kernel == "dft_matmul":
             per_point = 8 * self.n
         else:
             return None
-        return per_point * self.n * self.rows / PEAK_FLOPS[self.dname] * 1e3
+        return per_point * self.n * self.rows / peak * 1e3
 
 
 class ConvShape(Shape):
@@ -994,11 +1022,10 @@ class ConvShape(Shape):
         c, b, L, K, tile = key
         self.x, self.h = _conv_inputs(device, gen, c, b, L, K)
         self.tile = tile
-        self.k = math.isqrt(self.ops._next_square_pow2(L + K - 1))
-        self.n = self.k ** 2
+        self.n = self.ops._next_square_pow2(L + K - 1)
         self.dname = "float32"
         self.shape = {"channels": c, "batch": b, "length": L, "taps": K,
-                      "k": self.k, "tile_b": tile, "dtype": "float32"}
+                      "n": self.n, "tile_b": tile, "dtype": "float32"}
 
     def kernel_call(self, inverse: bool = False, plan=None):
         """The whole wrapper (``plan`` None), or the kernel alone on
@@ -1023,14 +1050,13 @@ class ConvShape(Shape):
         return op, op.plain
 
     def tile_sweep(self) -> dict:
-        """Kernel ms (CUDA events, median of 20) at every tile of 1-4
-        signals that fits a block."""
+        """Kernel ms (CUDA events, median of 20) at every tile that fits a
+        block, up to the largest: the check on ``DEFAULT_TILE_B``."""
         out = {}
-        for t in range(1, 5):
-            if self.ops.smem_bytes(self.k, t) <= self.ops.SMEM_LIMIT_BYTES:
-                op = self.ops.prepare(self.x, self.h, tile_b=t)
-                out[t] = _events_ms(lambda: self.ops.run_kernel(op), 20)
-                del op
+        for t in range(1, self.ops.largest_tile_b(self.n) + 1):
+            op = self.ops.prepare(self.x, self.h, tile_b=t)
+            out[t] = _events_ms(lambda: self.ops.run_kernel(op), 20)
+            del op
         return out
 
     def library(self):
@@ -1066,9 +1092,13 @@ class ConvShape(Shape):
             else (ops_ms, "operations")
 
     def algorithm_ops_ms(self) -> float:
-        """The kernel's own 24 k^3 flops per signal over the fp32 peak."""
+        """The kernel's own flops over the fp32 peak: per signal two
+        complex FFTs of n/2 points (5 (n/2) log2(n/2) each) and the
+        spectral pass's ~40 flops per bin pair."""
         c, b = self.x.shape[:2]
-        return 24 * self.k ** 3 * c * b / PEAK_FLOPS["float32"] * 1e3
+        half = self.n // 2
+        flops = 10 * half * math.log2(max(half, 2)) + 20 * half
+        return flops * c * b / PEAK_FLOPS["float32"] * 1e3
 
 
 def _shapes(main_path: dict, device, seed: int):
@@ -1130,6 +1160,11 @@ def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
             # blocks per SM
             row["op_ms"] = _events_ms(s.kernel_call, 20)
             row["tile_sweep_ms"] = s.tile_sweep()
+        elif s.kernel == "fft4step":
+            # the kernel at tiles of 1 to 32 signals that fit a block: the
+            # check on its default tile
+            row["default_tile_b"] = s.default_tile()
+            row["tile_sweep_ms"] = s.tile_sweep(plan)
         emit({"timing": row})
         rows_out.append(row)
         del s, plan, plain
@@ -1184,8 +1219,8 @@ def main() -> int:
         # main path
         head = max(mine, key=lambda t: t["launches"] * t["bytes_moved"])
         shape = {k: head[k] for k in ("n", "n1", "n2", "rows", "channels",
-                                      "batch", "length", "taps", "k",
-                                      "tile_b", "dtype") if k in head}
+                                      "batch", "length", "taps", "tile_b",
+                                      "dtype") if k in head}
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one ``execute_forward`` / ``execute_inverse`` goes, on
-one GPU, for the port's clients (``src/repro_torch``).
+one GPU, for the port's clients (``src/repro_torch``), and of one call of
+the fused fftconv wrapper.
 
-    python3 profile_execute.py [--src DIR] [--problems P1,P4] [--reps 20]
+    python3 profile_execute.py [--src DIR] [--problems P1,P4,F2] [--reps 20]
 
 For each problem (the shapes of ``chip_smoke.py``) and client that can take
 it it builds the plan once, runs one warm forward/inverse pair, then prints one JSON line
-per op:
+per op.  For an fftconv width (F2, F3) it profiles the wrapper
+``ops.fftconv`` (operands built, then the kernel) and the kernel alone on
+prepared operands.  Each line holds:
 
 * ``host_ms``: median host-clock time of the op over ``--reps`` calls (the
   op ends in ``torch.cuda.synchronize``, as in the measurement loop);
@@ -16,7 +19,10 @@ per op:
   ``idle_share`` = 1 - device_ms / host_ms (null when the profiler saw no
   device time);
 * ``ops``: the device-side events by time per call, largest first, with
-  their launches per call.
+  their launches per call;
+* ``host_ops``: the host-side events (aten ops and runtime calls) by self
+  host time per call, largest first: what the host does around the
+  launches.
 
 ``--src`` names the ``src/`` directory that ``repro_torch`` is imported
 from, so that two checkouts can be compared with the same script.  Needs a
@@ -44,6 +50,8 @@ PROBLEMS = {
     "P6": ((128, 128), "Outplace_Real", "float", 8192),
     "P7": ((64, 64), "Inplace_Complex", "double", 8192),
 }
+#: (channels, signals, L = K) of the fftconv widths, as in ``chip_smoke.py``.
+CONV_WIDTHS = {"F2": (768, 32, 2048), "F3": (768, 8, 8192)}
 CLIENTS = ("TorchFFT", "TorchStockhamPallas", "TorchFourStepPallas",
            "TorchFft2Pallas")
 TOP_OPS = 12
@@ -64,13 +72,22 @@ def _device_us(avg) -> float:
     return 0.0
 
 
-def measure(client, reps: int) -> list[dict]:
-    """Host and device time of each execute op; the ops alternate, since an
-    in-place kind's forward gives up the buffer its inverse refills."""
+def _host_us(avg) -> float:
+    """Self host time of a host-side event, else 0."""
+    from torch.autograd import DeviceType
+
+    if avg.device_type == DeviceType.CUDA:
+        return 0.0
+    return float(getattr(avg, "self_cpu_time_total", 0.0) or 0.0)
+
+
+def measure(ops: dict, reps: int) -> list[dict]:
+    """Host and device time of each named op (a callable that ends in a
+    synchronize); the ops alternate, since an in-place kind's forward gives
+    up the buffer its inverse refills."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    ops = {"execute_forward": client.execute_forward,
-           "execute_inverse": client.execute_inverse}
     for fn in ops.values():
         fn()
     host = {op: [] for op in ops}
@@ -80,28 +97,58 @@ def measure(client, reps: int) -> list[dict]:
             fn()
             host[op].append((time.perf_counter() - t0) * 1e3)
     device = {op: {} for op in ops}
+    hosted = {op: {} for op in ops}
     for _ in range(reps):
         for op, fn in ops.items():
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
+                torch.cuda.synchronize()
             for avg in prof.key_averages():
-                us = _device_us(avg)
-                if us > 0:
-                    total, count = device[op].get(avg.key, (0.0, 0))
-                    device[op][avg.key] = (total + us, count + avg.count)
+                for table, us in ((device[op], _device_us(avg)),
+                                  (hosted[op], _host_us(avg))):
+                    if us > 0:
+                        total, count = table.get(avg.key, (0.0, 0))
+                        table[avg.key] = (total + us, count + avg.count)
     rows = []
     for op in ops:
         host_ms = statistics.median(host[op])
         device_ms = sum(us for us, _ in device[op].values()) / reps / 1e3
-        top = sorted(device[op].items(), key=lambda kv: -kv[1][0])[:TOP_OPS]
         rows.append({
             "op": op, "host_ms": host_ms, "device_ms": device_ms,
             "idle_share": 1 - device_ms / host_ms if device_ms > 0 else None,
-            "ops": [{"name": key[:120], "ms": us / reps / 1e3,
-                     "launches": count / reps}
-                    for key, (us, count) in top]})
+            "ops": _top(device[op], reps), "host_ops": _top(hosted[op], reps)})
     return rows
+
+
+def _top(table: dict, reps: int) -> list[dict]:
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]
+    return [{"name": key[:120], "ms": us / reps / 1e3, "launches": count / reps}
+            for key, (us, count) in top]
+
+
+def _synced(fn):
+    import torch
+
+    def call():
+        fn()
+        torch.cuda.synchronize()
+    return call
+
+
+def measure_fftconv(name: str, reps: int) -> list[dict]:
+    """The fused fftconv wrapper and its kernel at an fftconv width."""
+    import torch
+    from repro_torch.kernels.fftconv import ops as conv
+
+    c, b, L = CONV_WIDTHS[name]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((c, b, L), device="cuda", generator=gen)
+    h = torch.randn((c, L), device="cuda", generator=gen) / L ** 0.5
+    op = conv.prepare(x, h)
+    return measure({"fftconv": _synced(lambda: conv.fftconv(x, h)),
+                    "run_kernel": _synced(lambda: conv.run_kernel(op))},
+                   reps)
 
 
 def main() -> int:
@@ -110,7 +157,8 @@ def main() -> int:
     parser.add_argument("--src", default=os.path.join(ROOT, "src"),
                         help="the src/ directory holding repro_torch")
     parser.add_argument("--problems", default="P1,P4",
-                        help=f"comma-separated, of {','.join(PROBLEMS)}")
+                        help="comma-separated, of "
+                             f"{','.join([*PROBLEMS, *CONV_WIDTHS])}")
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--label", default="",
                         help="copied into every output line")
@@ -129,6 +177,11 @@ def main() -> int:
     context = TorchContext(torch.device("cuda", 0))
     context.create()
     for pname in args.problems.split(","):
+        if pname in CONV_WIDTHS:
+            for row in measure_fftconv(pname, args.reps):
+                print(json.dumps({"label": args.label, "problem": pname,
+                                  "client": "fftconv", **row}), flush=True)
+            continue
         extents, kind, precision, batch = PROBLEMS[pname]
         problem = Problem(extents, kind, precision, batch)
         for cname in CLIENTS:
@@ -140,7 +193,9 @@ def main() -> int:
             client.init_forward()
             client.init_inverse()
             client.upload(make_input(problem, seed=1))
-            for row in measure(client, args.reps):
+            ops = {"execute_forward": client.execute_forward,
+                   "execute_inverse": client.execute_inverse}
+            for row in measure(ops, args.reps):
                 print(json.dumps({"label": args.label, "problem": pname,
                                   "client": cname, **row}), flush=True)
             client.destroy()

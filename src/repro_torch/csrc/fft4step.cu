@@ -1,4 +1,5 @@
-// Fused four-step FFT for Hopper (sm_90a).
+// Fused four-step FFT for Hopper (sm_90a), its products on the tensor
+// cores.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/fft4step/fft4step.py : fft4step
@@ -6,176 +7,219 @@
 // For a signal of length n = n1*n2 (n1, n2 <= 128) viewed as the
 // row-major n1 x n2 matrix X[j1, j2] = x[j1*n2 + j2] it computes
 //
-//     C[k1, j2] = T[k1, j2] * sum_j1 W1[k1, j1] X[j1, j2]   (column DFTs)
-//     y[k2*n1 + k1] = sum_j2 C[k1, j2] W2[j2, k2]            (row DFTs)
+//     C[k1, j2] = T[k1, j2] * sum_j1 W1[k1, j1] X[j1, j2]   (column pass)
+//     y[k2*n1 + k1] = sum_j2 W2[k2, j2] C[k1, j2]            (row pass)
 //
-// so y is the natural-order DFT of x.  W1, W2 and T are the reference's
-// tables (host float64, cast once to the plane type); the inverse uses the
-// conjugate tables and folds 1/n into the store.
+// so y is the natural-order DFT of x; the inverse runs the conjugate
+// tables and folds 1/n into the store.
 //
-// Bound: device-memory bytes.  The function, a length-n DFT, needs
-// ~5 n log2(n) flops on 2 * n * sizeof(complex) bytes of traffic, below
-// the card's flop-per-byte ridge.  This algorithm does more: the two
-// complex matrix products take 8 (n1 + n2) real flops per point (at n =
-// 64 x 64, 17x the FFT's 60), 128 flops per byte in complex64, above the
-// float32 (non tensor core) ridge of ~20, so its own arithmetic, not the
-// bytes, is what limits it on the CUDA cores.  The design keeps the signal
-// on chip between the two products and reads and writes device memory
-// once:
-//   * one CTA owns a tile of tile_b signals; it copies them into shared
-//     memory (X) with coalesced loads;
-//   * each pass is a small complex matrix product in register tiles: a
-//     thread owns RT x RT outputs and, per step of the sum, loads RT
-//     values of each operand for RT*RT complex FMAs (RT = 4, or 2 below
-//     n = 256, where 4x4 tiles would leave most threads of a block idle;
-//     the wrapper picks it and fills the block with signals).  A thread's
-//     rows and columns are strided (k = k0 + i*ceil(n/RT)), so
-//     consecutive threads touch consecutive shared-memory words;
-//   * the column DFTs read X[j1, j2] (threads along j2) and write C,
-//     twiddle applied, to a second shared buffer whose rows are padded to
-//     n2 + 1, so the row pass reads C along k1 without bank conflicts;
-//   * the row DFTs (threads along k1) store y[k2*n1 + k1]: consecutive
-//     threads write consecutive addresses.
-// W1/W2/T are read from global memory (a few hundred KB at most, held in
-// L1/L2); the threads of a warp share their rows of W1/W2, so most of
-// those loads are broadcasts.  Arithmetic is fp32 FMA for complex64 and fp64 for
-// complex128, no TF32.  The two buffers cap a signal at 14464 points
-// (complex64) and 7216 (complex128) in 227 KB per block.
+// Bound: device-memory bytes for the function (a length-n DFT: ~5 n
+// log2(n) flops on 2 * n * sizeof(complex) bytes).  This algorithm does
+// 8 (n1 + n2) real flops per point, 128 per byte at n = 64 x 64 in
+// complex64: on the CUDA cores (the first design) its own arithmetic, not
+// the bytes, limited it.  This design runs both products on the tensor
+// cores through the panel product of tc_product.cuh: 3xTF32
+// (mma.sync.m16n8k8, three TF32 products per fp32 product, so 3 * 8 (n1 +
+// n2) flops per point at the 495 TFLOP/s TF32 peak) for complex64, and
+// mma.sync.m8n8k4 f64 (the 67 TFLOP/s fp64 tensor-core peak) for
+// complex128.  Shared memory holds one plane per signal, in place:
+//   * one CTA owns a tile of tile_b signals; it copies them into its
+//     plane (rows padded to a pitch of 4 mod 16 points, so a warp's
+//     fragment loads of either pass hit each bank at most the minimum
+//     number of times) and the roots of W1, W2 (split for 3xTF32) and of T
+//     into shared tables;
+//   * column pass: a warp owns a panel of 16 columns (NP = 2 tensor-core
+//     n-tiles, which share each looked-up fragment of W1; 8 columns when a
+//     side is at most 8) and a group of up to MG m-tiles of the output
+//     rows, sums the whole depth j1 in registers, then writes C over its
+//     panel with the twiddle applied,
+//     T = w_n^{k1 j2} from two 128-entry root tables (w_n^{128 (e >> 7)}
+//     * w_n^{e & 127}).  A panel whose rows need more than one group is
+//     read by all of them before any writes: the block barriers between a
+//     round's sums and its stores;
+//   * row pass: a warp owns 16 (or 8) rows of C (the product's columns, C^T)
+//     and a group of m-tiles of k2, and stores y[k2*n1 + k1] straight to
+//     global memory: a quad of lanes writes 8 consecutive points, in
+//     complex64 as four 16-byte stores (64 bytes, two whole sectors).
+// W1 and W2 never exist whole: the panel product indexes their root
+// tables at (m k) mod n1 or n2.  One plane caps a signal at n = 16384 in
+// complex64 and at the largest factorable n whose padded plane fits 227 KB
+// in complex128 (13920).
 //
-// Layout: interleaved complex (torch.view_as_real of contiguous tensors).
-// Plain C interface (fft4step_f32 / fft4step_f64), loaded with ctypes;
-// each returns the cudaError_t of the launch.
+// Layout: interleaved complex (torch.view_as_real of contiguous tensors);
+// the table vector holds the roots of W1 (n1), of W2 (n2), and T's two
+// root tables (128 each).  Plain C interface (fft4step_f32 /
+// fft4step_f64), loaded with ctypes; each returns the cudaError_t of the
+// launch.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 
-#include "stockham_stages.cuh"  // Cx, mul, cfma
+#include "stockham_stages.cuh"  // Cx, mul, scale
+#include "tc_product.cuh"       // TcRoot, TcAcc, make_root
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN1 = 128;
+constexpr int kTwiddleRoots = 128;      // each of T's two root tables
 constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
 constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
 constexpr int kMaxDevices = 64;
 
-// RT x RT outputs per thread and pass (the register tile)
-template <typename T, bool INV, int RT>
-__global__ void __launch_bounds__(kThreads)
+// points per padded plane row: n2 rounded up to 4 mod 16
+__host__ __device__ constexpr int plane_pitch(int n2) {
+  return n2 + ((4 - n2) % 16 + 16) % 16;
+}
+
+template <typename T>
+constexpr size_t table_bytes() {
+  return 2 * kMaxN1 * sizeof(typename TcRoot<T>::type) +
+         2 * kTwiddleRoots * sizeof(Cx<T>);
+}
+
+template <typename T>
+size_t smem_bytes(int n1, int n2, int tile_b) {
+  return table_bytes<T>() + static_cast<size_t>(tile_b) * n1 *
+                                plane_pitch(n2) * sizeof(Cx<T>);
+}
+
+// A warp's item: a panel of 8 NP columns (column pass) or rows of C (row
+// pass) by a group of up to MG m-tiles of the output rows.
+template <typename T, int MG, int NP>
+__global__ void __launch_bounds__(kThreads, 2)
 fft4step_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
-                const Cx<T>* __restrict__ w1, const Cx<T>* __restrict__ w2,
-                const Cx<T>* __restrict__ t, long long batch, int n1, int n2,
-                int tile_b, T inv_n) {
+                const Cx<T>* __restrict__ tables, long long batch, int n1,
+                int n2, int tile_b, T out_scale) {
+  using Root = typename TcRoot<T>::type;
+  using Acc = TcAcc<T, MG, NP>;
+  constexpr int kPanel = 8 * NP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  Root* r1 = reinterpret_cast<Root*>(smem_raw);
+  Root* r2 = r1 + kMaxN1;
+  Cx<T>* tlo = reinterpret_cast<Cx<T>*>(r2 + kMaxN1);
+  Cx<T>* thi = tlo + kTwiddleRoots;
+  Cx<T>* plane = thi + kTwiddleRoots;
   const int n = n1 * n2;
-  const int pitch = n2 + 1;
-  Cx<T>* xs = reinterpret_cast<Cx<T>*>(smem_raw);        // tile_b * n
-  Cx<T>* cs = xs + static_cast<long long>(tile_b) * n;   // tile_b * n1 * pitch
+  const int pitch = plane_pitch(n2);
   const long long sig0 = static_cast<long long>(blockIdx.x) * tile_b;
   const int sigs = static_cast<int>(min(static_cast<long long>(tile_b), batch - sig0));
 
+  for (int i = threadIdx.x; i < n1; i += blockDim.x) r1[i] = make_root(tables[i]);
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) r2[i] = make_root(tables[n1 + i]);
+  // T's root tables, as far as k1 j2 < n reaches
+  for (int i = threadIdx.x; i < min(n, kTwiddleRoots); i += blockDim.x)
+    tlo[i] = tables[n1 + n2 + i];
+  for (int i = threadIdx.x; i <= (n - 1) >> 7; i += blockDim.x)
+    thi[i] = tables[n1 + n2 + kTwiddleRoots + i];
+  // the tile's points in order, point i at plane row i / n2 (X[j1] of
+  // signal j1 / n1, the tile's rows being consecutive) and column i % n2,
+  // both stepped without a division
   const Cx<T>* xg = x + sig0 * n;
-  for (int i = threadIdx.x; i < sigs * n; i += blockDim.x) xs[i] = xg[i];
-  __syncthreads();
-
-  // column DFTs and twiddle: C[k1, j2] for k1 = ki + i*ni, j2 = jj + j*nj
-  const int ni = (n1 + RT - 1) / RT;
-  const int nj = (n2 + RT - 1) / RT;
-  for (int g = threadIdx.x; g < sigs * ni * nj; g += blockDim.x) {
-    const int jj = g % nj;
-    const int rest = g / nj;
-    const int ki = rest % ni;
-    const int sig = rest / ni;
-    const Cx<T>* wr[RT];
-    const Cx<T>* xc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) wr[i] = w1 + min(ki + i * ni, n1 - 1) * n1;
-#pragma unroll
-    for (int j = 0; j < RT; ++j) xc[j] = xs + sig * n + min(jj + j * nj, n2 - 1);
-    Cx<T> acc[RT][RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < RT; ++j) acc[i][j] = {T(0), T(0)};
-    for (int j1 = 0; j1 < n1; ++j1) {
-      Cx<T> w[RT], v[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) w[i] = wr[i][j1];
-#pragma unroll
-      for (int j = 0; j < RT; ++j) v[j] = xc[j][j1 * n2];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < RT; ++j) acc[i][j] = cfma(w[i], v[j], acc[i][j]);
-    }
-    Cx<T>* cc = cs + sig * n1 * pitch;
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int k1 = ki + i * ni;
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        const int j2 = jj + j * nj;
-        if (k1 < n1 && j2 < n2)
-          cc[k1 * pitch + j2] = mul(acc[i][j], t[k1 * n2 + j2]);
+  {
+    const int drow = kThreads / n2, dcol = kThreads % n2;
+    int row = threadIdx.x / n2, col = threadIdx.x % n2;
+    for (int i = threadIdx.x; i < sigs * n; i += kThreads) {
+      plane[row * pitch + col] = xg[i];
+      row += drow;
+      col += dcol;
+      if (col >= n2) {
+        col -= n2;
+        ++row;
       }
     }
   }
   __syncthreads();
 
-  // row DFTs, stored transposed: y[k2*n1 + k1] for k1 = ki + i*ni,
-  // k2 = kj + j*nj
-  for (int g = threadIdx.x; g < sigs * ni * nj; g += blockDim.x) {
-    const int ki = g % ni;
-    const int rest = g / ni;
-    const int kj = rest % nj;
-    const int sig = rest / nj;
-    const Cx<T>* cr[RT];
-    int kk[RT];
+  const int warp = threadIdx.x >> 5;
+
+  const Cx<T> zero = {T(0), T(0)};
+
+  // column pass: items (signal, panel of columns, group of m-tiles of
+  // k1); a power-of-two count of groups per panel, so a round of kWarps
+  // items holds every group of its panels (a group past the last m-tile
+  // sums nothing)
+  const int mt1 = (n1 + Acc::kRows - 1) / Acc::kRows;
+  int groups1 = 1;
+  while (groups1 * MG < mt1) groups1 *= 2;
+  const int panels1 = (n2 + kPanel - 1) / kPanel;
+  const int items1 = sigs * panels1 * groups1;
+  for (int round = 0; round * kWarps < items1; ++round) {
+    const int item = round * kWarps + warp;
+    const int grp = item % groups1;
+    const int s = item / groups1 / panels1;
+    const int c0 = kPanel * (item / groups1 % panels1);
+    const int mt0 = grp * MG;
+    const int mts = min(MG, mt1 - mt0);
+    const bool active = item < items1 && mts > 0;
+    Cx<T>* xs = plane + s * n1 * pitch;
+    Acc acc;
+    if (active)
+      acc.product(r1, n1, mt0, mts, [&](int j1, int c) {
+        return j1 < n1 && c0 + c < n2 ? xs[j1 * pitch + c0 + c] : zero;
+      });
+    // a panel's groups all read it before any of them writes it
+    if (groups1 > 1) __syncthreads();
+    if (active)
+      acc.epilogue(n1, mt0, mts, [&](int k1, int c, Cx<T> v0, Cx<T> v1) {
+        const Cx<T> v[2] = {v0, v1};
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
-      cr[i] = cs + (sig * n1 + min(ki + i * ni, n1 - 1)) * pitch;
-#pragma unroll
-    for (int j = 0; j < RT; ++j) kk[j] = min(kj + j * nj, n2 - 1);
-    Cx<T> acc[RT][RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < RT; ++j) acc[i][j] = {T(0), T(0)};
-    for (int j2 = 0; j2 < n2; ++j2) {
-      const Cx<T>* wrow = w2 + j2 * n2;
-      Cx<T> c[RT], w[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) c[i] = cr[i][j2];
-#pragma unroll
-      for (int j = 0; j < RT; ++j) w[j] = wrow[kk[j]];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < RT; ++j) acc[i][j] = cfma(c[i], w[j], acc[i][j]);
-    }
-    Cx<T>* yo = y + (sig0 + sig) * n;
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int k1 = ki + i * ni;
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        const int k2 = kj + j * nj;
-        if (k1 < n1 && k2 < n2) {
-          yo[static_cast<long long>(k2) * n1 + k1] =
-              INV ? Cx<T>{acc[i][j].re * inv_n, acc[i][j].im * inv_n}
-                  : acc[i][j];
+        for (int u = 0; u < 2; ++u) {
+          const int j2 = c0 + c + u;
+          if (j2 < n2) {
+            const int e = k1 * j2;  // < n
+            xs[k1 * pitch + j2] = mul(v[u], mul(thi[e >> 7], tlo[e & 127]));
+          }
+        }
+      });
+  }
+  __syncthreads();
+
+  // row pass: items (signal, panel of rows of C, group of m-tiles of
+  // k2), stored transposed
+  const int mt2 = (n2 + Acc::kRows - 1) / Acc::kRows;
+  const int groups2 = (mt2 + MG - 1) / MG;
+  const int panels2 = (n1 + kPanel - 1) / kPanel;
+  const int items2 = sigs * panels2 * groups2;
+  for (int item = warp; item < items2; item += kWarps) {
+    const int grp = item % groups2;
+    const int s = item / groups2 / panels2;
+    const int k10 = kPanel * (item / groups2 % panels2);
+    const int mt0 = grp * MG;
+    const int mts = min(MG, mt2 - mt0);
+    const Cx<T>* cs = plane + s * n1 * pitch;
+    Cx<T>* yo = y + (sig0 + s) * n;
+    Acc acc;
+    acc.product(r2, n2, mt0, mts, [&](int j2, int c) {
+      return j2 < n2 && k10 + c < n1 ? cs[(k10 + c) * pitch + j2] : zero;
+    });
+    acc.epilogue(n2, mt0, mts, [&](int k2, int c, Cx<T> v0, Cx<T> v1) {
+      const int k1 = k10 + c;  // even
+      Cx<T>* out = yo + k2 * n1 + k1;
+      v0 = scale(v0, out_scale);
+      v1 = scale(v1, out_scale);
+      if constexpr (sizeof(T) == 4) {
+        if (k1 + 1 < n1 && n1 % 2 == 0) {
+          // the pair as one 16-byte store: a quad of lanes writes 64
+          // contiguous bytes, two whole sectors
+          *reinterpret_cast<float4*>(out) =
+              make_float4(v0.re, v0.im, v1.re, v1.im);
+          return;
         }
       }
-    }
+      if (k1 < n1) out[0] = v0;
+      if (k1 + 1 < n1) out[1] = v1;
+    });
   }
 }
 
-template <typename T, bool INV, int RT>
-int launch_dir(const void* x, void* y, const void* w1, const void* w2,
-               const void* t, long long batch, int n1, int n2, int tile_b,
-               size_t smem, cudaStream_t stream) {
-  auto kern = fft4step_kernel<T, INV, RT>;
+template <typename T, int MG, int NP>
+int launch_mg(const void* x, void* y, const void* tables, long long batch,
+              int n1, int n2, int tile_b, T out_scale, size_t smem,
+              cudaStream_t stream) {
+  auto kern = fft4step_kernel<T, MG, NP>;
   if (smem > static_cast<size_t>(kDefaultSmem)) {
     // the opt-in is a per-device attribute of this instantiation: set it on
     // the first large launch on each device only
@@ -193,48 +237,46 @@ int launch_dir(const void* x, void* y, const void* w1, const void* w2,
   const long long blocks = (batch + tile_b - 1) / tile_b;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(y),
-      static_cast<const Cx<T>*>(w1), static_cast<const Cx<T>*>(w2),
-      static_cast<const Cx<T>*>(t), batch, n1, n2, tile_b,
-      T(1) / static_cast<T>(n1 * n2));
+      static_cast<const Cx<T>*>(tables), batch, n1, n2, tile_b, out_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* x, void* y, const void* w1, const void* w2,
-           const void* t, long long batch, int n1, int n2, int tile_b,
-           int rt, int inverse, void* stream) {
+int launch(const void* x, void* y, const void* tables, long long batch,
+           int n1, int n2, int tile_b, int mg, int np, int inverse,
+           void* stream) {
   if (n1 < 1 || n1 > kMaxN1 || n2 < 1 || n2 > kMaxN1 || tile_b < 1 ||
-      batch < 1 || (rt != 2 && rt != 4))
+      batch < 1)
+    return cudaErrorInvalidValue;
+  if ((mg != 1 && mg != 2 && mg != 4) || (np != 1 && np != 2))
     return cudaErrorInvalidValue;
   if ((batch + tile_b - 1) / tile_b > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(tile_b) *
-                      (static_cast<size_t>(n1) * n2 +
-                       static_cast<size_t>(n1) * (n2 + 1)) * sizeof(Cx<T>);
+  const size_t smem = smem_bytes<T>(n1, n2, tile_b);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const T out_scale = inverse ? T(1) / static_cast<T>(n1 * n2) : T(1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rt == 2)
-    return inverse
-        ? launch_dir<T, true, 2>(x, y, w1, w2, t, batch, n1, n2, tile_b, smem, s)
-        : launch_dir<T, false, 2>(x, y, w1, w2, t, batch, n1, n2, tile_b, smem, s);
-  return inverse
-      ? launch_dir<T, true, 4>(x, y, w1, w2, t, batch, n1, n2, tile_b, smem, s)
-      : launch_dir<T, false, 4>(x, y, w1, w2, t, batch, n1, n2, tile_b, smem, s);
+  switch (4 * np + mg) {
+    case 5: return launch_mg<T, 1, 1>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+    case 6: return launch_mg<T, 2, 1>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+    case 8: return launch_mg<T, 4, 1>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+    case 9: return launch_mg<T, 1, 2>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+    case 10: return launch_mg<T, 2, 2>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+    default: return launch_mg<T, 4, 2>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+  }
 }
 
 }  // namespace
 
-extern "C" int fft4step_f32(const void* x, void* y, const void* w1,
-                            const void* w2, const void* t, long long batch,
-                            int n1, int n2, int tile_b, int rt, int inverse,
-                            void* stream) {
-  return launch<float>(x, y, w1, w2, t, batch, n1, n2, tile_b, rt, inverse,
+extern "C" int fft4step_f32(const void* x, void* y, const void* tables,
+                            long long batch, int n1, int n2, int tile_b,
+                            int mg, int np, int inverse, void* stream) {
+  return launch<float>(x, y, tables, batch, n1, n2, tile_b, mg, np, inverse,
                        stream);
 }
 
-extern "C" int fft4step_f64(const void* x, void* y, const void* w1,
-                            const void* w2, const void* t, long long batch,
-                            int n1, int n2, int tile_b, int rt, int inverse,
-                            void* stream) {
-  return launch<double>(x, y, w1, w2, t, batch, n1, n2, tile_b, rt, inverse,
+extern "C" int fft4step_f64(const void* x, void* y, const void* tables,
+                            long long batch, int n1, int n2, int tile_b,
+                            int mg, int np, int inverse, void* stream) {
+  return launch<double>(x, y, tables, batch, n1, n2, tile_b, mg, np, inverse,
                         stream);
 }

@@ -4,230 +4,260 @@
 //   src/repro/kernels/fftconv/fftconv.py : fftconv_kernel
 //   (body _fftconv_kernel: a real square four-step forward transform, the
 //   pointwise product by the filter spectrum, the inverse four-step, and
-//   its real part; 14 k x k x k real products per signal).
-// Each signal is a real tile of n = k*k points (k = 2^m <= 128) viewed as
-// the row-major k x k matrix X[j1, j2] = x[j1*k + j2].  With W, Wi the
-// forward and inverse k x k DFT matrices and T, Ti the twiddles (all
-// symmetric, the reference's tables: host float64, cast once to float32)
-// and H the channel's spectrum reshaped (k, k) with 1/n folded in, one
-// block computes, per signal and in place in shared memory,
+//   its real part).
+// It computes the same function, the circular convolution of each real
+// signal with its channel's filter at length n (n = 4^m <= 16384, the
+// reference's length rule; with n >= L + K - 1 this is the causal linear
+// convolution), but not by the TPU's dense k x k DFT products: on this card
+// those cost 24 k^3 flops per signal, ~29x the two real FFTs at n = 16384.
+// Per signal, in shared memory from the load to the store:
 //
-//   A  C[r, c]  = T[r, c] * sum_j W[r, j] X[j, c]       column DFTs, real X
-//   B  E[r, c]  = H[c, r] * sum_j C[r, j] W[j, c]       row DFTs, spectrum
-//   C  C[r, c]  = Ti[r, c] * sum_j E[r, j] Wi[j, c]     inverse row DFTs
-//   D  y[r*k+c] = Re sum_j Wi[r, j] C[j, c]             inverse column DFTs
+//   1. load the L real points (16-byte loads where the row allows) and
+//      zero-fill to n; read as N = n/2 complex points they are the packed
+//      signal z[j] = x[2j] + i x[2j+1] (the same words);
+//   2. Z = FFT_N(z): radix-8/4/2 Stockham stages ping-ponging between two
+//      buffers, with the host's float64 stage twiddles: run_stage's
+//      arithmetic (its butterflies, stockham_stages.cuh) for power-of-two
+//      sizes, in a layout padded against bank conflicts;
+//   3. one pass over the pairs (k, N-k), k <= N/2, in place:
+//        E = (Z[k] + conj Z[N-k]) / 2,  O = (Z[k] - conj Z[N-k]) / 2i,
+//        X[k] = E + w^k O,  X[N-k] = conj(E - w^k O)      (w = e^{-2 pi i/n})
+//      the real signal's spectrum; Y = X H with H the channel's half
+//      spectrum rfft(h, n)/n; and the re-pack of Y's inverse,
+//        A = Y[k] + conj Y[N-k],  B = (Y[k] - conj Y[N-k]) conj(w^k),
+//        Z'[k] = A + iB,  Z'[N-k] = conj A + i conj B,
+//      stored conjugated;
+//   4. the same forward stages on conj Z', so the buffer holds
+//      conj(IFFT_N(Z')) (no inverse twiddle table, no 1/N: H holds 1/n);
+//   5. store y[2j] = Re, y[2j+1] = -Im of it for the first L points.
 //
-// which is the reference's arithmetic in another layout: its forward
-// output is the natural-order spectrum reshaped (k, k), so E is the
-// transpose of its spectral product, pass C is its inverse column DFT (on
-// E's rows) and pass D its last row DFT, read along the other axis so the
-// output lands in natural time order.  Pass D computes only the real part
-// (2 real products where the reference takes 4 and drops the imaginary
-// half): 12 k^3 FMAs per signal in all.
-//
-// Bound: device-memory bytes.  The convolution reads the L-point signal
-// and writes the L-point result once (8 L bytes per signal, plus the
-// channel's K taps) and needs ~2 * 2.5 n log2(n) flops (two real FFTs),
-// below the card's flop-per-byte ridge.  This algorithm's own 24 k^3
-// flops per signal (1.5 k flops per byte, 96 at k = 64) are above the
-// fp32 ridge of ~20 on the CUDA cores, so its arithmetic, not the bytes,
-// is what limits it.  TF32 would break the 1e-5 bar, so the sums run as fp32 FMA.  The
-// design keeps the signal on chip from the load to the store:
-//   * one CTA owns a tile of tile_b signals of one channel (the last
-//     tile of a channel may hold fewer); it reads each signal's L points
-//     into shared memory (the first buffer) and zero-fills them to n;
-//   * pass A writes the complex plane C (second buffer, rows padded to
-//     k + 1 points so that a warp's two rows of A operands at k = 64 land
-//     on different banks);
-//   * passes B and C go half the rows at a time: B writes the rows' E
-//     into the first buffer (the real tile is dead by then), C writes them
-//     back over the same rows of C.  So a block needs one complex plane
-//     and half of one, and k = 128 (128 KB per plane) fits with one signal
-//     per block: 193.5 KB of the 227 KB;
-//   * pass D stores y[r*k + c] for r*k + c < L, with consecutive threads
-//     on consecutive c;
-//   * every pass is a register-tiled product: a thread owns RT x RT
-//     outputs (RT = 4 from k = 32, else 2) and, per step j of the sum,
-//     loads RT values of each operand for RT*RT multiply-adds; its rows
-//     and columns are strided (c = c0 + t*ceil(k/RT)), so the threads of
-//     a warp read one operand as a broadcast and the other at consecutive
-//     addresses;
-//   * W, Wi, T, Ti (32 KB each at k = 64) and the channel's spectrum are
-//     read from global memory, where they stay resident in L1/L2.
+// Bound: device-memory bytes.  The convolution reads the L-point signal and
+// writes the L-point result once (8 L bytes per signal, plus the channel's
+// K taps and the spectrum, which stay in L2) and needs ~2 * 2.5 n log2(n)
+// flops per signal, about 4 flops per byte, far below the card's ridge.
+// So the signal never leaves the chip between the load and the store.  A
+// block owns tile_b signals of one channel (the last tile of a channel may
+// hold fewer) and needs two buffers of N complex64 per signal, padded
+// (below): 8.5 n bytes, 136 KB at n = 16384.  Its threads follow n (256 at
+// n = 4096, 1024 at 16384: one radix-8 butterfly of one signal each).
+// The stage twiddles (one packed table, ~N points), the N/2 + 1 roots w^k
+// and the spectra are read from global memory, where they stay resident
+// in L1/L2 across the blocks of a channel.
 //
 // Layout: x, y (channels, batch, L) float32, L <= n; the spectrum
-// (channels, n) and the tables (W, Wi, T, Ti; 4 x n) interleaved
-// complex64; the wrapper pads nothing and cuts nothing.  Plain C
-// interface (fftconv_f32), loaded with ctypes; it returns the cudaError_t
-// of the launch.
+// (channels, N + 1), the twiddles and the roots interleaved complex64.
+// Plain C interface (fftconv_f32), loaded with ctypes; it returns the
+// cudaError_t of the launch.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cstdint>
 
-#include "stockham_stages.cuh"  // Cx, mul, cfma
+#include "stockham_stages.cuh"  // Cx, mul, Butterfly
 
 namespace {
 
 using C32 = Cx<float>;
 
-constexpr int kThreads = 256;
-constexpr int kMaxK = 128;
+// threads of a block: one radix-8 butterfly of one signal each at the
+// main path's lengths (n/16), at least 128
+__host__ __device__ constexpr int block_threads(int n) {
+  return n >= 16384 ? 1024 : n >= 4096 ? 256 : 128;
+}
+
+constexpr int kMaxN = 16384;
+constexpr int kMaxStages = 16;
 constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
 constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
 constexpr int kMaxDevices = 64;
 
-// acc + w * x for real x (pass A)
-__device__ __forceinline__ C32 mac(C32 w, float x, C32 acc) {
-  acc.re = acc.re + w.re * x;
-  acc.im = acc.im + w.im * x;
-  return acc;
-}
-// acc + a * b (passes B and C)
-__device__ __forceinline__ C32 mac(C32 a, C32 b, C32 acc) {
-  return cfma(a, b, acc);
-}
-// acc + Re(a * b) (pass D)
-__device__ __forceinline__ float mac(C32 a, C32 b, float acc) {
-  acc = acc + a.re * b.re;
-  return acc - a.im * b.im;
-}
+struct Schedule {
+  int n_stages;
+  int radix[kMaxStages];
+  int base[kMaxStages];
+};
 
-// out(s, i, c) = sum_j A(s, i, j) B(s, j, c) for i < rows, c < k, j < k
-// and each of the tile's sigs signals, with A(s, i, j) = a[s*a_sig +
-// i*a_row + j] and B(s, j, c) = b[s*b_sig + j*b_row + c]; store(s, i, c,
-// value) writes one output.  Threads take RT x RT outputs each, columns
-// fastest.
-template <int RT, typename Acc, typename TA, typename TB, typename Store>
-__device__ __forceinline__ void product(int sigs, int rows, int k,
-                                        const TA* a, int a_sig, int a_row,
-                                        const TB* b, int b_sig, int b_row,
-                                        Store store) {
-  const int ni = (rows + RT - 1) / RT;
-  const int nj = (k + RT - 1) / RT;
-  for (int g = threadIdx.x; g < sigs * ni * nj; g += blockDim.x) {
-    const int c0 = g % nj;
-    const int rest = g / nj;
-    const int i0 = rest % ni;
-    const int s = rest / ni;
-    const TA* ar[RT];
-    const TB* bc[RT];
+__device__ __forceinline__ C32 cconj(C32 a) { return {a.re, -a.im}; }
+
+// A signal's buffers hold complex point i at i + i/16: one pad point per
+// 16 spreads the strided stores of the first stages (stride 8 and 64
+// points) over all banks, so every stage's loads and stores take the
+// fewest wavefronts a warp's 256 bytes allow.
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+// One radix-R Stockham stage over `rows` rows of N = 2^log_n points, as
+// run_stage (stockham_stages.cuh) computes it with cols = 1, for the
+// padded layout (row pitch `pitch`) and power-of-two sizes (shifts, not
+// divisions): y[q + s (R p + u)] = (sum_t x[q + s p + N/R t] W_R^{t u})
+// W_cur^{p u}, with m = 2^log_m and s = 2^log_s.
+template <int R>
+__device__ __forceinline__ void stage(const C32* __restrict__ src,
+                                      C32* __restrict__ dst,
+                                      const C32* __restrict__ tw, int log_n,
+                                      int rows, int log_m, int log_s,
+                                      int base, int pitch) {
+  constexpr int kLogR = R == 8 ? 3 : R == 4 ? 2 : 1;
+  const int log_nr = log_n - kLogR;  // N/R = m s
+  const int nr = 1 << log_nr;
+  const int m = 1 << log_m;
+  const int s = 1 << log_s;
+  for (int g = threadIdx.x; g < rows << log_nr; g += blockDim.x) {
+    const int row = g >> log_nr;
+    const int j = g & (nr - 1);
+    const int p = j >> log_s;
+    const int q = j & (s - 1);
+    const C32* in = src + row * pitch;
+    C32 a[R];
 #pragma unroll
-    for (int t = 0; t < RT; ++t)
-      ar[t] = a + s * a_sig + min(i0 + t * ni, rows - 1) * a_row;
+    for (int t = 0; t < R; ++t) a[t] = in[pad(j + t * nr)];
+    Butterfly<R, false, float>::run(a);
+    if (m > 1) {
 #pragma unroll
-    for (int t = 0; t < RT; ++t) bc[t] = b + s * b_sig + min(c0 + t * nj, k - 1);
-    Acc acc[RT][RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int c = 0; c < RT; ++c) acc[i][c] = Acc{};
-    for (int j = 0; j < k; ++j) {
-      TA u[RT];
-      TB v[RT];
-#pragma unroll
-      for (int t = 0; t < RT; ++t) u[t] = ar[t][j];
-#pragma unroll
-      for (int t = 0; t < RT; ++t) v[t] = bc[t][j * b_row];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int c = 0; c < RT; ++c) acc[i][c] = mac(u[i], v[c], acc[i][c]);
+      for (int u = 1; u < R; ++u) a[u] = mul(a[u], tw[base + (u - 1) * m + p]);
     }
+    C32* out = dst + row * pitch;
+    const int o = q + s * R * p;
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = i0 + i * ni;
-#pragma unroll
-      for (int c = 0; c < RT; ++c) {
-        const int col = c0 + c * nj;
-        if (r < rows && col < k) store(s, r, col, acc[i][c]);
-      }
-    }
+    for (int u = 0; u < R; ++u) out[pad(o + s * u)] = a[u];
   }
 }
 
-template <int RT>
+// The forward Stockham FFT of `rows` rows of N = 2^log_n points, starting
+// in *src; on return *src holds the result and *dst the other buffer.
+__device__ __forceinline__ void forward_stages(C32** src, C32** dst,
+                                               const C32* __restrict__ tw,
+                                               int log_n, int rows, int pitch,
+                                               const Schedule& sch) {
+  int log_cur = log_n;
+  for (int st = 0; st < sch.n_stages; ++st) {
+    const int r = sch.radix[st];
+    const int log_m = log_cur - (r == 8 ? 3 : r == 4 ? 2 : 1);
+    const int log_s = log_n - log_cur;
+    switch (r) {
+      case 2: stage<2>(*src, *dst, tw, log_n, rows, log_m, log_s, sch.base[st], pitch); break;
+      case 4: stage<4>(*src, *dst, tw, log_n, rows, log_m, log_s, sch.base[st], pitch); break;
+      default: stage<8>(*src, *dst, tw, log_n, rows, log_m, log_s, sch.base[st], pitch); break;
+    }
+    __syncthreads();
+    C32* t = *src;
+    *src = *dst;
+    *dst = t;
+    log_cur = log_m;
+  }
+}
+
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 fftconv_kernel(const float* __restrict__ x, float* __restrict__ y,
-               const C32* __restrict__ hf, const C32* __restrict__ tables,
-               int batch, int length, int k, int tile_b) {
+               const C32* __restrict__ hf, const C32* __restrict__ tw,
+               const C32* __restrict__ roots, int batch, int length, int n,
+               int tile_b, bool vec, Schedule sch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = k * k;
-  const int pitch = k + 1;
-  const int half = (k + 1) / 2;
-  const int x_sig = max(n, 2 * half * pitch);  // floats per signal, buffer 1
-  const int e_sig = x_sig / 2;                 // the same, in complex points
-  const int c_sig = k * pitch;                 // complex points per signal
-  float* xs = reinterpret_cast<float*>(smem_raw);
-  C32* es = reinterpret_cast<C32*>(smem_raw);  // buffer 1 as passes B/C's E
-  C32* cs = reinterpret_cast<C32*>(xs + tile_b * x_sig);
-
+  const int N = n / 2;
   const int tiles = (batch + tile_b - 1) / tile_b;
   const int ch = blockIdx.x / tiles;
   const int b0 = (blockIdx.x % tiles) * tile_b;
   const int sigs = min(tile_b, batch - b0);  // the last tile may be ragged
   const long long sig0 = static_cast<long long>(ch) * batch + b0;
-  const C32* w = tables;
-  const C32* wi = tables + n;
-  const C32* tf = tables + 2 * n;
-  const C32* ti = tables + 3 * n;
-  const C32* h = hf + static_cast<long long>(ch) * n;
-
-  // the signal's L points, zero-filled to n on chip
   const float* xg = x + sig0 * length;
-  for (int i = threadIdx.x; i < sigs * n; i += blockDim.x) {
-    const int s = i / n;
-    const int p = i % n;
-    xs[s * x_sig + p] = p < length ? xg[static_cast<long long>(s) * length + p]
-                                   : 0.f;
-  }
-  __syncthreads();
-
-  // A: column DFTs of the real signal, then the twiddle
-  product<RT, C32>(sigs, k, k, w, 0, k, xs, x_sig, k,
-                   [&](int s, int r, int c, C32 v) {
-                     cs[s * c_sig + r * pitch + c] = mul(v, tf[r * k + c]);
-                   });
-  __syncthreads();
-  for (int h0 = 0; h0 < k; h0 += half) {
-    const int rows = min(half, k - h0);
-    // B: row DFTs of rows h0.., times the spectrum (transposed), into E
-    product<RT, C32>(sigs, rows, k, cs + h0 * pitch, c_sig, pitch, w, 0, k,
-                     [&](int s, int r, int c, C32 v) {
-                       es[s * e_sig + r * pitch + c] = mul(v, h[c * k + h0 + r]);
-                     });
-    __syncthreads();
-    // C: inverse row DFTs of E, then the inverse twiddle, back into C
-    product<RT, C32>(sigs, rows, k, es, e_sig, pitch, wi, 0, k,
-                     [&](int s, int r, int c, C32 v) {
-                       cs[s * c_sig + (h0 + r) * pitch + c] =
-                           mul(v, ti[(h0 + r) * k + c]);
-                     });
-    __syncthreads();
-  }
-  // D: inverse column DFTs, real part only, the first L points straight to
-  // global memory
   float* yg = y + sig0 * length;
-  product<RT, float>(sigs, k, k, wi, 0, k, cs, c_sig, pitch,
-                     [&](int s, int r, int c, float v) {
-                       if (r * k + c < length)
-                         yg[static_cast<long long>(s) * length + r * k + c] = v;
-                     });
+  const C32* h = hf + static_cast<long long>(ch) * (N + 1);
+
+  if (n == 1) {  // L = K = 1: one product per signal
+    for (int s = threadIdx.x; s < sigs; s += blockDim.x) yg[s] = xg[s] * h[0].re;
+    return;
+  }
+  const int log_n = __ffs(N) - 1;
+  const int pitch = N + (N >> 4);  // padded points per signal
+  C32* src = reinterpret_cast<C32*>(smem_raw);
+  C32* dst = src + tile_b * pitch;
+
+  // 1. the L real points, zero-filled to n: the packed z
+  if (vec) {  // L % 4 == 0 and x 16-byte aligned: every row is too
+    for (int i = threadIdx.x; i < sigs * (N / 2); i += blockDim.x) {
+      const int s = i >> (log_n - 1);
+      const int c = 2 * (i & (N / 2 - 1));  // points c, c + 1: one pad block
+      const int p = 2 * c;
+      const float4 v = p < length
+          ? *reinterpret_cast<const float4*>(xg + static_cast<long long>(s) * length + p)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      C32* z = src + s * pitch + pad(c);
+      z[0] = {v.x, v.y};
+      z[1] = {v.z, v.w};
+    }
+  } else {
+    for (int i = threadIdx.x; i < sigs * n; i += blockDim.x) {
+      const int s = i / n;
+      const int p = i - s * n;
+      reinterpret_cast<float*>(src + s * pitch + pad(p >> 1))[p & 1] =
+          p < length ? xg[static_cast<long long>(s) * length + p] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // 2. Z = FFT_N(z)
+  forward_stages(&src, &dst, tw, log_n, sigs, pitch, sch);
+
+  // 3. the spectral pass over the pairs (k, N - k), in place
+  const int half = N / 2;
+  for (int i = threadIdx.x; i < sigs * (half + 1); i += blockDim.x) {
+    const int s = i / (half + 1);
+    const int k = i - s * (half + 1);
+    const int m = (N - k) & (N - 1);  // k = 0 pairs with itself (Z[N] = Z[0])
+    C32* z = src + s * pitch;
+    const C32 zk = z[pad(k)], zm = z[pad(m)];
+    const C32 w = roots[k];
+    const C32 e = {0.5f * (zk.re + zm.re), 0.5f * (zk.im - zm.im)};
+    const C32 o = {0.5f * (zk.im + zm.im), -0.5f * (zk.re - zm.re)};
+    const C32 wo = mul(w, o);
+    const C32 xk = add(e, wo);
+    const C32 xm = cconj(sub(e, wo));
+    const C32 yk = mul(xk, h[k]);
+    const C32 ym = mul(xm, h[N - k]);
+    const C32 a = add(yk, cconj(ym));
+    const C32 b = mul(sub(yk, cconj(ym)), cconj(w));
+    z[pad(k)] = {a.re - b.im, -(a.im + b.re)};  // conj(A + iB)
+    if (m != k) z[pad(m)] = {a.re + b.im, a.im - b.re};  // conj(conj A + i conj B)
+  }
+  __syncthreads();
+
+  // 4. conj(IFFT_N(Z')) = FFT_N(conj Z')
+  forward_stages(&src, &dst, tw, log_n, sigs, pitch, sch);
+
+  // 5. y[2j] = Re, y[2j + 1] = -Im, the first L points
+  if (vec) {
+    const int q = length / 4;
+    for (int i = threadIdx.x; i < sigs * q; i += blockDim.x) {
+      const int s = i / q;
+      const int p = 4 * (i - s * q);
+      const C32* z = src + s * pitch + pad(p >> 1);
+      *reinterpret_cast<float4*>(yg + static_cast<long long>(s) * length + p) =
+          make_float4(z[0].re, -z[0].im, z[1].re, -z[1].im);
+    }
+  } else {
+    for (int i = threadIdx.x; i < sigs * length; i += blockDim.x) {
+      const int s = i / length;
+      const int p = i - s * length;
+      const float v = reinterpret_cast<const float*>(src + s * pitch + pad(p >> 1))[p & 1];
+      yg[static_cast<long long>(s) * length + p] = (p & 1) ? -v : v;
+    }
+  }
 }
 
-size_t smem_bytes(int k, int tile_b) {
-  const int half = (k + 1) / 2;
-  const size_t x_sig =
-      static_cast<size_t>(k * k > 2 * half * (k + 1) ? k * k : 2 * half * (k + 1));
-  return static_cast<size_t>(tile_b) *
-         (x_sig * sizeof(float) + static_cast<size_t>(k) * (k + 1) * sizeof(C32));
+// two buffers of n/2 complex64 per signal, one pad point per 16
+size_t smem_bytes(int n, int tile_b) {
+  const int N = n / 2;
+  return n > 1 ? 2 * static_cast<size_t>(tile_b) * (N + (N >> 4)) * sizeof(C32)
+               : 0;
 }
 
-template <int RT>
-int launch_rt(const void* x, void* y, const void* hf, const void* tables,
-              int channels, int batch, int length, int k, int tile_b,
-              size_t smem, cudaStream_t stream) {
-  auto kern = fftconv_kernel<RT>;
+template <int kThreads>
+int launch(const float* x, float* y, const C32* hf, const C32* tw,
+           const C32* roots, int channels, int batch, int length, int n,
+           int tile_b, bool vec, const Schedule& sch, size_t smem,
+           cudaStream_t stream) {
+  auto kern = fftconv_kernel<kThreads>;
   if (smem > static_cast<size_t>(kDefaultSmem)) {
     // the opt-in is a per-device attribute of this instantiation: set it on
     // the first large launch on each device only
@@ -245,30 +275,55 @@ int launch_rt(const void* x, void* y, const void* hf, const void* tables,
   const long long blocks =
       static_cast<long long>(channels) * ((batch + tile_b - 1) / tile_b);
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<const C32*>(hf), static_cast<const C32*>(tables), batch,
-      length, k, tile_b);
+      x, y, hf, tw, roots, batch, length, n, tile_b, vec, sch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fftconv_f32(const void* x, void* y, const void* hf,
-                           const void* tables, int channels, int batch,
-                           int length, int k, int tile_b, int rt,
+                           const void* tw, const void* roots, int channels,
+                           int batch, int length, int n, int tile_b,
+                           int n_stages, const int* radices, const int* bases,
                            void* stream) {
-  if (k < 1 || k > kMaxK || (k & (k - 1)) || tile_b < 1 || channels < 1 ||
-      batch < 1 || length < 1 || length > k * k || (rt != 2 && rt != 4))
+  if (n < 1 || n > kMaxN || (n & (n - 1)) || tile_b < 1 || channels < 1 ||
+      batch < 1 || length < 1 || length > n || n_stages < 0 ||
+      n_stages > kMaxStages)
     return cudaErrorInvalidValue;
   if (static_cast<long long>(channels) * ((batch + tile_b - 1) / tile_b) >
       0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(k, tile_b);
+  Schedule sch{};
+  sch.n_stages = n_stages;
+  int prod = 1;
+  for (int i = 0; i < n_stages; ++i) {
+    const int r = radices[i];
+    if (r != 2 && r != 4 && r != 8) return cudaErrorInvalidValue;
+    sch.radix[i] = r;
+    sch.base[i] = bases[i];
+    prod *= r;
+  }
+  if (n > 1 && prod != n / 2) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(n, tile_b);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const bool vec = length % 4 == 0 && n % 4 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(y) % 16 == 0;
+  const auto xf = static_cast<const float*>(x);
+  const auto yf = static_cast<float*>(y);
+  const auto h = static_cast<const C32*>(hf);
+  const auto t = static_cast<const C32*>(tw);
+  const auto r = static_cast<const C32*>(roots);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return rt == 2
-      ? launch_rt<2>(x, y, hf, tables, channels, batch, length, k, tile_b,
-                     smem, s)
-      : launch_rt<4>(x, y, hf, tables, channels, batch, length, k, tile_b,
-                     smem, s);
+  switch (block_threads(n)) {
+    case 128:
+      return launch<128>(xf, yf, h, t, r, channels, batch, length, n, tile_b,
+                         vec, sch, smem, s);
+    case 256:
+      return launch<256>(xf, yf, h, t, r, channels, batch, length, n, tile_b,
+                         vec, sch, smem, s);
+    default:
+      return launch<1024>(xf, yf, h, t, r, channels, batch, length, n,
+                          tile_b, vec, sch, smem, s);
+  }
 }

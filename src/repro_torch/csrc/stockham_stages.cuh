@@ -4,7 +4,8 @@
 //
 // Included by stockham.cu (the fused 1-D kernel), fft2.cu (the fused
 // rank-2 kernel: its row stages and, with cols = n2, its column stages),
-// fft4step.cu (which takes Cx, mul and cfma) and dft.cu (Cx, cfma).
+// fftconv.cu (Cx, the butterflies: its own power-of-two stage routine),
+// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, cfma).
 // Everything here lives in an anonymous namespace: each kernel library is
 // its own translation unit.
 
@@ -35,8 +36,7 @@ template <typename T>
 __device__ __forceinline__ Cx<T> scale(Cx<T> a, T s) {
   return {a.re * s, a.im * s};
 }
-// acc + a * b, as four FMAs (the complex products of fft4step.cu and
-// dft.cu)
+// acc + a * b, as four FMAs (the complex products of dft.cu)
 template <typename T>
 __device__ __forceinline__ Cx<T> cfma(Cx<T> a, Cx<T> b, Cx<T> acc) {
   acc.re = acc.re + a.re * b.re;

@@ -87,3 +87,14 @@ def half_roots(n: int, inverse: bool = False, dtype=torch.complex64, *,
     sign = 2.0 if inverse else -2.0
     ang = (sign * np.pi / n) * np.arange(n // 2, dtype=np.float64)
     return _table(ang, dtype, device)
+
+
+def unit_roots(n: int, count: int, inverse: bool = False,
+               dtype=torch.complex64, *, device) -> torch.Tensor:
+    """The roots w^e = exp(-+ 2 pi i e / n) for e < ``count`` (``count``
+    may exceed n: e is reduced mod n), one row of :func:`dft_matrix`'s
+    values."""
+    e = np.arange(count, dtype=np.int64)
+    sign = 2.0 if inverse else -2.0
+    return _table((sign * np.pi / n) * (e % n).astype(np.float64), dtype,
+                  device)

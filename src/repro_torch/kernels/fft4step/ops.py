@@ -1,6 +1,6 @@
 """Public wrapper of the fused four-step kernel: factor choice, the W1, W2
-and T tables (host float64, cast once to the plane dtype), shared-memory
-sizing, launch, normalization.
+and T tables and the kernel's root tables (host float64, cast once to the
+plane dtype), shared-memory sizing, launch, normalization.
 
 ``fft`` launches the CUDA kernel (``repro_torch/csrc/fft4step.cu``) for a
 tensor on the card and takes the plain version (``ref.apply_fourstep``)
@@ -18,10 +18,10 @@ import numpy as np
 import torch
 
 from .. import _build
-from ...fft.reference import dft_matrix, twiddles as twiddle_grid
+from ...fft.reference import dft_matrix, twiddles as twiddle_grid, unit_roots
 from ..stockham_pallas.ops import SMEM_LIMIT_BYTES, direction_of
-from .fft4step import (THREADS, choose_factors, register_tile, smem_bytes,
-                       threads_per_signal)
+from .fft4step import (TWIDDLE_ROOTS, WARPS, choose_factors, column_items,
+                       m_group, n_tiles, smem_bytes)
 from .ref import apply_fourstep
 
 _CDTYPES = (torch.complex64, torch.complex128)
@@ -44,10 +44,11 @@ def _largest_fitting(itemsize: int) -> int:
     return next(n for n in range(128 * 128, 0, -1) if _fits(n, itemsize))
 
 
-#: Longest signal one block holds (tile_b = 1: the signal and its padded
-#: column DFTs in shared memory): 14464 = 128*113 for complex64 and
-#: 7216 = 88*82 for complex128.  A longer factorable n is not this
-#: kernel's.
+#: Longest signal one block holds (tile_b = 1: one padded plane and the
+#: root tables in shared memory): 16384 = 128*128 for complex64, the
+#: reference's cap, and 13920 = 120*116 for complex128.  Shorter lengths
+#: are checked one by one (``feasible``): in complex128 some factorable n
+#: below the cap, such as 13824 = 128*108, do not fit.
 MAX_N = {torch.complex64: _largest_fitting(8),
          torch.complex128: _largest_fitting(16)}
 
@@ -67,21 +68,39 @@ def check_length(n: int, dtype: torch.dtype) -> None:
 
 @dataclass(frozen=True)
 class Tables:
-    """A plan's device state: the split and its W1 (n1 x n1), W2 (n2 x n2)
-    and T (n1 x n2) tables.  ``inverse`` is None when every entry is real
-    (n = 1 or 2: both directions are the same)."""
+    """A plan's device state: the split, its W1 (n1 x n1), W2 (n2 x n2)
+    and T (n1 x n2) tables (what the plain version reads), and the
+    kernel's root vector: the roots of W1 (n1) and of W2 (n2), and T's
+    two root tables, w_n^e and w_n^(128 e) for e < 128.  ``inverse`` is
+    None when every entry is real (n = 1 or 2: both directions are the
+    same)."""
 
     n1: int
     n2: int
     w1: torch.Tensor
     w2: torch.Tensor
     t: torch.Tensor
+    roots: torch.Tensor
     inverse: bool | None
 
     @property
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size()
-                   for a in (self.w1, self.w2, self.t))
+                   for a in (self.w1, self.w2, self.t, self.roots))
+
+
+def kernel_roots(n1: int, n2: int, inverse: bool, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """The kernel's root vector for the split n1 x n2 (see ``Tables``),
+    built in float64 on the host and cast once to ``dtype``."""
+    n = n1 * n2
+    k = TWIDDLE_ROOTS
+    c128 = torch.complex128
+    hi = unit_roots(n, k * k, inverse, c128, device="cpu")[::k]
+    return torch.cat([unit_roots(n1, n1, inverse, c128, device="cpu"),
+                      unit_roots(n2, n2, inverse, c128, device="cpu"),
+                      unit_roots(n, k, inverse, c128, device="cpu"), hi]
+                     ).to(device=device, dtype=dtype)
 
 
 def make_tables(n: int, inverse: bool, dtype: torch.dtype,
@@ -94,27 +113,34 @@ def make_tables(n: int, inverse: bool, dtype: torch.dtype,
     return Tables(n1, n2,
                   dft_matrix(n1, inverse, dtype, device=device),
                   dft_matrix(n2, inverse, dtype, device=device),
-                  twiddle_grid(n1, n2, inverse, dtype, device=device), inverse)
+                  twiddle_grid(n1, n2, inverse, dtype, device=device),
+                  kernel_roots(n1, n2, inverse, dtype, device), inverse)
 
 
 def tables_from_reference(w1r, w1i, w2r, w2i, tr, ti, device) -> Tables:
     """The port's plan from the reference's real/imaginary table planes
-    (W1, W2, T, as its ``ops.fft`` hands them to the kernel)."""
+    (W1, W2, T, as its ``ops.fft`` hands them to the kernel), with the
+    kernel's roots for the planes' direction."""
     dtype = torch.complex128 if w1r.dtype == np.float64 else torch.complex64
     as_c = lambda re, im: torch.complex(torch.from_numpy(np.asarray(re)),
                                         torch.from_numpy(np.asarray(im))
                                         ).to(device=device, dtype=dtype)
     imag = np.concatenate([np.ravel(a) for a in (w1i, w2i, ti)])
-    return Tables(w1r.shape[0], w2r.shape[0], as_c(w1r, w1i), as_c(w2r, w2i),
-                  as_c(tr, ti), direction_of(imag))
+    n1, n2 = w1r.shape[0], w2r.shape[0]
+    inverse = direction_of(imag)
+    return Tables(n1, n2, as_c(w1r, w1i), as_c(w2r, w2i), as_c(tr, ti),
+                  kernel_roots(n1, n2, bool(inverse), dtype, device), inverse)
 
 
 def default_tile_b(n1: int, n2: int, batch: int, itemsize: int) -> int:
-    """Signals per block: as many as keep the block's threads busy (at
-    least one), within the shared-memory limit, never more than the
-    batch."""
-    fill = THREADS // threads_per_signal(n1, n2)
-    fit = SMEM_LIMIT_BYTES // smem_bytes(n1, n2, 1, itemsize)
+    """Signals per block: as many as give each of the block's warps two
+    column-pass items, few enough that two blocks share an SM (as the
+    kernel's launch bounds plan), at least one, never more than the
+    batch.  (The card's tile sweeps at the main path's shapes put the
+    fastest tile there or next to it.)"""
+    fill = -(-2 * WARPS // column_items(n1, n2, itemsize))
+    fit = (SMEM_LIMIT_BYTES // 2 - smem_bytes(n1, n2, 0, itemsize)) \
+        // (smem_bytes(n1, n2, 1, itemsize) - smem_bytes(n1, n2, 0, itemsize))
     return max(1, min(batch, fill, fit))
 
 
@@ -164,9 +190,9 @@ def _kernel(dtype: torch.dtype):
     lib = _build.library("fft4step")
     fn = lib.fft4step_f64 if dtype == torch.complex128 else lib.fft4step_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -191,9 +217,9 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
     fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), tables.w1.data_ptr(),
-                 tables.w2.data_ptr(), tables.t.data_ptr(), rows, n1, n2,
-                 tile, register_tile(n), int(inverse), stream)
+        err = fn(x.data_ptr(), y.data_ptr(), tables.roots.data_ptr(), rows,
+                 n1, n2, tile, m_group(n1, n2, itemsize), n_tiles(n1, n2),
+                 int(inverse), stream)
     if err != 0:
         raise RuntimeError(f"fft4step kernel launch failed: cudaError_t {err} "
                            f"(n={n}, rows={rows}, tile_b={tile}, {x.dtype})")

@@ -1,2 +1,2 @@
-"""Fused fftconv kernel: real four-step, spectral product, inverse
-four-step in one pass over memory."""
+"""Fused fftconv kernel: two real FFTs in shared memory around the
+spectral product, in one pass over memory."""

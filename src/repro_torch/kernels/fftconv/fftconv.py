@@ -3,43 +3,48 @@
 The kernel is CUDA C++ (``repro_torch/csrc/fftconv.cu``).  It replaces the
 reference package's Pallas kernel ``fftconv_kernel``
 (``src/repro/kernels/fftconv/fftconv.py``, body ``_fftconv_kernel``): for a
-tile of real signals of one channel, each of length n = k*k (k a power of
-two <= 128), the square four-step forward transform, the pointwise product
-by the channel's filter spectrum (1/n folded in), and the inverse four-step
-whose real part is the result, with one read of the L-point signals and
-one write of the L-point results (zero-filled to n and cut on chip).  Its products run as fp32 FMA on the CUDA cores: TF32 would break
-the 1e-5 bar.
+tile of real signals of one channel, zero-filled to n = 4^m <= 16384
+points, the circular convolution with the channel's filter, with one read
+of the L-point signals and one write of the L-point results.  Where the
+TPU kernel runs a real square four-step as dense k x k products, this one
+runs two real FFTs in shared memory: each signal packed as n/2 complex
+points, a radix-8/4/2 Stockham FFT of n/2, one spectral pass over the bin
+pairs (k, n/2 - k) (the R2C unpack, the product by the filter's half
+spectrum, the C2R re-pack) and the same forward FFT again on the
+conjugate, which is the inverse.
 
-One block holds, per signal, the real tile (whose space the row passes
-reuse as scratch, half the rows at a time) and one complex plane, both
-with rows padded to k + 1 points; at k = 128 that is 193.5 KB, so one
-signal per block.  This module keeps the launch's host side: the caps,
-the register tile and the shared-memory size of one block.
+A block holds two buffers of n/2 complex64 per signal (8.5 n bytes with
+the padding against bank conflicts), between which the stages ping-pong.
+This module keeps the launch's host side: the caps, the stage schedule
+and the shared-memory size of one block (the kernel sizes its block by n).
 """
 
 from __future__ import annotations
 
-#: Largest side of the square: n = k*k <= 16384, the reference's cap.
-MAX_K = 128
+from ..stockham_pallas.stockham_pallas import radix_schedule
 
-#: Signals per block the reference's wrapper asks for.
-DEFAULT_TILE_B = 4
+#: Longest signal: n <= 16384, the reference's cap.
+MAX_N = 16384
 
-def register_tile(k: int) -> int:
-    """Outputs per thread along each axis of a pass's product: 4x4 from
-    k = 32 on, 2x2 below, where 4x4 tiles would leave most of a block's
-    threads idle."""
-    return 4 if k >= 32 else 2
+#: Most signals one block takes: short signals (n <= 1024, 128 threads a
+#: block) need several to give each thread a butterfly.
+MAX_TILE_B = 8
 
-
-def scratch_floats(k: int) -> int:
-    """Floats per signal of the first buffer: the real k x k tile, or the
-    row passes' scratch (half the rows, rounded up, of the complex plane
-    with rows padded to k + 1), whichever is larger."""
-    return max(k * k, 2 * ((k + 1) // 2) * (k + 1))
+#: Signals per block by default (where that many fit): the fastest tile of
+#: the F2 sweep that ``chip_smoke.py`` runs (n = 4096).
+DEFAULT_TILE_B = 1
 
 
-def smem_bytes(k: int, tile_b: int) -> int:
-    """Dynamic shared memory of one block of ``tile_b`` signals: the first
-    buffer and the complex plane (rows padded to k + 1 points)."""
-    return tile_b * (4 * scratch_floats(k) + 8 * k * (k + 1))
+def stage_schedule(n: int) -> tuple[int, ...]:
+    """Radices of the complex FFT of the packed n/2 points (none for
+    n = 1): the Stockham kernel's radix-8 schedule, e.g. (8, 8, 8, 4) for
+    n = 4096 and (8, 8, 8, 8, 2) for n = 16384."""
+    return radix_schedule(n // 2, 8) if n > 1 else ()
+
+
+def smem_bytes(n: int, tile_b: int) -> int:
+    """Dynamic shared memory of one block of ``tile_b`` signals: two
+    buffers of n/2 complex64 per signal, each with one pad point per 16
+    (none for n = 1)."""
+    half = n // 2
+    return tile_b * 16 * (half + half // 16) if n > 1 else 0

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the fused fftconv kernel, on any device.
 
-* :func:`fftconv_plain` repeats the reference kernel's arithmetic with the
-  kernel's own tables, in float32: the real four-step forward
-  (``_fourstep_core``), the spectral product in the transposed layout (the
-  natural-order spectrum reshaped (k, k)), the inverse four-step, the real
-  part.  ``ops.fftconv`` takes it for tensors that lie on the CPU.
+* :func:`fftconv_plain` repeats the kernel's arithmetic with the kernel's
+  own tables, in float32: the signal packed as n/2 complex points, the
+  Stockham stages (``stockham_pallas.ref.apply_stages``), the spectral
+  pass over the bin pairs (:func:`spectral_pass`) and the same stages on
+  the conjugate.  ``ops.fftconv`` takes it for tensors that lie on the
+  CPU.
 * :func:`fftconv_ref` is the oracle, as the reference package's ``ref.py``
   has it: circular convolution at length n through ``torch.fft``.
 """
@@ -12,6 +13,8 @@
 from __future__ import annotations
 
 import torch
+
+from ..stockham_pallas.ref import apply_stages
 
 
 def fftconv_ref(x: torch.Tensor, h: torch.Tensor, n: int) -> torch.Tensor:
@@ -27,31 +30,42 @@ def fftconv_ref(x: torch.Tensor, h: torch.Tensor, n: int) -> torch.Tensor:
     return y[..., :L].real.to(x.dtype)
 
 
-def _fourstep_core(xr, xi, wr, wi, tr, ti):
-    """One four-step pass on (..., k, k) planes -> the transposed
-    (..., k, k) planes (the natural-order DFT reshaped (k, k)).  ``xi`` is
-    None for real input: half the column-DFT products."""
-    if xi is None:
-        br, bi = wr @ xr, wi @ xr
-    else:
-        br = wr @ xr - wi @ xi
-        bi = wr @ xi + wi @ xr
-    cr = br * tr - bi * ti
-    ci = br * ti + bi * tr
-    dr = cr @ wr - ci @ wi
-    di = cr @ wi + ci @ wr
-    return dr.transpose(-1, -2), di.transpose(-1, -2)
+def spectral_pass(z: torch.Tensor, hf: torch.Tensor,
+                  roots: torch.Tensor) -> torch.Tensor:
+    """The kernel's pass over the bin pairs (k, N - k), k <= N/2, of the
+    packed spectra ``z`` (..., N): the real signals' spectra X, their
+    product Y = X * ``hf`` (the (..., N + 1) half spectra, broadcast), and
+    the packed spectrum of Y's inverse, conjugated.  ``roots`` holds
+    w^k = exp(-2 pi i k / 2N) for k <= N/2."""
+    N = z.shape[-1]
+    k = torch.arange(N // 2 + 1, device=z.device)
+    m = (N - k) % N                      # k = 0 pairs with itself
+    zk, zm = z[..., k], z[..., m]
+    e = torch.complex(0.5 * (zk.real + zm.real), 0.5 * (zk.imag - zm.imag))
+    o = torch.complex(0.5 * (zk.imag + zm.imag), -0.5 * (zk.real - zm.real))
+    wo = roots * o
+    yk = (e + wo) * hf[..., k]
+    ym = (e - wo).conj() * hf[..., N - k]
+    a = yk + ym.conj()
+    b = (yk - ym.conj()) * roots.conj()
+    out = torch.empty_like(z)
+    out[..., m] = torch.complex(a.real + b.imag, a.imag - b.real)
+    out[..., k] = torch.complex(a.real - b.imag, -(a.imag + b.real))
+    return out
 
 
-def fftconv_plain(xp, hfr, hfi, wfr, wfi, wir, wii, tfr, tfi, tir, tii
-                  ) -> torch.Tensor:
-    """The kernel's function on (C, B, k, k) real signals with (C, k, k)
-    filter-spectrum planes (1/n folded in) and the (k, k) forward/inverse
-    DFT matrices and twiddles; returns the (C, B, k, k) real output,
-    natural time order when flattened."""
-    xfr, xfi = _fourstep_core(xp, None, wfr, wfi, tfr, tfi)
-    hr, hi = hfr[:, None], hfi[:, None]
-    er = xfr * hr - xfi * hi
-    ei = xfr * hi + xfi * hr
-    yr, _ = _fourstep_core(er, ei, wir, wii, tir, tii)
-    return yr
+def fftconv_plain(xp: torch.Tensor, hf: torch.Tensor, tw: torch.Tensor,
+                  radices: tuple[int, ...], bases: tuple[int, ...],
+                  roots: torch.Tensor) -> torch.Tensor:
+    """The kernel's function on (C, B, n) real float32 signals, zero-filled
+    to n, with the (C, n/2 + 1) filter half spectra (1/n folded in), the
+    packed Stockham twiddles of length n/2 and the roots of
+    :func:`spectral_pass`; returns the (C, B, n) real output."""
+    n = xp.shape[-1]
+    if n == 1:
+        return xp * hf.real[:, None, :]
+    z = torch.view_as_complex(xp.reshape(*xp.shape[:-1], n // 2, 2))
+    z = apply_stages(z, tw, radices, bases, False)
+    z = spectral_pass(z, hf[:, None, :], roots)
+    z = apply_stages(z, tw, radices, bases, False)
+    return torch.view_as_real(z.conj().resolve_conj()).reshape(xp.shape)

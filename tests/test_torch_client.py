@@ -230,10 +230,10 @@ def test_hopper_cap_in_feasibility_and_as_a_failed_node(cpu):
     assert not fft2_feasible(Problem((64, 128), "Inplace_Complex", "double"))
     assert fft2_feasible(Problem((128, 128), "Outplace_Real", "float"))
     assert not fft2_feasible(Problem((4, 4, 8), "Outplace_Complex"))
-    assert axis_feasible("fourstep_pallas", 14464, "float")
-    assert not axis_feasible("fourstep_pallas", 16384, "float")
-    assert axis_feasible("fourstep_pallas", 7216, "double")
-    assert not axis_feasible("fourstep_pallas", 8192, "double")
+    assert axis_feasible("fourstep_pallas", 16384, "float")
+    assert axis_feasible("fourstep_pallas", 13920, "double")
+    assert axis_feasible("fourstep_pallas", 8192, "double")
+    assert not axis_feasible("fourstep_pallas", 16384, "double")
     assert not axis_feasible("fourstep_pallas", 131, "float")
     # real kinds: the packed inner axis runs at n/2, an odd one at n
     real = Problem((16, 28812), "Outplace_Real", "float")
@@ -438,8 +438,8 @@ def test_new_clients_fail_what_their_kernels_cannot_take(cpu):
         (TorchFft2Pallas, Problem((64, 128), "Inplace_Complex", "double"),
          "caps at n1*n2=4096"),
         (TorchFft2Pallas, Problem((8, 12), "Outplace_Real"), "power-of-two"),
-        (TorchFourStepPallas, Problem((16384,), "Outplace_Complex", "float"),
-         "caps at n=14464"),
+        (TorchFourStepPallas, Problem((16384,), "Outplace_Complex", "double"),
+         "caps at n=13920"),
         (TorchFourStepPallas, Problem((8, 131), "Outplace_Complex"),
          "factorization"),
     ]
@@ -451,6 +451,16 @@ def test_new_clients_fail_what_their_kernels_cannot_take(cpu):
         assert row.op == "validate" and reason in row.error, row.error
         assert not rs.query(op="execute_forward", library=row.library,
                             extents=row.extents)
+
+
+@pytest.mark.parametrize("n,precision", [(16384, "float"), (8192, "double")])
+def test_fourstep_cap_agrees_with_reference(n, precision):
+    """The four-step kernel takes the reference's longest lengths: n =
+    16384 in float and 8192 in double are feasible in both packages (the
+    reference's rule has no precision)."""
+    assert axis_feasible("fourstep_pallas", n, precision)
+    assert ref_candidates.axis_feasible("fourstep_pallas", n) \
+        == axis_feasible("fourstep_pallas", n, precision)
 
 
 def test_support_rules_match_reference_below_the_caps():

@@ -141,9 +141,11 @@ def test_fft2_kernel_against_plain_and_library(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_fourstep_kernel_against_plain_and_library(cuda_device, dtype):
-    """Square, ragged-split and radix357 lengths up to the cap, tile 1 and
-    a ragged last tile, both directions, one launch per call."""
-    for n in (2, 4, 60, 100, 945, 1024, 3072, 4096, fs_ops.MAX_N[dtype]):
+    """Square, ragged-split and radix357 lengths up to the cap (16384 in
+    complex64; in complex128 8192 and the cap), tile 1 and a ragged last
+    tile, both directions, one launch per call."""
+    for n in (2, 4, 60, 100, 945, 1024, 3072, 4096, 8192,
+              fs_ops.MAX_N[dtype]):
         x = _rand(37, (n,), dtype, cuda_device, n)
         n1, n2 = fs_ops.choose_factors(n)
         fits = lambda t: fs_ops.smem_bytes(n1, n2, t, x.element_size()) \
@@ -174,11 +176,11 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fs_ops.fft(x[:, 0, :].transpose(0, 1))
     with pytest.raises(ValueError, match="caps at n="):
-        fs_ops.fft(torch.zeros((1, 16384), dtype=torch.complex64,
+        fs_ops.fft(torch.zeros((1, 16384), dtype=torch.complex128,
                                device=cuda_device))
     with pytest.raises(ValueError, match="tile_b"):
-        fs_ops.fft(torch.zeros((4, 4096), dtype=torch.complex64,
-                               device=cuda_device), tile_b=4)
+        fs_ops.fft(torch.zeros((8, 4096), dtype=torch.complex64,
+                               device=cuda_device), tile_b=8)
 
 
 @pytest.mark.cuda
@@ -267,8 +269,8 @@ def _check_conv(device, x, h, tile_b):
     assert conv_ops.LAUNCHES == before + 1
     assert y.shape == xd.shape and y.dtype == torch.float32
     plain = op.plain()
-    oracle = conv_ref.fftconv_ref(xd.double(), hd.double(), op.k ** 2)
-    case = (x.shape, h.shape, op.k, op.tile_b)
+    oracle = conv_ref.fftconv_ref(xd.double(), hd.double(), op.n)
+    case = (x.shape, h.shape, op.n, op.tile_b)
     assert rel_l2(y, plain) <= 1e-5, case
     assert rel_l2(y.double(), oracle) <= 1e-5, case
 
@@ -276,12 +278,11 @@ def _check_conv(device, x, h, tile_b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_fftconv_kernel_against_plain_and_oracle(cuda_device, k):
-    """Every k: one and three channels, one and five signals (five in
-    tiles of 4: a ragged last tile), one tap and L taps, every tile that
-    fits a block."""
+    """Every length n = k*k: one and three channels, one and five signals
+    (five in tiles of 2 or more: a ragged last tile), one tap and L taps,
+    every tile that fits a block, up to the largest."""
     n = k * k
-    tiles = [t for t in (1, 2, 3, 4) if conv_ops.smem_bytes(k, t)
-             <= conv_ops.SMEM_LIMIT_BYTES]
+    tiles = range(1, conv_ops.largest_tile_b(n) + 1)
     for c, b in ((1, 1), (3, 5)):
         for L, K in ((n, 1), ((n + 1) // 2, (n + 1) // 2)):
             x, h = _conv_case(c, b, L, K, seed=k * 31 + c * b + K)
@@ -292,9 +293,9 @@ def test_fftconv_kernel_against_plain_and_oracle(cuda_device, k):
 
 @pytest.mark.cuda
 def test_fftconv_kernel_at_the_cap(cuda_device):
-    """k = 128 with the largest tile that fits (one signal per block); a
+    """n = 16384 with the largest tile that fits (one signal per block); a
     tile that does not fit raises before any launch."""
-    assert conv_ops.largest_tile_b(128) == 1
+    assert conv_ops.largest_tile_b(16384) == 1
     x, h = _conv_case(2, 3, 16384 - 127, 128, seed=5)
     _check_conv(cuda_device, x, h, None)
     before = conv_ops.LAUNCHES

@@ -7,11 +7,14 @@ the port's ``ops.fftconv`` on a CPU tensor takes the kernel's plain
 version (``ref.fftconv_plain``); both are also held against a float64
 direct causal convolution.
 
-Tolerance: rel-L2 <= 1e-5.  The two kernels' plain arithmetic is the same
-(tables built in float64 and cast to float32, the same four-step
-products), only the summation order differs; a float32 model of it agrees
-with float64 convolution to ~3e-7 at n = 16384.
+Tolerance: rel-L2 <= 1e-5.  The two kernels compute the same
+convolution at the same length n in float32 by different algorithms (the
+reference's dense k x k four-step products, the port's two real FFTs of
+radix-8/4/2 stages), each with tables built in float64 and cast once;
+each agrees with float64 convolution to ~3e-7 at n = 16384.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ import torch
 from helpers.accuracy import rel_l2
 
 from repro.fft import fftconv as ref_fftconv
+from repro.fft import reference as ref_tables
 from repro.kernels.fftconv import fftconv as ref_kernel
 from repro.kernels.fftconv import ops as ref_ops
 from repro.kernels.fftconv import ref as ref_ref
@@ -73,34 +77,46 @@ def test_fftconv_matches_reference_kernel(c, b, L, K):
     assert rel_l2(want, exact) <= TOL
 
 
-@pytest.mark.parametrize("c,b,L,K", CASES[:3])
-def test_plain_version_and_oracle_match_reference(c, b, L, K):
-    """``fftconv_plain`` on the wrapper's own operands against the
-    reference's kernel body (``fftconv_kernel`` in interpret mode) on the
-    same planes; ``fftconv_ref`` against the reference's oracle, and in
-    float64 against the direct convolution."""
-    x, h = conv_case(c, b, L, K, seed=3 * L + K)
-    op = ops.prepare(torch.from_numpy(x), torch.from_numpy(h))
-    k = op.k
-    n = k * k
-    mine = op.plain()
-    assert mine.shape == x.shape
-    # the reference's kernel takes the signals zero-padded to n points and
-    # to a whole number of tiles
-    bp = b + (-b) % op.tile_b
+def _reference_kernel(x, h, n, tile_b):
+    """The reference's kernel body (``fftconv_kernel`` in interpret mode)
+    on the planes its wrapper builds: the signals zero-padded to n points
+    and to whole tiles, the natural-order spectrum with 1/n folded in, and
+    its float64 DFT matrices and twiddles cast to float32."""
+    c, b, L = x.shape
+    k = math.isqrt(n)
+    bp = b + (-b) % tile_b
     xp = np.zeros((c, bp, n), np.float32)
     xp[:, :b, :L] = x
-    w, wi, tf, ti = (np.asarray(t) for t in op.tables)
-    planes = [np.ascontiguousarray(p, dtype=np.float32)
-              for t in (w, wi, tf, ti) for p in (t.real, t.imag)]
-    hf = op.hf.numpy()
-    theirs = ref_kernel.fftconv_kernel(
+    hf = np.fft.fft(h.astype(np.float64), n=n, axis=-1) / n
+    planes = []
+    for z in (ref_tables.dft_matrix(k, False, np.complex128),
+              ref_tables.dft_matrix(k, True, np.complex128),
+              ref_tables.twiddles(k, k, False, np.complex128),
+              ref_tables.twiddles(k, k, True, np.complex128)):
+        z = np.asarray(z)
+        planes += [z.real.astype(np.float32), z.imag.astype(np.float32)]
+    y = ref_kernel.fftconv_kernel(
         jnp.asarray(xp.reshape(c, bp, k, k)),
-        jnp.asarray(np.ascontiguousarray(hf.real.reshape(c, k, k))),
-        jnp.asarray(np.ascontiguousarray(hf.imag.reshape(c, k, k))),
-        *(jnp.asarray(p) for p in planes), k=k, tile_b=op.tile_b,
+        jnp.asarray(hf.real.astype(np.float32).reshape(c, k, k)),
+        jnp.asarray(hf.imag.astype(np.float32).reshape(c, k, k)),
+        *(jnp.asarray(p) for p in planes), k=k, tile_b=tile_b,
         interpret=True)
-    theirs = np.asarray(theirs).reshape(c, bp, n)[:, :b, :L]
+    return np.asarray(y).reshape(c, bp, n)[:, :b, :L]
+
+
+@pytest.mark.parametrize("c,b,L,K", CASES[:3])
+def test_plain_version_and_oracle_match_reference(c, b, L, K):
+    """``fftconv_plain`` on the wrapper's own operands (the packed n/2-point
+    Stockham FFT, the spectral pass, the same FFT on the conjugate)
+    against the reference's kernel body in interpret mode, on a ragged L;
+    ``fftconv_ref`` against the reference's oracle, and in float64
+    against the direct convolution."""
+    x, h = conv_case(c, b, L, K, seed=3 * L + K)
+    op = ops.prepare(torch.from_numpy(x), torch.from_numpy(h))
+    n = op.n
+    mine = op.plain()
+    assert mine.shape == x.shape
+    theirs = _reference_kernel(x, h, n, tile_b=2)
     assert rel_l2(mine.numpy(), theirs) <= TOL
     got = ref.fftconv_ref(torch.from_numpy(x), torch.from_numpy(h), n)
     want = np.asarray(ref_ref.fftconv_ref(jnp.asarray(x), jnp.asarray(h), n))
@@ -109,6 +125,39 @@ def test_plain_version_and_oracle_match_reference(c, b, L, K):
     exact = ref.fftconv_ref(torch.from_numpy(x).double(),
                             torch.from_numpy(h).double(), n)
     assert rel_l2(exact.numpy(), direct_conv(x, h)) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [4, 16, 256, 4096])
+def test_operands_and_spectral_pass(n):
+    """The operands are the kernel's: the filter's half spectrum
+    rfft(h, n)/n, the Stockham schedule of the packed n/2 points and the
+    roots w^k, k <= n/4.  The spectral pass turns the packed spectrum Z of
+    z = x[0::2] + i x[1::2] into the conjugate of Z', whose unnormalized
+    inverse packs y = irfft(X * H) for X = rfft(x), as its definition
+    says."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((1, 2, n // 2 + 1)).astype(np.float32)
+    h = rng.standard_normal((1, n // 2)).astype(np.float32)
+    op = ops.prepare(torch.from_numpy(x), torch.from_numpy(h))
+    assert op.n == n and op.hf.shape == (1, n // 2 + 1)
+    np.testing.assert_allclose(op.hf.numpy(),
+                               np.fft.rfft(h, n=n, axis=-1) / n, rtol=0,
+                               atol=1e-6)
+    assert op.tables.radices == ops.stage_schedule(n)
+    assert math.prod(op.tables.radices) == n // 2
+    roots = np.exp(-2j * np.pi * np.arange(n // 4 + 1) / n)
+    np.testing.assert_allclose(op.tables.roots.numpy(), roots, atol=1e-7)
+    x64 = np.zeros((1, 2, n))
+    x64[..., :n // 2 + 1] = x
+    z = np.fft.fft(x64[..., 0::2] + 1j * x64[..., 1::2], axis=-1)
+    hf = np.fft.rfft(h.astype(np.float64), n=n, axis=-1) / n
+    y = np.fft.irfft(np.fft.rfft(x64, axis=-1) * hf[:, None], n=n) * n
+    # z' = y[0::2] + i y[1::2] is the unnormalized inverse of Z'
+    want = np.conj(np.fft.fft(y[..., 0::2] + 1j * y[..., 1::2],
+                              axis=-1)) / (n // 2)
+    got = ref.spectral_pass(torch.from_numpy(z.astype(np.complex64)),
+                            op.hf[:, None, :], op.tables.roots)
+    assert rel_l2(got.numpy(), want) <= TOL
 
 
 def test_next_square_pow2_matches_reference():
@@ -166,17 +215,20 @@ def test_unknown_backend_raises():
 
 def test_tile_over_the_shared_memory_cap_raises():
     """An explicit tile whose block does not fit raises ValueError naming
-    the cap, on any device; the default picks the largest that fits."""
-    x, h = conv_case(1, 4, 16384 - 127, 128, seed=1)   # k = 128
-    assert ops.largest_tile_b(128) == 1 and ops.largest_tile_b(64) == 4
+    the cap, on any device; the default is ``DEFAULT_TILE_B`` where that
+    fits."""
+    x, h = conv_case(1, 4, 16384 - 127, 128, seed=1)   # n = 16384
+    assert ops.largest_tile_b(16384) == 1 and ops.largest_tile_b(4096) == 6
+    assert ops.largest_tile_b(1024) == ops.MAX_TILE_B
     with pytest.raises(ValueError, match=f"limit {ops.SMEM_LIMIT_BYTES}"):
         ops.fftconv(torch.from_numpy(x), torch.from_numpy(h), tile_b=2)
-    x, h = conv_case(1, 8, 2048, 64, seed=2)              # k = 64
+    x, h = conv_case(1, 8, 2048, 64, seed=2)              # n = 4096
     with pytest.raises(ValueError, match="does not fit"):
-        ops.fftconv(torch.from_numpy(x), torch.from_numpy(h), tile_b=5)
+        ops.fftconv(torch.from_numpy(x), torch.from_numpy(h), tile_b=7)
     with pytest.raises(ValueError, match="does not fit"):
         ops.fftconv(torch.from_numpy(x), torch.from_numpy(h), tile_b=0)
-    assert ops.prepare(torch.from_numpy(x), torch.from_numpy(h)).tile_b == 4
+    assert ops.prepare(torch.from_numpy(x), torch.from_numpy(h)).tile_b == \
+        ops.DEFAULT_TILE_B
 
 
 def test_planted_failing_build_raises_off_the_cpu(monkeypatch):

@@ -48,19 +48,63 @@ def test_choose_factors_matches_reference_for_every_n():
 
 
 def test_hopper_cap():
-    """The cap is the longest factorable n whose signal and padded column
-    DFTs fit one block; every factorable n beyond it is refused."""
-    assert ops.MAX_N == {torch.complex64: 14464, torch.complex128: 7216}
+    """The cap is the longest factorable n whose padded plane and root
+    tables fit one block: 16384, the reference's, in complex64 and 13920
+    in complex128; a factorable n that does not fit is refused."""
+    assert ops.MAX_N == {torch.complex64: 16384, torch.complex128: 13920}
     for dtype, itemsize in ((torch.complex64, 8), (torch.complex128, 16)):
         cap = ops.MAX_N[dtype]
         n1, n2 = ops.choose_factors(cap)
         assert ops.smem_bytes(n1, n2, 1, itemsize) <= ops.SMEM_LIMIT_BYTES
         assert ops.feasible(cap, dtype) and ops.feasible(4096, dtype)
-        assert not ops.feasible(16384, dtype) and not ops.feasible(131, dtype)
-        with pytest.raises(ValueError, match=f"caps at n={cap}"):
-            ops.fft(torch.zeros((1, 128 * 128), dtype=dtype))
+        assert ops.feasible(8192, dtype) and not ops.feasible(131, dtype)
+    assert not ops.feasible(16384, torch.complex128)
+    assert not ops.feasible(13824, torch.complex128)   # 128 x 108
+    with pytest.raises(ValueError, match="caps at n=13920"):
+        ops.fft(torch.zeros((1, 128 * 128), dtype=torch.complex128))
     with pytest.raises(ValueError, match="factorization"):
         ops.fft(torch.zeros((1, 131), dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_three_term_tf32_keeps_the_bar(n):
+    """The kernel's complex64 arithmetic, modelled in torch: both products
+    summed from TF32 parts (round to nearest, the 13 low mantissa bits
+    dropped) hold rel-L2 1e-5 against the float64 oracle with three terms
+    per product (3xTF32); one term (plain TF32) misses it."""
+    x = torch.from_numpy(rand_c((3, n), "float", seed=n))
+    t = ops.make_tables(n, False, torch.complex64, "cpu")
+    want = (np.fft.fft(x.numpy().astype(np.complex128)))
+    three = ref.apply_fourstep_tf32(x, t.w1, t.w2, t.t, terms=3).numpy()
+    one = ref.apply_fourstep_tf32(x, t.w1, t.w2, t.t, terms=1).numpy()
+    assert rel_l2(three, want) <= TOL["float"]
+    assert rel_l2(one, want) > 10 * TOL["float"]
+    # TF32 rounding: to nearest, ties away from zero, 10 mantissa bits
+    v = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -12, 3.0])
+    assert ref.tf32(v).tolist() == [1 + 2 ** -10, 1 + 4 * 2 ** -11,
+                                    -(1 + 2 ** -10), 1.0, 3.0]
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_kernel_roots_rebuild_the_tables(precision):
+    """The kernel's root vector: W1's and W2's roots are the tables' row 1
+    (so W[r, j] = root[(r j) mod n1] exactly), and T's two root tables
+    rebuild T as w^(128 (e >> 7)) * w^(e & 127) to within one rounding."""
+    dtype = CDTYPE[precision][1]
+    for n in (945, 4096, 8192):
+        for inverse in (False, True):
+            t = ops.make_tables(n, inverse, dtype, "cpu")
+            n1, n2 = t.n1, t.n2
+            r1, r2 = t.roots[:n1], t.roots[n1:n1 + n2]
+            lo, hi = t.roots[n1 + n2:n1 + n2 + 128], t.roots[n1 + n2 + 128:]
+            assert torch.equal(r1, t.w1[1]) and torch.equal(r2, t.w2[1])
+            j = torch.arange(n1)
+            assert torch.equal(r1[(j[:, None] * j[None, :]) % n1], t.w1)
+            e = torch.arange(n1)[:, None] * torch.arange(n2)[None, :]
+            built = hi[e >> 7] * lo[e & 127]
+            assert rel_l2(built.numpy(), t.t.numpy()) <= \
+                (1e-6 if precision == "float" else 1e-15)
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -88,11 +88,11 @@ CAPPED = {
     ((128, 128), "complex", "double"): _FFT2_KNOBS,
     ((128, 128), "real", "double"): _FFT2_KNOBS,
     ((3072, 3072), "any", "float"): {
-        "fourstep_pallas(tile_b=8)", "fourstep_pallas(tile_b=16)",
+        "fourstep_pallas(tile_b=16)",
         "stockham_pallas(radix=4,tile_b=16)",
         "stockham_pallas(radix=8,tile_b=16)"},
     ((3072, 3072), "any", "double"): {
-        "fourstep_pallas(tile_b=4)", "fourstep_pallas(tile_b=8)",
+        "fourstep_pallas(tile_b=8)",
         "fourstep_pallas(tile_b=16)", "stockham_pallas(radix=4,tile_b=4)",
         "stockham_pallas(radix=8,tile_b=4)",
         "stockham_pallas(radix=4,tile_b=16)",
