@@ -7,7 +7,8 @@ with ``git archive`` into ``build/``).  Prints one JSON line: the median
 of 50 CUDA-event times (after 3 warm calls) of each kernel on prepared
 operands at the main path's shapes: the fft2 kernel at P7's and P6's
 tiles, the Stockham kernel at P7's axis and P3, the four-step kernel at
-the axes of P1-P7 (complex64 and complex128), the dft kernel at P8, and
+the axes of P1-P7 (complex64 and complex128), the dft kernel at P8 and
+P9's packed axis, and
 the fused fftconv kernel at F2 and F3 (the default tile).  Inputs are
 made on the card from a fixed seed.  To compare two trees, run it on
 each in turns (A, B, B, A) in one call, one process per run.  (Before
@@ -39,8 +40,8 @@ FOURSTEP_SHAPES = ((4096, 16384, torch.complex64),
                    (3072, 1537, torch.complex64),
                    (128, 16384, torch.complex128),
                    (64, 524288, torch.complex128))
-#: (n, rows, dtype) of the dft kernel: P8
-DFT_SHAPES = ((128, 524288, torch.complex64),)
+#: (n, rows, dtype) of the dft kernel: P8, and P9's packed axis
+DFT_SHAPES = ((128, 524288, torch.complex64), (50, 655360, torch.complex128))
 #: (name, channels, signals, L = K) of the fused fftconv kernel
 CONV_SHAPES = (("F2", 768, 32, 2048), ("F3", 768, 8, 8192))
 

@@ -8,7 +8,11 @@
    per source, all started together, into ``build/kernels/``);
 3. holds each kernel against its plain PyTorch version on the card, and
    against ``torch.fft``, over lengths (shapes), radices, dtypes,
-   directions, tile 1 and a ragged last tile;
+   directions, tile 1 and a ragged last tile (the dft kernel at every n
+   from 1 to 128); then the kernels' multi-pass paths, over one block's
+   shared memory up to the reference's caps (Stockham to 2^20, fft2 to
+   2^18 points, the four-step kernel's two launches in complex128), a
+   few rows each, forward and inverse;
 4. drives the port's main path at full size: ``Session.run`` of each
    client on its problems (``TorchFFT``, ``TorchStockhamPallas`` and
    ``TorchFourStepPallas`` on P1-P7, ``TorchFft2Pallas`` on P6-P7), every
@@ -17,7 +21,12 @@
    path went through its kernel and through no other;
 5. shows that ``TorchFft2Pallas`` on a problem its kernel cannot take (P1,
    rank 3) is a failed node that launched nothing;
-6. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P9 (the
+6. drives the reference's ``backends`` table's two nodes that need the
+   passes (65536 Outplace_Real under ``TorchStockhamPallas``, 256 x 256
+   Outplace_Real under ``TorchFft2Pallas``) through ``Session.run``, each
+   with the launch counts set to 0 just before it and read just after:
+   each validates and launches its own kernel and no other;
+7. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P9 (the
    reference's picks, each node launching its pick's kernels and no
    other; the ``dft_matmul`` kernel's main path, on P8 and P9), under
    MEASURE with a wisdom file under ``build/`` (every candidate of the
@@ -26,7 +35,7 @@
    knobs), every swept candidate's forward against torch.fft's on
    MEASURE's input, then under WISDOM_ONLY on that file (every node
    planned from wisdom, launching only the recorded pick's kernels);
-7. holds the fused fftconv kernel against its plain version and the
+8. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -35,14 +44,16 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-8. holds each kernel against its plain version at every shape the main
-   path and the sweeps launched it with (radix 8 and the default tile,
+9. holds each kernel against its plain version at every shape the main
+   path, the backends nodes and the sweeps launched it with (radix 8 and the default tile,
    both directions; fftconv against its plain version and the float64
    oracle), then times it at the main path's shapes beside its plain
    version, the library call (``torch.fft``; for fftconv the unfused
    ``torch.fft`` path) and its bound, and sweeps the batch tile of the
    fftconv and four-step kernels there (the check on their defaults);
-9. prints the kernel summary and, as the last line,
+   then checks and times the multi-pass paths and the dft kernel's
+   direct product at 512 MiB shapes (``EXTRA_TIMING``);
+10. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -87,8 +98,32 @@ FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096, 8192)
 #: rows of the fixed-case checks: tile 1, and tile 8 (a ragged last tile
 #: of 5) where 8 signals fit one block
 CHECK_ROWS = 37
-#: dft_matmul kernel: every length class up to its cap of 128
-DFT_NS = (1, 2, 3, 7, 8, 64, 100, 127, 128)
+#: dft_matmul kernel: every length up to its cap of 128 (the FFT body on
+#: the 7-smooth ones, the direct product on the rest)
+DFT_NS = tuple(range(1, 129))
+#: The multi-pass paths, a few rows each: Stockham lengths over one
+#: block (two column passes; 76545 = 945 x 81 splits 243 x 315, not a
+#: power of two), fft2 tiles over one block (a row pass and a column
+#: pass), four-step complex128 lengths whose plane one block does not
+#: hold (two launches).
+CAPACITY_STOCKHAM = {"complex64": (16384, 76545, 1 << 20),
+                     "complex128": (8192, 65536, 76545)}
+CAPACITY_FFT2 = ((128, 128), (256, 256), (512, 512))
+CAPACITY_FOURSTEP = (13824, 16384)
+CAPACITY_ROWS = 3
+#: The reference's backends table's nodes (benchmarks/table_backends.py)
+#: that need the passes: (client, extents, the kernel it launches).
+BACKENDS_NODES = (("TorchStockhamPallas", (65536,), "stockham_pallas"),
+                  ("TorchFft2Pallas", (256, 256), "fft2_pallas"))
+#: Shapes timed beside the main path's, each moving 512 MiB each way:
+#: the dft kernel's direct product at n = 127 (P8's bytes), the
+#: Stockham kernel's two passes, fft2's passes, the four-step kernel's two
+#: launches.
+EXTRA_TIMING = (("dft_matmul", (127, 524288, "complex64")),
+                ("stockham_pallas", (65536, 1024, "complex64")),
+                ("stockham_pallas", (1 << 20, 64, "complex64")),
+                ("fft2_pallas", (256, 256, 1024, "complex64")),
+                ("fft4step", (16384, 2048, "complex128")))
 #: kernel vs its plain version: same algorithm and twiddles, only the
 #: summation order differs.
 PLAIN_TOL = {"complex64": 1e-5, "complex128": 1e-12}
@@ -247,7 +282,7 @@ def check_stockham(device, gen, dtype) -> Worst:
     name = str(dtype).removeprefix("torch.")
     w = Worst("stockham_pallas", name)
     w.row["max_n"] = ops.MAX_N[dtype]
-    for n in CHECK_NS + (ops.MAX_N[dtype],):
+    for n in CHECK_NS + (ops.ONE_BLOCK_N[dtype],):
         for radix in CHECK_RADICES:
             for batch in CHECK_BATCHES:
                 x = torch.randn((batch, n), dtype=dtype, device=device,
@@ -300,7 +335,8 @@ def check_fourstep(device, gen, dtype) -> Worst:
         n1, n2 = ops.choose_factors(n)
         fits = ops.smem_bytes(n1, n2, 8, x.element_size()) \
             <= ops.SMEM_LIMIT_BYTES
-        for tile in ((1, 8) if fits else (1,)):
+        one = ops.one_block(n1, n2, x.element_size())
+        for tile in ((1, 8) if fits else (1,) if one else (None,)):
             for inverse in (False, True):
                 y = ops.fft(x, inverse, tile_b=tile)
                 torch.cuda.synchronize(device)
@@ -319,18 +355,21 @@ def check_dft(device, gen, dtype) -> Worst:
     for n in DFT_NS:
         x = torch.randn((CHECK_ROWS, n), dtype=dtype, device=device,
                         generator=gen)
-        for tile in (1, 8):     # 37 rows in tiles of 8: a ragged last tile
-            for inverse in (False, True):
-                y = ops.dft(x, inverse, tile_b=tile)
+        for inverse in (False, True):
+            m = ops.make_matrix(n, inverse, dtype, device)
+            plain = ops.plain(x, m, inverse)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+            for tile in (1, 8):     # 37 rows in tiles of 8: a ragged tile
+                y = ops.dft(x, inverse, tile_b=tile, matrix=m)
                 torch.cuda.synchronize(device)
-                w.add(y, _dft_plain(ref, x, inverse),
-                      (torch.fft.ifft if inverse else torch.fft.fft)(x),
-                      f"n={n} tile_b={tile} inverse={inverse}")
+                w.add(y, plain, lib, f"n={n} tile_b={tile} "
+                      f"inverse={inverse} ({'FFT' if m.fft else 'direct'})")
     return w
 
 
 def _dft_plain(ref, x, inverse: bool):
-    """The reference's plain DFT on planes, normalized as ``ops.dft``."""
+    """The reference's plain DFT on planes (the direct product), normalized
+    as ``ops.dft``: the oracle of every dft shape."""
     import torch
     yr, yi = ref.dft_ref(x.real.contiguous(), x.imag.contiguous(), inverse)
     y = torch.complex(yr, yi)
@@ -352,6 +391,105 @@ def check_kernels(device) -> dict:
             emit(w.row)
             worst[(kernel, w.row["dtype"])] = w.row
     return worst
+
+
+def check_capacity(device) -> dict:
+    """The multi-pass paths (``CAPACITY_*``) against their plain versions
+    and torch.fft, forward and inverse, at the kernels' bars; raises on a
+    miss.  Returns the worst errors per kernel and dtype."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(2020)
+    worst = {}
+    sp, _ = kernel_ops("stockham_pallas")
+    f2, _ = kernel_ops("fft2_pallas")
+    fs, fs_ref = kernel_ops("fft4step")
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).removeprefix("torch.")
+        rows = []
+        w = Worst("stockham_pallas", name)
+        for n in CAPACITY_STOCKHAM[name]:
+            x = torch.randn((CAPACITY_ROWS, n), dtype=dtype, device=device,
+                            generator=gen)
+            for inverse in (False, True):
+                plan = sp.make_twiddles(n, 8, inverse, dtype, device)
+                y = sp.fft(x, inverse, twiddles=plan)
+                torch.cuda.synchronize(device)
+                plain = sp.plain(x, plan, inverse)
+                w.add(y, plain / n if inverse else plain,
+                      (torch.fft.ifft if inverse else torch.fft.fft)(x),
+                      f"n={n} split {plan.n1}x{plan.n2} inverse={inverse}")
+        rows.append(w)
+        w = Worst("fft2_pallas", name)
+        for n1, n2 in CAPACITY_FFT2:
+            x = torch.randn((CAPACITY_ROWS, n1, n2), dtype=dtype,
+                            device=device, generator=gen)
+            for inverse in (False, True):
+                plan = f2.make_twiddles2(n1, n2, 8, inverse, dtype, device)
+                y = f2.fft2(x, inverse, twiddles=plan)
+                torch.cuda.synchronize(device)
+                plain = f2.plain(x, plan, inverse)
+                w.add(y, plain / (n1 * n2) if inverse else plain,
+                      (torch.fft.ifft2 if inverse else torch.fft.fft2)(x),
+                      f"{n1}x{n2} inverse={inverse}")
+        rows.append(w)
+        if dtype == torch.complex128:
+            w = Worst("fft4step", name)
+            for n in CAPACITY_FOURSTEP:
+                x = torch.randn((CAPACITY_ROWS, n), dtype=dtype,
+                                device=device, generator=gen)
+                for inverse in (False, True):
+                    t = fs.make_tables(n, inverse, dtype, device)
+                    y = fs.fft(x, inverse, twiddles=t)
+                    torch.cuda.synchronize(device)
+                    plain = fs_ref.apply_fourstep(x, t.w1, t.w2, t.t)
+                    w.add(y, plain / n if inverse else plain,
+                          (torch.fft.ifft if inverse else torch.fft.fft)(x),
+                          f"n={n} ({t.n1}x{t.n2}) inverse={inverse}")
+            rows.append(w)
+        for w in rows:
+            w.row["check"] = "multi_pass_vs_plain"
+            emit(w.row)
+            worst[(w.row["kernel"], f"{name} passes")] = w.row
+    return worst
+
+
+def run_backends_nodes(device) -> dict:
+    """``Session.run`` of the reference's backends-table nodes that need
+    the passes (``BACKENDS_NODES``), each with the launch counts set to 0
+    just before it and read just after: each validates and launches its
+    own kernel and no other.  Returns per kernel the launches and launch
+    shapes."""
+    from repro_torch.core.client import Problem, TorchContext
+    from repro_torch.core.clients import torch_fft
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.core.tree import BenchNode
+
+    session = Session(TorchContext(device))
+    out = {"launches": {}, "shapes": {}}
+    for client, extents, kernel in BACKENDS_NODES:
+        problem = Problem(extents, "Outplace_Real", "float", 1)
+        spec = SuiteSpec(warmups=1, repetitions=3, output=None)
+        _reset_counts()
+        t0 = time.perf_counter()
+        rs = session.run(spec, nodes=[
+            BenchNode(getattr(torch_fft, client), problem)])
+        counts = _read_counts()
+        val = rs.query(op="validate")
+        if rs.failures() or len(val) != 1 or not val[0].success:
+            raise AssertionError(f"{client} {extents} failed: "
+                                 f"{[r.error for r in rs.failures()]}")
+        launched = {k: c for k, (c, _) in counts.items() if c}
+        if set(launched) != {kernel}:
+            raise AssertionError(f"{client} {extents} should launch only "
+                                 f"{kernel}, launched {launched}")
+        emit({"node": "x".join(map(str, extents)), "client": client,
+              "kind": problem.kind, "device": val[0].device,
+              "execute_forward_ms": statistics.median(
+                  r.time_ms for r in rs.query(op="execute_forward")),
+              "launches": launched, "node_s": time.perf_counter() - t0})
+        out["launches"][kernel] = counts[kernel][0]
+        out["shapes"][kernel] = counts[kernel][1]
+    return out
 
 
 def _conv_inputs(device, gen, c, b, L, K):
@@ -926,17 +1064,14 @@ class Shape:
         device, dtype = self.x.device, self.x.dtype
         if self.kernel == "dft_matmul":
             m = self.ops.make_matrix(self.n, False, dtype, device)
-            return m, lambda: self.ref.apply_dft(self.x, m.w)
+            return m, lambda: self.ops.plain(self.x, m, False)
         if self.kernel == "stockham_pallas":
             t = self.ops.make_twiddles(self.n, 8, False, dtype, device)
-            return t, lambda: self.ref.apply_stages(self.x, t.tw, t.radices,
-                                                    t.bases, False)
+            return t, lambda: self.ops.plain(self.x, t, False)
         if self.kernel == "fft2_pallas":
             n1, n2 = self.shape["n1"], self.shape["n2"]
             t = self.ops.make_twiddles2(n1, n2, 8, False, dtype, device)
-            return t, lambda: self.ref.apply2(self.x, t.tw, t.radices1,
-                                              t.radices2, t.bases1, t.bases2,
-                                              False)
+            return t, lambda: self.ops.plain(self.x, t, False)
         t = self.ops.make_tables(self.n, False, dtype, device)
         return t, lambda: self.ref.apply_fourstep(self.x, t.w1, t.w2, t.t)
 
@@ -994,16 +1129,17 @@ class Shape:
         what its algorithm costs beyond the bound: for the four-step kernel
         the tensor-core products, 3 * 8 (n1 + n2) TF32 flops per point at
         the TF32 peak in complex64 (3xTF32) and 8 (n1 + n2) at the fp64
-        peak in complex128; 8n per point for the direct DFT (fp32/fp64 on
-        the CUDA cores); None for the Stockham-stage kernels, whose flops
-        are the 5 n log2(n)."""
+        peak in complex128; 8n per point for the dft kernel's direct
+        product (fp32/fp64 on the CUDA cores); None for the FFTs in stages
+        or registers (Stockham, fft2, the dft kernel on a 7-smooth n),
+        whose flops are about the 5 n log2(n)."""
         peak = PEAK_FLOPS[self.dname]
         if self.kernel == "fft4step":
             n1, n2 = self.ops.choose_factors(self.n)
             per_point = 8 * (n1 + n2)
             if self.dname == "complex64":
                 per_point, peak = 3 * per_point, PEAK_TF32
-        elif self.kernel == "dft_matmul":
+        elif self.kernel == "dft_matmul" and not self.ops.smooth7(self.n):
             per_point = 8 * self.n
         else:
             return None
@@ -1172,6 +1308,44 @@ def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
     return rows_out
 
 
+def time_extra(device) -> list[dict]:
+    """The ``EXTRA_TIMING`` shapes: each kernel with its default plan
+    against its plain oracle in both directions (raises above its
+    tolerance), then its time beside its plain version, the library call
+    and its bound.  Not the main path's: ``launches`` is 0."""
+    import torch
+    import gc
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows = []
+    for kernel, key in EXTRA_TIMING:
+        s = Shape(kernel, key, device, gen)
+        rel = err = 0.0
+        for what, y, want in s.pairs():
+            torch.cuda.synchronize(device)
+            e = rel_l2(y, want)
+            if not e <= s.tol:
+                raise AssertionError(f"{kernel} disagrees at {s.shape} {what}: "
+                                     f"rel_l2 vs plain {e:.3e}")
+            rel, err = max(rel, e), max(err, float((y - want).abs().max()))
+            del y, want
+        plan, plain = s.plan()
+        bound_ms, bound_by = s.bound()
+        row = {"kernel": kernel, **s.shape, "launches": 0,
+               "ms": _events_ms(lambda: s.kernel_call(plan=plan), 20),
+               "plain_ms": _events_ms(plain, 5),
+               "library_ms": _events_ms(s.library, 20),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "algorithm_ops_ms": s.algorithm_ops_ms(),
+               "bytes_moved": s.bytes_moved(), "rel_l2_plain": rel,
+               "max_abs_err": err}
+        emit({"timing": row, "phase": "extra"})
+        rows.append(row)
+        del s, plan, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1191,8 +1365,10 @@ def main() -> int:
     emit({"build_s": build()})
     emit({"kernels": [k for k, _, _ in KERNELS]})
     checks = check_kernels(device)
+    checks.update(check_capacity(device))
     main_path = run_main_path(device)
     check_failed_node(device)
+    backends = run_backends_nodes(device)
     planner = run_planner(device)
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
@@ -1204,13 +1380,14 @@ def main() -> int:
     main_path["shapes"]["fftconv"] = conv["shapes"]["fftconv"]
     checked = {k: dict(v) for k, v in main_path["shapes"].items()}
     others = {k: v for k, v in conv["shapes"].items() if k != "fftconv"}
-    for sweep in planner["sweep_shapes"] + [others]:
+    for sweep in planner["sweep_shapes"] + [others, backends["shapes"]]:
         for kernel, shapes in sweep.items():
             for key, n in shapes.items():
                 checked.setdefault(kernel, {}).setdefault(key, 0)
                 checked[kernel][key] += n
     errors = check_main_path_shapes(device, {"shapes": checked})
     timings = time_kernels(device, main_path, errors)
+    time_extra(device)
 
     summary = []
     for kernel, source, replaces in KERNELS:

@@ -5,10 +5,12 @@ The backend keys are the reference package's (``xla``,
 ``stockham_pallas``, ...), and :meth:`Candidate.key` renders the same plan
 keys, per-axis ``nd[...]`` ones included, so a plan the reference or a
 wisdom record selected runs the same schedule here
-(:meth:`Candidate.from_key`).  Feasibility follows the reference's rules
-with each kernel's Hopper cap (227 KB of shared memory per block) in place
-of the TPU's VMEM budgets, and the PATIENT grid offers only the knobs a
-kernel honors at the problem's shape.  Enumeration prunes per-axis
+(:meth:`Candidate.from_key`).  Feasibility is the reference's: each
+kernel takes what the reference's takes (Stockham 7-smooth n <= 2^20, the
+four-step kernel n1, n2 <= 128, fft2 n1*n2 <= 2^18), running as passes
+through global memory where one block's 227 KB of shared memory does not
+hold the signal (:func:`kernel_passes`); the PATIENT grid offers only the
+knobs a kernel honors at the problem's shape.  Enumeration prunes per-axis
 assignments by the active cost model (:mod:`.costmodel`), imported lazily
 as in the reference.
 """
@@ -117,15 +119,46 @@ def _torch_dtype(precision: str):
 
 
 def stockham_max_n(precision: str) -> int:
-    """Longest axis the Stockham kernel holds in one block's shared memory."""
+    """Longest axis the Stockham kernel takes (2^20, the reference's)."""
     from ..kernels.stockham_pallas.ops import MAX_N
     return MAX_N[_torch_dtype(precision)]
 
 
+def kernel_passes(backend: str, n: int, precision: str = "float") -> int:
+    """Global-memory round trips of one axis of engine length ``n`` under a
+    kernel backend: 1 where one block holds the signal, 2 where the kernel
+    runs as passes (the Stockham kernel over its one-block cap, the
+    four-step kernel where a signal's plane does not fit)."""
+    if n == 1:
+        return 1
+    if backend == "stockham_pallas":
+        from ..kernels.stockham_pallas.ops import ONE_BLOCK_N
+        return 1 if n <= ONE_BLOCK_N[_torch_dtype(precision)] else 2
+    if backend == "fourstep_pallas":
+        from ..kernels.fft4step import ops as fs
+        itemsize = 8 if precision == "float" else 16
+        return 1 if fs.one_block(*fs.choose_factors(n), itemsize) else 2
+    return 1
+
+
+def fft2_passes(problem: Problem) -> int:
+    """Global-memory round trips of the fused rank-2 kernel on the
+    problem's engine tile: 1 where one block holds it, else the row pass's
+    and the column pass's (each one or two: ``kernel_passes``; none for
+    an extent of 1)."""
+    from ..kernels.fft2_pallas.ops import ONE_BLOCK_ELEMS
+    n1, n2 = problem.extents[0], axis_engine_n(problem, 1)
+    if n1 * n2 <= ONE_BLOCK_ELEMS[_torch_dtype(problem.precision)]:
+        return 1
+    return sum(kernel_passes("stockham_pallas", n, problem.precision)
+               for n in (n1, n2) if n > 1)
+
+
 def axis_feasible(backend: str, n: int, precision: str = "float") -> bool:
     """Can ``backend`` transform one batched axis of engine length ``n``
-    (see :func:`axis_engine_n`) on Hopper?  Whole-transform backends other
-    than ``xla`` have no per-axis form."""
+    (see :func:`axis_engine_n`)?  The reference's rule, in both
+    precisions.  Whole-transform backends other than ``xla`` have no
+    per-axis form."""
     if backend == "xla":
         return True
     if backend == "stockham":
@@ -168,22 +201,20 @@ def axis_elems(problem: Problem, axis: int) -> int:
 
 
 def fft2_feasible(problem: Problem) -> bool:
-    """The fused rank-2 kernel holds the whole n1 x n2 engine tile (the
-    packed n1 x n2/2 one for a real kind) in one block's shared memory;
-    real kinds need an even last extent."""
+    """The reference's rule for the fused rank-2 kernel: two power-of-two
+    extents with n1*n2 <= 2^18 (an even last extent for a real kind, whose
+    packed n1 x n2/2 tile the kernel transforms)."""
     from ..kernels.fft2_pallas.ops import MAX_ELEMS, pow2
     exts = problem.extents
     if len(exts) != 2 or not all(pow2(v) for v in exts):
         return False
     if not (problem.complex_input or exts[-1] % 2 == 0):
         return False
-    tile = exts[0] * axis_engine_n(problem, 1)
-    return tile <= MAX_ELEMS[_torch_dtype(problem.precision)]
+    return exts[0] * exts[1] <= MAX_ELEMS[_torch_dtype(problem.precision)]
 
 
 def backend_supports(backend: str, problem: Problem) -> bool:
-    """Can ``backend`` run ``problem`` on Hopper (the reference's rules,
-    with the Hopper caps in place of the VMEM ones)?"""
+    """Can ``backend`` run ``problem`` (the reference's rules)?"""
     if backend == "fft2_pallas":
         return fft2_feasible(problem)
     if backend == "xla":

@@ -146,7 +146,7 @@ def _axis_engines(problem: Problem, cand: Candidate, inverse: bool,
 
 
 def _fft2_twiddles(problem: Problem, cand: Candidate, inverse: bool,
-                   device) -> f2_ops.Twiddles2 | None:
+                   device) -> f2_ops.Twiddles2 | f2_ops.Passes2 | None:
     """The fused rank-2 kernel's plan for the problem's engine tile (the
     packed n1 x n2/2 one for a real kind); raises for another rank or a
     tile over the kernel's cap."""
@@ -161,7 +161,8 @@ def _fft2_twiddles(problem: Problem, cand: Candidate, inverse: bool,
 
 
 def _fft2_engine(cand: Candidate,
-                 twiddles: f2_ops.Twiddles2 | None) -> Callable:
+                 twiddles: f2_ops.Twiddles2 | f2_ops.Passes2 | None
+                 ) -> Callable:
     """Whole-transform engine cfft2(x, inverse=False) over the LAST TWO
     axes: the fused rank-2 kernel, bound to its prebuilt twiddles."""
     opts = cand.opts()

@@ -8,10 +8,13 @@ H100 yet, so ESTIMATE ranks by the hand-written pass counts.
 
 Two things differ, both for Hopper:
 
-* the kernels' feasibility is the Hopper cap of each kernel, which depends
-  on the precision (the Stockham kernel holds 14406 complex64 or 7203
-  complex128 points in one block, the four-step kernel 14464 / 7216, the
-  fused rank-2 kernel 8192 / 4096), where the reference prices
+* a kernel's passes depend on whether one block holds the signal, which
+  depends on the precision (the Stockham kernel holds 14406 complex64 or
+  7203 complex128 points in one block, the four-step kernel every split
+  in complex64 and up to 13920 points in complex128, the fused rank-2
+  kernel 8192 / 4096 points); above that the kernel runs as two passes
+  through global memory and is priced at two round trips
+  (:func:`.candidates.kernel_passes`), where the reference prices
   ``stockham_pallas`` with a VMEM budget apart from its cap.  So
   :meth:`CostModel.hbm_passes` takes the precision, and
   :meth:`CostModel.estimate` passes the problem's;
@@ -34,7 +37,7 @@ from typing import Optional
 
 from .candidates import (FUSED_ND, Candidate, _smooth7, axis_elems,
                          axis_engine_n, axis_feasible, candidates,
-                         fft2_feasible)
+                         fft2_feasible, fft2_passes, kernel_passes)
 from .client import Problem
 from .extents import next_pow2 as _next_pow2
 
@@ -124,9 +127,11 @@ class CostModel:
         if backend == "dft":
             return c.dft_passes
         if backend == "fourstep_pallas":
-            return c.fourstep_pallas_passes
+            return c.fourstep_pallas_passes * kernel_passes(backend, n,
+                                                            precision)
         if backend == "stockham_pallas":
-            return c.stockham_pallas_passes
+            return c.stockham_pallas_passes * kernel_passes(backend, n,
+                                                            precision)
         return float("inf")
 
     def estimate(self, problem: Problem, cand: Candidate) -> float:
@@ -145,10 +150,10 @@ class CostModel:
             if cand.backend == "xla":
                 passes = max(self.hbm_passes("xla", axis_engine_n(problem, i))
                              for i in range(problem.rank))
-            else:          # fft2_pallas: one read + one write of the tile
+            else:   # fft2_pallas: one read + one write of the tile a pass
                 if not fft2_feasible(problem):
                     return float("inf")
-                passes = 1.0
+                passes = float(fft2_passes(problem))
             return passes * 2.0 * elems * complex_itemsize
         total = 0.0
         for axis, ax_cand in enumerate(cand.per_axis(problem.rank)):

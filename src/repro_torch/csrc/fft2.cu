@@ -25,9 +25,11 @@
 //     consecutive words;
 //   * the last stage writes straight to global memory in natural order,
 //     with the inverse's 1/(n1*n2) folded into that store.
-// Two buffers of n1*n2 points cap one signal at 8192 points in complex64
-// and 4096 in complex128 (227 KB per block); larger rank-2 problems are
-// not this kernel's.
+// Two buffers of n1*n2 points cap one block's signal at 8192 points in
+// complex64 and 4096 in complex128 (227 KB per block); a larger tile, up
+// to the reference's 2^18 points, runs as passes through global memory on
+// stockham.cu's entries (the rows' FFTs, then the column pass), launched
+// by this kernel's wrapper (kernels/fft2_pallas/ops.py).
 //
 // Layout: interleaved complex (torch.view_as_real of a contiguous
 // complex64/complex128 tensor).  Twiddles: one interleaved complex vector;
@@ -38,17 +40,12 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "stockham_stages.cuh"
 
 namespace {
 
 constexpr int kMaxStages = 32;
 constexpr int kThreads = 512;
-constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
-constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
-constexpr int kMaxDevices = 64;
 
 // Row (n2) stages first, then column (n1) stages.
 struct Schedule2 {
@@ -107,20 +104,8 @@ int launch_dir(const void* x, void* y, const void* tw, long long batch, int n1,
                int n2, int tile_b, const Schedule2& sch, size_t smem,
                cudaStream_t stream) {
   auto kern = fft2_kernel<T, INV>;
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    // the opt-in is a per-device attribute of this instantiation: set it on
-    // the first large launch on each device only
-    static std::atomic<bool> opted_in[kMaxDevices];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return err;
-      if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
-    }
-  }
+  const cudaError_t err = opt_in<fft2_kernel<T, INV>>(smem);
+  if (err != cudaSuccess) return err;
   const long long blocks = (batch + tile_b - 1) / tile_b;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(y),

@@ -42,19 +42,21 @@
 //     global memory: a quad of lanes writes 8 consecutive points, in
 //     complex64 as four 16-byte stores (64 bytes, two whole sectors).
 // W1 and W2 never exist whole: the panel product indexes their root
-// tables at (m k) mod n1 or n2.  One plane caps a signal at n = 16384 in
-// complex64 and at the largest factorable n whose padded plane fits 227 KB
-// in complex128 (13920).
+// tables at (m k) mod n1 or n2.  One plane holds every split in complex64
+// (n = 16384 at most) and, in complex128, the splits whose padded plane
+// fits 227 KB (up to 13920); the other complex128 splits, up to the
+// reference's 128 x 128, run as two launches (below).
 //
 // Layout: interleaved complex (torch.view_as_real of contiguous tensors);
 // the table vector holds the roots of W1 (n1), of W2 (n2), and T's two
 // root tables (128 each).  Plain C interface (fft4step_f32 /
-// fft4step_f64), loaded with ctypes; each returns the cudaError_t of the
+// fft4step_f64, and fft4step_passes_f32 / fft4step_passes_f64 for the
+// two launches), loaded with ctypes; each returns the cudaError_t of the
 // launch.
 
 #include <cuda_runtime.h>
 
-#include <atomic>
+#include <type_traits>
 
 #include "stockham_stages.cuh"  // Cx, mul, scale
 #include "tc_product.cuh"       // TcRoot, TcAcc, make_root
@@ -65,9 +67,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN1 = 128;
 constexpr int kTwiddleRoots = 128;      // each of T's two root tables
-constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
-constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
-constexpr int kMaxDevices = 64;
 
 // points per padded plane row: n2 rounded up to 4 mod 16
 __host__ __device__ constexpr int plane_pitch(int n2) {
@@ -84,6 +83,23 @@ template <typename T>
 size_t smem_bytes(int n1, int n2, int tile_b) {
   return table_bytes<T>() + static_cast<size_t>(tile_b) * n1 *
                                 plane_pitch(n2) * sizeof(Cx<T>);
+}
+
+// The roots of W1 and W2 (split for 3xTF32 in complex64) and T's two root
+// tables, as far as k1 j2 < n reaches, from the plan's table vector into
+// shared memory.
+template <typename T>
+__device__ __forceinline__ void load_tables(
+    const Cx<T>* __restrict__ tables, int n1, int n2,
+    typename TcRoot<T>::type* r1, typename TcRoot<T>::type* r2, Cx<T>* tlo,
+    Cx<T>* thi) {
+  const int n = n1 * n2;
+  for (int i = threadIdx.x; i < n1; i += blockDim.x) r1[i] = make_root(tables[i]);
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) r2[i] = make_root(tables[n1 + i]);
+  for (int i = threadIdx.x; i < min(n, kTwiddleRoots); i += blockDim.x)
+    tlo[i] = tables[n1 + n2 + i];
+  for (int i = threadIdx.x; i <= (n - 1) >> 7; i += blockDim.x)
+    thi[i] = tables[n1 + n2 + kTwiddleRoots + i];
 }
 
 // A warp's item: a panel of 8 NP columns (column pass) or rows of C (row
@@ -107,13 +123,7 @@ fft4step_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
   const long long sig0 = static_cast<long long>(blockIdx.x) * tile_b;
   const int sigs = static_cast<int>(min(static_cast<long long>(tile_b), batch - sig0));
 
-  for (int i = threadIdx.x; i < n1; i += blockDim.x) r1[i] = make_root(tables[i]);
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) r2[i] = make_root(tables[n1 + i]);
-  // T's root tables, as far as k1 j2 < n reaches
-  for (int i = threadIdx.x; i < min(n, kTwiddleRoots); i += blockDim.x)
-    tlo[i] = tables[n1 + n2 + i];
-  for (int i = threadIdx.x; i <= (n - 1) >> 7; i += blockDim.x)
-    thi[i] = tables[n1 + n2 + kTwiddleRoots + i];
+  load_tables(tables, n1, n2, r1, r2, tlo, thi);
   // the tile's points in order, point i at plane row i / n2 (X[j1] of
   // signal j1 / n1, the tile's rows being consecutive) and column i % n2,
   // both stepped without a division
@@ -215,25 +225,157 @@ fft4step_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
   }
 }
 
+
+// The two-launch form, for a signal whose plane does not fit one block
+// (complex128 above 13920 points, such as 128 x 128 and 128 x 108): the
+// same products, through a scratch signal C in global memory.
+//   columns: a block stages a tile of `tile` adjacent columns of X (all
+//            n1 rows: runs of `tile` points), and its warps write
+//            C[k1, j2] = T[k1, j2] * (W1 X)[k1, j2] over them;
+//   rows:    a block stages a tile of `tile` adjacent rows of C (one run
+//            of tile * n2 points), and its warps store y[k2*n1 + k1] as
+//            the one-block kernel's row pass does.
+// Each launch moves the signal once, so the pair costs two round trips;
+// its products are the one-block kernel's.
+template <typename T, int MG, int NP>
+__global__ void __launch_bounds__(kThreads, 2)
+fft4step_columns_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ c_out,
+                        const Cx<T>* __restrict__ tables, int n1, int n2,
+                        int tile) {
+  using Root = typename TcRoot<T>::type;
+  using Acc = TcAcc<T, MG, NP>;
+  constexpr int kPanel = 8 * NP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Root* r1 = reinterpret_cast<Root*>(smem_raw);
+  Root* r2 = r1 + kMaxN1;
+  Cx<T>* tlo = reinterpret_cast<Cx<T>*>(r2 + kMaxN1);
+  Cx<T>* thi = tlo + kTwiddleRoots;
+  Cx<T>* plane = thi + kTwiddleRoots;
+  const int n = n1 * n2;
+  const int pitch = plane_pitch(tile);
+  const int tiles = (n2 + tile - 1) / tile;
+  const long long s = blockIdx.x / tiles;
+  const int col0 = static_cast<int>(blockIdx.x - s * tiles) * tile;
+  const int cw = min(tile, n2 - col0);
+  const Cx<T> zero = {T(0), T(0)};
+  load_tables(tables, n1, n2, r1, r2, tlo, thi);
+  const Cx<T>* xs = x + s * n + col0;
+  for (int i = threadIdx.x; i < n1 * tile; i += kThreads) {
+    const int j1 = i / tile, c = i - j1 * tile;
+    plane[j1 * pitch + c] = c < cw ? xs[j1 * n2 + c] : zero;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int mt1 = (n1 + Acc::kRows - 1) / Acc::kRows;
+  const int groups1 = (mt1 + MG - 1) / MG;
+  const int items = (cw + kPanel - 1) / kPanel * groups1;
+  Cx<T>* cs = c_out + s * n;
+  for (int item = warp; item < items; item += kWarps) {
+    const int mt0 = item % groups1 * MG;
+    const int mts = min(MG, mt1 - mt0);
+    const int p0 = kPanel * (item / groups1);  // the panel's first column
+    Acc acc;
+    acc.product(r1, n1, mt0, mts, [&](int j1, int c) {
+      return j1 < n1 && p0 + c < cw ? plane[j1 * pitch + p0 + c] : zero;
+    });
+    acc.epilogue(n1, mt0, mts, [&](int k1, int c, Cx<T> v0, Cx<T> v1) {
+      const Cx<T> v[2] = {v0, v1};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (p0 + c + u < cw) {
+          const int j2 = col0 + p0 + c + u;
+          const int e = k1 * j2;  // < n
+          cs[k1 * n2 + j2] = mul(v[u], mul(thi[e >> 7], tlo[e & 127]));
+        }
+      }
+    });
+  }
+}
+
+template <typename T, int MG, int NP>
+__global__ void __launch_bounds__(kThreads, 2)
+fft4step_rows_kernel(const Cx<T>* __restrict__ c_in, Cx<T>* __restrict__ y,
+                     const Cx<T>* __restrict__ tables, int n1, int n2,
+                     int tile, T out_scale) {
+  using Root = typename TcRoot<T>::type;
+  using Acc = TcAcc<T, MG, NP>;
+  constexpr int kPanel = 8 * NP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Root* r1 = reinterpret_cast<Root*>(smem_raw);
+  Root* r2 = r1 + kMaxN1;
+  Cx<T>* tlo = reinterpret_cast<Cx<T>*>(r2 + kMaxN1);
+  Cx<T>* thi = tlo + kTwiddleRoots;
+  Cx<T>* plane = thi + kTwiddleRoots;
+  const int n = n1 * n2;
+  const int pitch = plane_pitch(n2);
+  const int tiles = (n1 + tile - 1) / tile;
+  const long long s = blockIdx.x / tiles;
+  const int row0 = static_cast<int>(blockIdx.x - s * tiles) * tile;
+  const int rw = min(tile, n1 - row0);
+  const Cx<T> zero = {T(0), T(0)};
+  load_tables(tables, n1, n2, r1, r2, tlo, thi);
+  const Cx<T>* cg = c_in + s * n + static_cast<long long>(row0) * n2;
+  {
+    const int drow = kThreads / n2, dcol = kThreads % n2;
+    int row = threadIdx.x / n2, col = threadIdx.x % n2;
+    for (int i = threadIdx.x; i < rw * n2; i += kThreads) {
+      plane[row * pitch + col] = cg[i];
+      row += drow;
+      col += dcol;
+      if (col >= n2) {
+        col -= n2;
+        ++row;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int mt2 = (n2 + Acc::kRows - 1) / Acc::kRows;
+  const int groups2 = (mt2 + MG - 1) / MG;
+  const int items = (rw + kPanel - 1) / kPanel * groups2;
+  Cx<T>* yo = y + s * n;
+  for (int item = warp; item < items; item += kWarps) {
+    const int mt0 = item % groups2 * MG;
+    const int mts = min(MG, mt2 - mt0);
+    const int p0 = kPanel * (item / groups2);  // the panel's first row
+    Acc acc;
+    acc.product(r2, n2, mt0, mts, [&](int j2, int c) {
+      return j2 < n2 && p0 + c < rw ? plane[(p0 + c) * pitch + j2] : zero;
+    });
+    acc.epilogue(n2, mt0, mts, [&](int k2, int c, Cx<T> v0, Cx<T> v1) {
+      const int k1 = row0 + p0 + c;  // even
+      Cx<T>* out = yo + k2 * n1 + k1;
+      v0 = scale(v0, out_scale);
+      v1 = scale(v1, out_scale);
+      if (k1 < row0 + rw) out[0] = v0;
+      if (k1 + 1 < row0 + rw) out[1] = v1;
+    });
+  }
+}
+
+// f(MG, NP) with the runtime pair as compile-time constants.
+template <typename F>
+int with_mg_np(int mg, int np, F f) {
+  using std::integral_constant;
+  switch (4 * np + mg) {
+    case 5: return f(integral_constant<int, 1>{}, integral_constant<int, 1>{});
+    case 6: return f(integral_constant<int, 2>{}, integral_constant<int, 1>{});
+    case 8: return f(integral_constant<int, 4>{}, integral_constant<int, 1>{});
+    case 9: return f(integral_constant<int, 1>{}, integral_constant<int, 2>{});
+    case 10: return f(integral_constant<int, 2>{}, integral_constant<int, 2>{});
+    default: return f(integral_constant<int, 4>{}, integral_constant<int, 2>{});
+  }
+}
+
 template <typename T, int MG, int NP>
 int launch_mg(const void* x, void* y, const void* tables, long long batch,
               int n1, int n2, int tile_b, T out_scale, size_t smem,
               cudaStream_t stream) {
   auto kern = fft4step_kernel<T, MG, NP>;
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    // the opt-in is a per-device attribute of this instantiation: set it on
-    // the first large launch on each device only
-    static std::atomic<bool> opted_in[kMaxDevices];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return err;
-      if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
-    }
-  }
+  const cudaError_t err = opt_in<fft4step_kernel<T, MG, NP>>(smem);
+  if (err != cudaSuccess) return err;
   const long long blocks = (batch + tile_b - 1) / tile_b;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(y),
@@ -241,28 +383,74 @@ int launch_mg(const void* x, void* y, const void* tables, long long batch,
   return cudaGetLastError();
 }
 
+bool valid_split(int n1, int n2, int mg, int np, long long batch) {
+  return n1 >= 1 && n1 <= kMaxN1 && n2 >= 1 && n2 <= kMaxN1 && batch >= 1 &&
+         (mg == 1 || mg == 2 || mg == 4) && (np == 1 || np == 2);
+}
+
 template <typename T>
 int launch(const void* x, void* y, const void* tables, long long batch,
            int n1, int n2, int tile_b, int mg, int np, int inverse,
            void* stream) {
-  if (n1 < 1 || n1 > kMaxN1 || n2 < 1 || n2 > kMaxN1 || tile_b < 1 ||
-      batch < 1)
-    return cudaErrorInvalidValue;
-  if ((mg != 1 && mg != 2 && mg != 4) || (np != 1 && np != 2))
+  if (!valid_split(n1, n2, mg, np, batch) || tile_b < 1)
     return cudaErrorInvalidValue;
   if ((batch + tile_b - 1) / tile_b > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(n1, n2, tile_b);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const T out_scale = inverse ? T(1) / static_cast<T>(n1 * n2) : T(1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (4 * np + mg) {
-    case 5: return launch_mg<T, 1, 1>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
-    case 6: return launch_mg<T, 2, 1>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
-    case 8: return launch_mg<T, 4, 1>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
-    case 9: return launch_mg<T, 1, 2>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
-    case 10: return launch_mg<T, 2, 2>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
-    default: return launch_mg<T, 4, 2>(x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
-  }
+  return with_mg_np(mg, np, [&](auto MG, auto NP) {
+    return launch_mg<T, decltype(MG)::value, decltype(NP)::value>(
+        x, y, tables, batch, n1, n2, tile_b, out_scale, smem, s);
+  });
+}
+
+template <typename T, int MG, int NP>
+int launch_passes_mg(const void* x, void* tmp, void* y, const void* tables,
+                     long long batch, int n1, int n2, int tile_cols,
+                     int tile_rows, T out_scale, cudaStream_t stream) {
+  const size_t smem_c = table_bytes<T>() + static_cast<size_t>(n1) *
+                                               plane_pitch(tile_cols) * sizeof(Cx<T>);
+  const size_t smem_r = table_bytes<T>() + static_cast<size_t>(tile_rows) *
+                                               plane_pitch(n2) * sizeof(Cx<T>);
+  const long long blocks_c = batch * ((n2 + tile_cols - 1) / tile_cols);
+  const long long blocks_r = batch * ((n1 + tile_rows - 1) / tile_rows);
+  if (smem_c > static_cast<size_t>(kMaxSmem) ||
+      smem_r > static_cast<size_t>(kMaxSmem) || blocks_c > 0x7fffffffLL ||
+      blocks_r > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = opt_in<fft4step_columns_kernel<T, MG, NP>>(smem_c);
+  if (err != cudaSuccess) return err;
+  err = opt_in<fft4step_rows_kernel<T, MG, NP>>(smem_r);
+  if (err != cudaSuccess) return err;
+  auto kc = fft4step_columns_kernel<T, MG, NP>;
+  auto kr = fft4step_rows_kernel<T, MG, NP>;
+  kc<<<static_cast<unsigned>(blocks_c), kThreads, smem_c, stream>>>(
+      static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(tmp),
+      static_cast<const Cx<T>*>(tables), n1, n2, tile_cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kr<<<static_cast<unsigned>(blocks_r), kThreads, smem_r, stream>>>(
+      static_cast<const Cx<T>*>(tmp), static_cast<Cx<T>*>(y),
+      static_cast<const Cx<T>*>(tables), n1, n2, tile_rows, out_scale);
+  return cudaGetLastError();
+}
+
+// The two launches (columns to tmp, rows to y); tile_cols and tile_rows are
+// multiples of the panel (8 np).
+template <typename T>
+int launch_passes(const void* x, void* tmp, void* y, const void* tables,
+                  long long batch, int n1, int n2, int tile_cols,
+                  int tile_rows, int mg, int np, int inverse, void* stream) {
+  if (!valid_split(n1, n2, mg, np, batch) || tile_cols < 1 || tile_rows < 1 ||
+      tile_cols % (8 * np) != 0 || tile_rows % (8 * np) != 0)
+    return cudaErrorInvalidValue;
+  const T out_scale = inverse ? T(1) / static_cast<T>(n1 * n2) : T(1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_mg_np(mg, np, [&](auto MG, auto NP) {
+    return launch_passes_mg<T, decltype(MG)::value, decltype(NP)::value>(
+        x, tmp, y, tables, batch, n1, n2, tile_cols, tile_rows, out_scale, s);
+  });
 }
 
 }  // namespace
@@ -279,4 +467,22 @@ extern "C" int fft4step_f64(const void* x, void* y, const void* tables,
                             int mg, int np, int inverse, void* stream) {
   return launch<double>(x, y, tables, batch, n1, n2, tile_b, mg, np, inverse,
                         stream);
+}
+
+extern "C" int fft4step_passes_f32(const void* x, void* tmp, void* y,
+                                   const void* tables, long long batch,
+                                   int n1, int n2, int tile_cols,
+                                   int tile_rows, int mg, int np, int inverse,
+                                   void* stream) {
+  return launch_passes<float>(x, tmp, y, tables, batch, n1, n2, tile_cols,
+                              tile_rows, mg, np, inverse, stream);
+}
+
+extern "C" int fft4step_passes_f64(const void* x, void* tmp, void* y,
+                                   const void* tables, long long batch,
+                                   int n1, int n2, int tile_cols,
+                                   int tile_rows, int mg, int np, int inverse,
+                                   void* stream) {
+  return launch_passes<double>(x, tmp, y, tables, batch, n1, n2, tile_cols,
+                               tile_rows, mg, np, inverse, stream);
 }

@@ -51,7 +51,6 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 #include "stockham_stages.cuh"  // Cx, mul, Butterfly
@@ -68,9 +67,6 @@ __host__ __device__ constexpr int block_threads(int n) {
 
 constexpr int kMaxN = 16384;
 constexpr int kMaxStages = 16;
-constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
-constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
-constexpr int kMaxDevices = 64;
 
 struct Schedule {
   int n_stages;
@@ -258,20 +254,8 @@ int launch(const float* x, float* y, const C32* hf, const C32* tw,
            int tile_b, bool vec, const Schedule& sch, size_t smem,
            cudaStream_t stream) {
   auto kern = fftconv_kernel<kThreads>;
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    // the opt-in is a per-device attribute of this instantiation: set it on
-    // the first large launch on each device only
-    static std::atomic<bool> opted_in[kMaxDevices];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return err;
-      if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
-    }
-  }
+  const cudaError_t err = opt_in<fftconv_kernel<kThreads>>(smem);
+  if (err != cudaSuccess) return err;
   const long long blocks =
       static_cast<long long>(channels) * ((batch + tile_b - 1) / tile_b);
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(

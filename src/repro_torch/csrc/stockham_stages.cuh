@@ -1,11 +1,13 @@
 // Stage routine shared by the port's FFT kernels for Hopper (sm_90a):
-// interleaved complex values, the radix-2/3/4/5/7/8 butterflies, and one
-// Stockham stage over a tile of rows (run_stage).
+// interleaved complex values, the radix-2/3/4/5/7/8 butterflies, one
+// Stockham stage over a tile of rows (run_stage), and the launches' opt-in
+// to more than 48 KB of shared memory a block (opt_in).
 //
 // Included by stockham.cu (the fused 1-D kernel), fft2.cu (the fused
 // rank-2 kernel: its row stages and, with cols = n2, its column stages),
 // fftconv.cu (Cx, the butterflies: its own power-of-two stage routine),
-// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, cfma).
+// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, cfma, mul,
+// the butterflies); every kernel's launch uses opt_in.
 // Everything here lives in an anonymous namespace: each kernel library is
 // its own translation unit.
 
@@ -13,7 +15,32 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
+
+constexpr int kMaxSmem = 232448;        // Hopper: 227 KB per block
+constexpr int kDefaultSmem = 48 * 1024; // above this, opt in per kernel
+constexpr int kMaxDevices = 64;
+
+// Above 48 KB of dynamic shared memory a kernel must opt in; the opt-in is
+// a per-device attribute of each instantiation: set it on the first large
+// launch on each device only.
+template <auto Kern>
+cudaError_t opt_in(size_t smem) {
+  if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
 
 template <typename T>
 struct alignas(2 * sizeof(T)) Cx {

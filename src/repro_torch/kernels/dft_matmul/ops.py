@@ -1,10 +1,13 @@
-"""Public wrapper of the batched direct DFT kernel: the DFT table (host
-float64, cast once to the plane dtype), tile choice, launch,
+"""Public wrapper of the batched DFT kernel: the plan's table (host
+float64, cast once to the plane dtype), the body and its launch geometry,
 normalization.
 
 ``dft`` launches the CUDA kernel (``repro_torch/csrc/dft.cu``) for a
-tensor on the card and takes the plain version (``ref.apply_dft``) only
-for a tensor on the CPU.  ``LAUNCHES`` counts kernel launches.
+tensor on the card: for a 7-smooth n its FFT body (two passes of FFTs in
+registers over the table of n roots), for any other n its direct product
+(the n x n table).  It takes the plain version (``ref.apply_fft`` or
+``ref.apply_dft``) only for a tensor on the CPU.  ``LAUNCHES`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
-from ...fft.reference import dft_matrix
+from ...fft.reference import dft_matrix, unit_roots
 from ..stockham_pallas.ops import SMEM_LIMIT_BYTES
-from .dft_matmul import MAX_N, fill_rows, smem_bytes
-from .ref import apply_dft
+from ..stockham_pallas.stockham_pallas import smooth7
+from .dft_matmul import (FFT_WARPS, MAX_N, fft_geometry, fft_smem_bytes,
+                         fft_split, fft_tile_b, fill_rows, smem_bytes)
+from .ref import apply_dft, apply_fft
 
 _CDTYPES = (torch.complex64, torch.complex128)
 
@@ -39,12 +44,19 @@ def check_length(n: int) -> None:
 
 @dataclass(frozen=True)
 class Matrix:
-    """A plan's device state: the n x n DFT table.  ``inverse`` is None
-    when every entry is real (n <= 2: both directions are the same)."""
+    """A plan's device state.  For a 7-smooth n (the FFT body) the n
+    forward roots W_n^e, e < n: one table serves both directions (the
+    inverse conjugates), so ``inverse`` is None.  For any other n (the
+    direct product) the n x n DFT table of its direction."""
 
     n: int
     w: torch.Tensor
     inverse: bool | None
+
+    @property
+    def fft(self) -> bool:
+        """Does the plan run the FFT body (a table of roots)?"""
+        return self.w.dim() == 1
 
     @property
     def nbytes(self) -> int:
@@ -56,20 +68,33 @@ def make_matrix(n: int, inverse: bool, dtype: torch.dtype,
     """Build the plan for length ``n`` on ``device``: the table in float64
     on the host, cast once to ``dtype`` and uploaded."""
     check_length(n)
-    return Matrix(n, dft_matrix(n, inverse, dtype, device=device),
-                  None if n <= 2 else inverse)
+    if smooth7(n):
+        return Matrix(n, unit_roots(n, n, False, dtype, device=device), None)
+    return Matrix(n, dft_matrix(n, inverse, dtype, device=device), inverse)
 
 
 def default_tile_b(n: int, rows: int, itemsize: int) -> int:
-    """Rows per block: as many as give every thread a register tile, within
-    the shared-memory limit, never more than the batch."""
+    """Rows per block: for the FFT body, its warps' default rows; for the
+    direct product, as many as give every thread a register tile within
+    the shared-memory limit; never more than the batch."""
+    if smooth7(n):
+        return max(1, min(rows, fft_tile_b(n, itemsize)))
     fit = SMEM_LIMIT_BYTES // smem_bytes(n, 1, itemsize)
     return max(1, min(rows, fill_rows(n), fit))
 
 
+def plain(x: torch.Tensor, matrix: Matrix, inverse: bool) -> torch.Tensor:
+    """The kernel's arithmetic under ``matrix`` in plain torch, on any
+    device, normalized as ``dft`` (the inverse applies 1/n)."""
+    if matrix.fft:
+        return apply_fft(x, matrix.w, *fft_split(matrix.n), inverse)
+    y = apply_dft(x, matrix.w)
+    return y / matrix.n if inverse else y
+
+
 def dft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
         matrix: Matrix | None = None) -> torch.Tensor:
-    """Direct DFT along the last axis, n <= 128.
+    """DFT along the last axis, n <= 128.
 
     Numpy semantics (forward unnormalized, the inverse applies 1/n); any
     batch shape.  Real input is cast to complex64 at any width, as the
@@ -87,14 +112,14 @@ def dft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
         matrix = make_matrix(n, inverse, x.dtype, x.device)
     elif (matrix.n != n or matrix.w.dtype != x.dtype
           or matrix.w.device != x.device
-          or matrix.inverse not in (None, inverse)):
+          or matrix.inverse not in (None, inverse)
+          or matrix.fft != smooth7(n)):
         raise ValueError("table does not match this call: plan "
                          f"n={matrix.n} {matrix.w.dtype} on {matrix.w.device} "
                          f"inverse={matrix.inverse}; call n={n} {x.dtype} on "
                          f"{x.device} inverse={inverse}")
     if x.device.type == "cpu":
-        y = apply_dft(x, matrix.w)
-        return y / n if inverse else y
+        return plain(x, matrix, inverse)
     if x.device.type != "cuda":
         raise ValueError(f"dft runs on cuda or cpu, got {x.device}")
     if not x.is_contiguous():
@@ -104,14 +129,21 @@ def dft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
 
 
 @functools.cache
-def _kernel(dtype: torch.dtype):
-    """The library's entry point for ``dtype``, its signature set once."""
+def _kernel(dtype: torch.dtype, fft: bool):
+    """The library's entry point for ``dtype`` and body, its signature set
+    once."""
     lib = _build.library("dft")
-    fn = lib.dft_f64 if dtype == torch.complex128 else lib.dft_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    c = ctypes
+    if fft:
+        fn = lib.dft_fft_f64 if dtype == torch.complex128 else lib.dft_fft_f32
+        fn.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p, c.c_longlong,
+                       c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+                       c.c_int, c.c_int, c.c_void_p]
+    else:
+        fn = lib.dft_f64 if dtype == torch.complex128 else lib.dft_f32
+        fn.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p, c.c_longlong,
+                       c.c_int, c.c_int, c.c_int, c.c_void_p]
+    fn.restype = c.c_int
     return fn
 
 
@@ -126,15 +158,26 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
     itemsize = x.element_size()
     tile = tile_b if tile_b is not None else default_tile_b(n, rows, itemsize)
     tile = min(tile, rows)
-    if tile < 1 or smem_bytes(n, tile, itemsize) > SMEM_LIMIT_BYTES:
+    if not matrix.fft:
+        need = smem_bytes(n, tile, itemsize)
+    elif tile > 32 * FFT_WARPS:     # more than 32 rows a warp
+        need = SMEM_LIMIT_BYTES + 1
+    else:
+        need = fft_smem_bytes(n, tile, itemsize)
+    if tile < 1 or need > SMEM_LIMIT_BYTES:
         raise ValueError(f"tile_b={tile_b} does not fit one block for n={n} "
                          f"{x.dtype} (shared memory limit "
                          f"{SMEM_LIMIT_BYTES} bytes)")
-    fn = _kernel(x.dtype)
+    fn = _kernel(x.dtype, matrix.fft)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), matrix.w.data_ptr(), rows, n,
-                 tile, int(inverse), stream)
+        if matrix.fft:
+            n1, n2, rpw, pitch, rs = fft_geometry(n, tile, itemsize)
+            err = fn(x.data_ptr(), y.data_ptr(), matrix.w.data_ptr(), rows, n,
+                     n1, n2, tile, rpw, pitch, rs, int(inverse), stream)
+        else:
+            err = fn(x.data_ptr(), y.data_ptr(), matrix.w.data_ptr(), rows, n,
+                     tile, int(inverse), stream)
     if err != 0:
         raise RuntimeError(f"dft kernel launch failed: cudaError_t {err} "
                            f"(n={n}, rows={rows}, tile_b={tile}, {x.dtype})")

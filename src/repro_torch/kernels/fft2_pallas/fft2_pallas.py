@@ -7,7 +7,8 @@ runs the n2 (row) Stockham stages with the 1-D kernel's stage routine
 (``csrc/stockham_stages.cuh``), then the n1 (column) stages with the same
 routine on elements n2 apart (so no transpose pass), and writes the
 result once in natural order, the inverse's 1/(n1*n2) folded into the last
-store.  One launch reads the signal once and writes it once.
+store.  One launch reads the signal once and writes it once.  A tile
+that one block does not hold runs as passes (``ops.Passes2``).
 
 This module keeps the launch's host side: the per-axis schedules (the
 reference's, from ``stockham_pallas.radix_schedule``) and the shared-memory

@@ -10,11 +10,14 @@ spectrum.  The two products run on the tensor cores through ``mma.sync``
 into a TF32 high part and remainder, three products summed in fp32, which
 keeps the suite's accuracy bar that plain TF32 breaks), fp64 for
 complex128.  Each signal lives in one shared-memory plane, computed in
-place; W1, W2 and T come from small root tables.
+place; W1, W2 and T come from small root tables.  A complex128 signal
+whose plane one block does not hold (13824, 16384) runs as two launches:
+the column products times T into a scratch signal, then the row
+products, each block holding a tile of columns or rows.
 
 This module keeps the launch's host side: the factor choice (the
-reference's, exactly), the warp groups, and the shared-memory size of one
-block.
+reference's, exactly), the warp groups, the two-launch tiles, and the
+shared-memory size of one block.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ import torch
 from .. import _build
 from ...fft.reference import dft_matrix, twiddles as twiddle_grid, unit_roots
 from ..stockham_pallas.ops import SMEM_LIMIT_BYTES, direction_of
-from .fft4step import (TWIDDLE_ROOTS, WARPS, choose_factors, column_items,
-                       m_group, n_tiles, smem_bytes)
+from .fft4step import (MAX_FACTOR, TWIDDLE_ROOTS, WARPS, choose_factors,
+                       column_items, m_group, n_tiles, plane_pitch,
+                       smem_bytes)
 from .ref import apply_fourstep
 
 _CDTYPES = (torch.complex64, torch.complex128)
@@ -32,38 +33,52 @@ LAUNCHES = 0
 LAUNCH_SHAPES: Counter = Counter()
 
 
-def _fits(n: int, itemsize: int) -> bool:
-    try:
-        n1, n2 = choose_factors(n)
-    except ValueError:
-        return False
+def one_block(n1: int, n2: int, itemsize: int) -> bool:
+    """Does one block hold a signal of the split n1 x n2 (its padded plane
+    and the root tables)?  Else the kernel runs two launches."""
     return smem_bytes(n1, n2, 1, itemsize) <= SMEM_LIMIT_BYTES
 
 
-def _largest_fitting(itemsize: int) -> int:
-    return next(n for n in range(128 * 128, 0, -1) if _fits(n, itemsize))
+def pass_tiles(n1: int, n2: int, itemsize: int) -> tuple[int, int]:
+    """The two-launch form's tiles: adjacent columns of X per block of the
+    column launch and adjacent rows of C per block of the row launch, each
+    a power-of-two count of panels (8 ``n_tiles`` wide) whose plane and
+    root tables fit half a block's shared memory (two blocks an SM), no
+    more than the side needs."""
+    panel = 8 * n_tiles(n1, n2)
+    budget = SMEM_LIMIT_BYTES // 2 - smem_bytes(n1, n2, 0, itemsize)
+
+    def tile(side: int, plane) -> int:
+        t = panel
+        while t < side and plane(2 * t) * itemsize <= budget:
+            t *= 2
+        return t
+
+    return (tile(n2, lambda t: n1 * plane_pitch(t)),
+            tile(n1, lambda t: t * plane_pitch(n2)))
 
 
-#: Longest signal one block holds (tile_b = 1: one padded plane and the
-#: root tables in shared memory): 16384 = 128*128 for complex64, the
-#: reference's cap, and 13920 = 120*116 for complex128.  Shorter lengths
-#: are checked one by one (``feasible``): in complex128 some factorable n
-#: below the cap, such as 13824 = 128*108, do not fit.
-MAX_N = {torch.complex64: _largest_fitting(8),
-         torch.complex128: _largest_fitting(16)}
+#: Longest signal the kernel takes: 16384 = 128*128 in both dtypes, the
+#: reference's (n1, n2 <= 128).  One block holds every split in complex64;
+#: in complex128 a split whose plane does not fit (n > 13920, or 13824 =
+#: 128*108) runs as two launches through a scratch signal.
+MAX_N = {torch.complex64: MAX_FACTOR * MAX_FACTOR,
+         torch.complex128: MAX_FACTOR * MAX_FACTOR}
 
 
 def feasible(n: int, dtype: torch.dtype) -> bool:
-    """Does the kernel take a signal of length ``n`` in ``dtype``?"""
-    return _fits(n, 16 if dtype == torch.complex128 else 8)
+    """Does the kernel take a signal of length ``n`` in ``dtype``?  Every
+    n = n1*n2 with n1, n2 <= 128, as the reference's rule."""
+    try:
+        choose_factors(n)
+    except ValueError:
+        return False
+    return True
 
 
 def check_length(n: int, dtype: torch.dtype) -> None:
     """Raise ``ValueError`` for a length the kernel cannot take."""
     choose_factors(n)
-    if not feasible(n, dtype):
-        raise ValueError(f"fourstep_pallas caps at n={MAX_N[dtype]} for "
-                         f"{dtype} (Hopper shared memory per block); got {n}")
 
 
 @dataclass(frozen=True)
@@ -148,11 +163,13 @@ def fft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
         twiddles: Tables | None = None) -> torch.Tensor:
     """Four-step FFT along the last axis.
 
-    Any n = n1*n2 with both factors <= 128 that fits one block
-    (``MAX_N[dtype]``); numpy semantics (the inverse applies 1/n),
-    natural-order output.  Real input is cast to complex64.  ``tile_b`` is
-    the tunable knob; ``twiddles`` is a prebuilt plan (``make_tables``)
-    that must match the call's length, dtype, device and direction.
+    Any n = n1*n2 with both factors <= 128 (``MAX_N[dtype]``): one launch
+    where a signal's plane fits one block, two (``one_block``) where it
+    does not; numpy semantics (the inverse applies 1/n), natural-order
+    output.  Real input is cast to complex64.  ``tile_b`` (signals per
+    block, one-launch splits only) is the tunable knob; ``twiddles`` is a
+    prebuilt plan (``make_tables``) that must match the call's length,
+    dtype, device and direction.
     """
     if not x.is_complex():
         x = x.to(torch.complex64)
@@ -197,6 +214,43 @@ def _kernel(dtype: torch.dtype):
     return fn
 
 
+@functools.cache
+def _passes_kernel(dtype: torch.dtype):
+    """The library's two-launch entry for ``dtype``, its signature set
+    once."""
+    lib = _build.library("fft4step")
+    fn = lib.fft4step_passes_f64 if dtype == torch.complex128 \
+        else lib.fft4step_passes_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run_passes(x: torch.Tensor, y: torch.Tensor, tables: Tables,
+                inverse: bool) -> int:
+    """The two launches (column products times T into a scratch signal,
+    then the row products into ``y``); returns 2.  Counts nothing."""
+    n1, n2 = tables.n1, tables.n2
+    rows = x.numel() // (n1 * n2)
+    itemsize = x.element_size()
+    tile_cols, tile_rows = pass_tiles(n1, n2, itemsize)
+    tmp = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _passes_kernel(x.dtype)(
+            x.data_ptr(), tmp.data_ptr(), y.data_ptr(),
+            tables.roots.data_ptr(), rows, n1, n2, tile_cols, tile_rows,
+            m_group(n1, n2, itemsize), n_tiles(n1, n2), int(inverse), stream)
+    if err != 0:
+        raise RuntimeError(f"fft4step passes failed: cudaError_t {err} "
+                           f"(n={n1 * n2}, rows={rows}, tiles {tile_cols}/"
+                           f"{tile_rows}, {x.dtype})")
+    return 2
+
+
 def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
             tables: Tables) -> torch.Tensor:
     global LAUNCHES
@@ -207,6 +261,16 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
     if rows == 0:
         return y
     itemsize = x.element_size()
+    key = (n, rows, str(x.dtype).removeprefix("torch."))
+    if not one_block(n1, n2, itemsize):
+        if tile_b is not None:
+            raise ValueError(f"tile_b={tile_b} does not fit one block for "
+                             f"n={n} {x.dtype}: the split runs as two "
+                             "launches, which take no batch tile")
+        launched = _run_passes(x, y, tables, inverse)
+        LAUNCHES += launched
+        LAUNCH_SHAPES[key] += launched
+        return y
     tile = tile_b if tile_b is not None else default_tile_b(n1, n2, rows,
                                                             itemsize)
     tile = min(tile, rows)
@@ -224,5 +288,5 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
         raise RuntimeError(f"fft4step kernel launch failed: cudaError_t {err} "
                            f"(n={n}, rows={rows}, tile_b={tile}, {x.dtype})")
     LAUNCHES += 1
-    LAUNCH_SHAPES[(n, rows, str(x.dtype).removeprefix("torch."))] += 1
+    LAUNCH_SHAPES[key] += 1
     return y

@@ -2,14 +2,18 @@
 (host float64), shared-memory sizing, launch, normalization.
 
 ``fft`` launches the CUDA kernel (``repro_torch/csrc/stockham.cu``) for a
-tensor on the card and takes the plain version (``ref.apply_stages``) only
-for a tensor on the CPU.  ``LAUNCHES`` counts kernel launches.
+tensor on the card and takes the plain version (``ref.apply_stages``, or
+``ref.apply_two_pass`` over the one-block cap) only for a tensor on the
+CPU.  An axis that one block holds runs in one launch; a longer one, up
+to the reference's 2^20, in two column passes through global memory
+(``TwoPass``).  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from collections import Counter
 from dataclasses import dataclass
 
@@ -17,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .ref import apply_stages
+from .ref import apply_stages, apply_two_pass
 from .stockham_pallas import radix_schedule, smooth7
 
 #: Shared memory one block may use on Hopper (227 KB).
@@ -49,11 +53,22 @@ def _largest_fitting(itemsize: int) -> int:
     return n
 
 
-#: Longest axis one block can hold (tile_b = 1, two buffers in shared
+#: Longest axis one block holds (tile_b = 1, two buffers in shared
 #: memory): 14406 = 2*3*7^4 for complex64, 7203 = 3*7^4 for complex128.
-#: Longer axes belong to the six-step path, not to this kernel.
-MAX_N = {torch.complex64: _largest_fitting(8),
-         torch.complex128: _largest_fitting(16)}
+#: Longer axes run as two passes (``TwoPass``); this cap is internal.
+ONE_BLOCK_N = {torch.complex64: _largest_fitting(8),
+               torch.complex128: _largest_fitting(16)}
+
+#: Longest axis the kernel takes: the reference's 2^20, in both dtypes.
+MAX_N = {torch.complex64: 1 << 20, torch.complex128: 1 << 20}
+
+#: Shared memory of one column-pass block: half a block's limit, so two
+#: blocks share an SM.
+COLUMN_SMEM_BYTES = SMEM_LIMIT_BYTES // 2
+
+#: Entries of the low root table of the two-pass twiddle: W_n^e is
+#: hi[e >> 10] * lo[e & 1023] (``kRootLo`` in the kernel).
+ROOT_LO = 1024
 
 
 def check_length(n: int, dtype: torch.dtype) -> None:
@@ -63,7 +78,44 @@ def check_length(n: int, dtype: torch.dtype) -> None:
                          f"(2^a*3^b*5^c*7^d) length, got {n}")
     if n > MAX_N[dtype]:
         raise ValueError(f"stockham_pallas caps at n={MAX_N[dtype]} for "
-                         f"{dtype} (Hopper shared memory per block); got {n}")
+                         f"{dtype}, as the reference does; got {n}")
+
+
+def choose_split(n: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The two-pass split n = n1*n2 of an axis: the most balanced one
+    with n1 <= n2 and n2 within the one-block cap (both factors are
+    7-smooth when n is)."""
+    cap = ONE_BLOCK_N[dtype]
+    n1 = next((d for d in range(math.isqrt(n), 1, -1)
+               if n % d == 0 and n // d <= cap), None)
+    if n1 is None:
+        raise ValueError(f"n={n} has no split n1*n2 with both factors "
+                         f"within the one-block cap {cap} for {dtype}")
+    return n1, n // n1
+
+
+def column_tile(length: int, width: int, itemsize: int) -> int:
+    """Adjacent columns one column-pass block holds (a power of two up to
+    16, no more than the width needs): as many as fit two buffers of
+    ``length`` points in ``COLUMN_SMEM_BYTES``, at least one."""
+    cols = 1
+    while cols < min(16, width):
+        cols *= 2
+    while cols > 1 and 2 * length * cols * itemsize > COLUMN_SMEM_BYTES:
+        cols //= 2
+    return cols
+
+
+def pass_roots(n: int, inverse: bool, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """The two-pass twiddle's root tables for W_n^e, e < n: W_n^b for
+    b < ``ROOT_LO``, then W_n^(ROOT_LO*a) for a < ceil(n / ROOT_LO); built
+    in float64 with exact integer reduction, cast once to ``dtype``."""
+    sign = 2.0 if inverse else -2.0
+    e = np.concatenate([np.arange(ROOT_LO) % n,
+                        (ROOT_LO * np.arange(-(-n // ROOT_LO))) % n])
+    w = np.exp(1j * (sign * np.pi / n) * e.astype(np.float64))
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
 
 
 def pack_twiddles(n: int, radices: tuple[int, ...], inverse: bool,
@@ -162,15 +214,76 @@ def _from_planes(twr: np.ndarray, twi: np.ndarray,
                     direction_of(twi[0, :length]))
 
 
-def make_twiddles(n: int, radix: int, inverse: bool, dtype: torch.dtype,
-                  device) -> Twiddles:
-    """Build the plan for length ``n`` on ``device``: schedule, twiddles in
-    float64 on the host, cast once to ``dtype``'s precision and uploaded."""
-    check_length(n, dtype)
+@dataclass(frozen=True)
+class TwoPass:
+    """A plan for an axis over the one-block cap: the split n = n1*n2,
+    the one-block schedule and twiddles of each pass (``first``: the
+    n1-point column FFTs, ``second``: the n2-point ones) and the pass
+    twiddle's root tables (``pass_roots``)."""
+
+    n: int
+    n1: int
+    n2: int
+    first: Twiddles
+    second: Twiddles
+    roots: torch.Tensor
+    inverse: bool
+
+    @property
+    def nbytes(self) -> int:
+        return (self.first.nbytes + self.second.nbytes
+                + self.roots.numel() * self.roots.element_size())
+
+
+def _one_block(n: int, radix: int, inverse: bool, dtype: torch.dtype,
+               device) -> Twiddles:
     radices = radix_schedule(n, radix)
     real = np.float64 if dtype == torch.complex128 else np.float32
     return _from_planes(*pack_twiddles(n, radices, inverse, real), dtype,
                         device)
+
+
+def make_twiddles(n: int, radix: int, inverse: bool, dtype: torch.dtype,
+                  device, split: tuple[int, int] | None = None
+                  ) -> Twiddles | TwoPass:
+    """Build the plan for length ``n`` on ``device``: schedules, twiddles
+    in float64 on the host, cast once to ``dtype``'s precision and
+    uploaded.  One block's plan up to ``ONE_BLOCK_N``, else a ``TwoPass``
+    over ``choose_split``; ``split`` forces two passes over that split."""
+    check_length(n, dtype)
+    if split is None and n <= ONE_BLOCK_N[dtype]:
+        return _one_block(n, radix, inverse, dtype, device)
+    n1, n2 = split or choose_split(n, dtype)
+    if n1 * n2 != n or min(n1, n2) < 2 or max(n1, n2) > ONE_BLOCK_N[dtype]:
+        raise ValueError(f"split {n1}x{n2} is not a two-pass split of "
+                         f"n={n} for {dtype}")
+    return TwoPass(n, n1, n2, _one_block(n1, radix, inverse, dtype, device),
+                   _one_block(n2, radix, inverse, dtype, device),
+                   pass_roots(n, inverse, dtype, device), inverse)
+
+
+def _describe(plan: Twiddles | TwoPass) -> str:
+    if isinstance(plan, TwoPass):
+        return (f"n={plan.n} split {plan.n1}x{plan.n2} radices="
+                f"{plan.first.radices}/{plan.second.radices} "
+                f"{plan.roots.dtype} on {plan.roots.device} "
+                f"inverse={plan.inverse}")
+    return (f"n={plan.n} radices={plan.radices} {plan.tw.dtype} on "
+            f"{plan.tw.device} inverse={plan.inverse}")
+
+
+def _matches(plan: Twiddles | TwoPass, n: int, radix: int, inverse: bool,
+             dtype: torch.dtype, device) -> bool:
+    if isinstance(plan, TwoPass):
+        return (plan.n == n and plan.inverse == inverse
+                and plan.first.radices == radix_schedule(plan.n1, radix)
+                and plan.second.radices == radix_schedule(plan.n2, radix)
+                and plan.roots.dtype == dtype
+                and plan.roots.device == device)
+    return (plan.n == n and n <= ONE_BLOCK_N[dtype]
+            and plan.radices == radix_schedule(n, radix)
+            and plan.tw.dtype == dtype and plan.tw.device == device
+            and plan.inverse in (None, inverse))
 
 
 def twiddles_from_reference(twr: np.ndarray, twi: np.ndarray,
@@ -193,11 +306,13 @@ def fft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
         radix: int = 8, twiddles: Twiddles | None = None) -> torch.Tensor:
     """Fused Stockham FFT along the last axis.
 
-    7-smooth lengths up to ``MAX_N[dtype]``; numpy semantics (the inverse
-    applies 1/n).  Real input is cast to complex64.  ``tile_b`` and
-    ``radix`` are the tunable knobs; ``twiddles`` is a prebuilt plan
-    (``make_twiddles``) that must match the call's length, schedule,
-    dtype, device and direction.
+    7-smooth lengths up to ``MAX_N[dtype]`` (2^20): one launch up to
+    ``ONE_BLOCK_N[dtype]``, two column passes above it; numpy semantics
+    (the inverse applies 1/n).  Real input is cast to complex64.
+    ``tile_b`` (rows per block, one-block lengths only) and ``radix`` are
+    the tunable knobs; ``twiddles`` is a prebuilt plan (``make_twiddles``)
+    that must match the call's length, schedule, dtype, device and
+    direction.
     """
     if not x.is_complex():
         x = x.to(torch.complex64)
@@ -209,18 +324,12 @@ def fft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
         return x   # length-1 DFT is the identity (1/n factor is 1 too)
     if twiddles is None:
         twiddles = make_twiddles(n, radix, inverse, x.dtype, x.device)
-    elif (twiddles.n != n or twiddles.radices != radix_schedule(n, radix)
-          or twiddles.tw.dtype != x.dtype or twiddles.tw.device != x.device
-          or twiddles.inverse not in (None, inverse)):
-        raise ValueError("twiddles do not match this call: plan "
-                         f"n={twiddles.n} radices={twiddles.radices} "
-                         f"{twiddles.tw.dtype} on {twiddles.tw.device} "
-                         f"inverse={twiddles.inverse}; call n={n} "
-                         f"radix={radix} {x.dtype} on {x.device} "
-                         f"inverse={inverse}")
+    elif not _matches(twiddles, n, radix, inverse, x.dtype, x.device):
+        raise ValueError(f"twiddles do not match this call: plan "
+                         f"{_describe(twiddles)}; call n={n} radix={radix} "
+                         f"{x.dtype} on {x.device} inverse={inverse}")
     if x.device.type == "cpu":
-        y = apply_stages(x, twiddles.tw, twiddles.radices, twiddles.bases,
-                         inverse)
+        y = plain(x, twiddles, inverse)
         return y / n if inverse else y
     if x.device.type != "cuda":
         raise ValueError(f"stockham_pallas runs on cuda or cpu, got {x.device}")
@@ -245,18 +354,83 @@ def _kernel(dtype: torch.dtype):
 
 
 @functools.cache
+def _columns_kernel(dtype: torch.dtype):
+    """The library's column-pass entry for ``dtype``, its signature set
+    once."""
+    lib = _build.library("stockham")
+    fn = lib.stockham_columns_f64 if dtype == torch.complex128 \
+        else lib.stockham_columns_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_double,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _c_ints(values: tuple[int, ...]):
     return (ctypes.c_int * len(values))(*values)
 
 
-def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
-            twiddles: Twiddles) -> torch.Tensor:
-    global LAUNCHES
+def column_pass(src: torch.Tensor, dst: torch.Tensor, stages: Twiddles,
+                nsig: int, width: int, *, in_sig: int, in_k: int,
+                out_k: int, out_col: int, out_big: int, out_small: int = 0,
+                group: int = 1, roots: torch.Tensor | None = None,
+                tw_n: int = 0, tw_q: int = 1, inverse: bool = False,
+                scale: float = 1.0) -> None:
+    """Launch one column pass of ``csrc/stockham.cu``: for each of
+    ``nsig`` signals and ``width`` columns, the ``stages.n``-point FFT of
+    src[sig*in_sig + j*in_k + col], output k times W_tw_n^(k*(col//tw_q))
+    (``roots`` from ``pass_roots``; none when tw_n is 0) and ``scale``,
+    stored at dst[(sig//group)*out_big + (sig%group)*out_small + k*out_k
+    + col*out_col].  Counts nothing: the caller's wrapper counts its
+    launches.  Raises if the launch fails."""
+    length = stages.n
+    cols = column_tile(length, width, src.element_size())
+    prm = (ctypes.c_longlong * 13)(nsig, length, width, cols, in_sig, in_k,
+                                   group, out_big, out_small, out_k, out_col,
+                                   tw_n, tw_q)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = _columns_kernel(src.dtype)(
+            src.data_ptr(), dst.data_ptr(), stages.tw.data_ptr(),
+            roots.data_ptr() if roots is not None else None, prm,
+            int(inverse), len(stages.radices), _c_ints(stages.radices),
+            _c_ints(stages.bases), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"stockham column pass failed: cudaError_t {err} "
+                           f"(length={length}, width={width}, "
+                           f"signals={nsig}, cols={cols}, {src.dtype})")
+
+
+def run_two_pass(x: torch.Tensor, y: torch.Tensor, plan: TwoPass,
+                 inverse: bool) -> int:
+    """The two column passes of ``plan`` along the last axis of ``x`` into
+    ``y`` (both contiguous), through a scratch tensor; returns the number
+    of launches.  Counts nothing."""
+    n, n1, n2 = plan.n, plan.n1, plan.n2
+    rows = x.numel() // n
+    tmp = torch.empty_like(x)
+    # pass 1: column j2's n1-point FFT, times W_n^(j2*k1), to tmp[j2*n1 + k1]
+    column_pass(x, tmp, plan.first, rows, n2, in_sig=n, in_k=n2, out_k=1,
+                out_col=n1, out_big=n, roots=plan.roots, tw_n=n,
+                inverse=inverse)
+    # pass 2: column k1 of tmp, n2-point FFT, to y[k2*n1 + k1]
+    column_pass(tmp, y, plan.second, rows, n1, in_sig=n, in_k=n1, out_k=n1,
+                out_col=1, out_big=n, inverse=inverse,
+                scale=1.0 / n if inverse else 1.0)
+    return 2
+
+
+def run_one_block(x: torch.Tensor, y: torch.Tensor, twiddles: Twiddles,
+                  inverse: bool, tile_b: int | None) -> int:
+    """One launch of the one-block kernel along the last axis of ``x``
+    into ``y`` (both contiguous, at least one row); returns 1.  Counts
+    nothing."""
     n = x.shape[-1]
     rows = x.numel() // n
-    y = torch.empty_like(x)
-    if rows == 0:
-        return y
     itemsize = x.element_size()
     n_stages = len(twiddles.radices)
     tile = tile_b if tile_b is not None else default_tile_b(
@@ -276,6 +450,46 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
     if err != 0:
         raise RuntimeError(f"stockham kernel launch failed: cudaError_t {err} "
                            f"(n={n}, rows={rows}, tile_b={tile}, {x.dtype})")
-    LAUNCHES += 1
-    LAUNCH_SHAPES[(n, rows, str(x.dtype).removeprefix("torch."))] += 1
+    return 1
+
+
+def run_plan(x: torch.Tensor, y: torch.Tensor, plan: Twiddles | TwoPass,
+             inverse: bool, tile_b: int | None = None) -> int:
+    """The plan's launches along the last axis of ``x`` into ``y`` (both
+    contiguous, at least one row): one block's, or two column passes
+    (which take no batch tile); returns the number of launches.  Counts
+    nothing: the calling wrapper counts."""
+    if isinstance(plan, TwoPass):
+        if tile_b is not None:
+            raise ValueError(f"tile_b={tile_b} does not fit one block for "
+                             f"n={plan.n} {x.dtype}: the axis runs as two "
+                             "column passes, which take no batch tile")
+        return run_two_pass(x, y, plan, inverse)
+    return run_one_block(x, y, plan, inverse, tile_b)
+
+
+def plain(x: torch.Tensor, plan: Twiddles | TwoPass,
+          inverse: bool) -> torch.Tensor:
+    """The kernel's arithmetic under ``plan`` along the last axis of
+    complex ``x`` in plain torch, on any device; no 1/n scaling."""
+    if isinstance(plan, TwoPass):
+        t1, t2 = plan.first, plan.second
+        return apply_two_pass(x, plan.n1, plan.n2,
+                              (t1.tw, t1.radices, t1.bases),
+                              (t2.tw, t2.radices, t2.bases), plan.roots,
+                              inverse)
+    return apply_stages(x, plan.tw, plan.radices, plan.bases, inverse)
+
+
+def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
+            twiddles: Twiddles | TwoPass) -> torch.Tensor:
+    global LAUNCHES
+    n = x.shape[-1]
+    rows = x.numel() // n
+    y = torch.empty_like(x)
+    if rows == 0:
+        return y
+    launched = run_plan(x, y, twiddles, inverse, tile_b)
+    LAUNCHES += launched
+    LAUNCH_SHAPES[(n, rows, str(x.dtype).removeprefix("torch."))] += launched
     return y

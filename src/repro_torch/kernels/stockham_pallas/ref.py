@@ -3,6 +3,10 @@
 * :func:`apply_stages` repeats the kernel's arithmetic with the kernel's own
   packed twiddles, one stage per pass over memory.  ``ops.fft`` takes it for
   tensors that lie on the CPU.
+* :func:`apply_two_pass` repeats the two column passes of an axis over the
+  one-block cap (n = n1*n2): the n1-point column FFTs with the pass
+  twiddle W_n^(j2*k1) from the plan's root tables, then the n2-point ones,
+  stored in natural order.
 * :func:`stockham_ref` is the independent oracle: the same recursion with
   its twiddles computed here, as the reference package's ``ref.py`` does, so
   a kernel-vs-oracle comparison isolates the kernel, not the factorization.
@@ -53,6 +57,30 @@ def apply_stages(x: torch.Tensor, tw: torch.Tensor,
                    ).reshape(*lead, n)
         cur = m
     return x
+
+
+def pass_twiddle(roots: torch.Tensor, e: torch.Tensor,
+                 lo: int = 1024) -> torch.Tensor:
+    """W_n^e from the two-pass root tables (``ops.pass_roots``): hi[e //
+    lo] * lo[e % lo], in the tables' dtype, as the kernel forms it."""
+    return roots[lo + torch.div(e, lo, rounding_mode="floor")] * roots[e % lo]
+
+
+def apply_two_pass(x: torch.Tensor, n1: int, n2: int, first, second,
+                   roots: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The kernel's two passes along the last axis of complex ``x`` (length
+    n1*n2): the n1-point FFTs of the columns x[j1*n2 + j2], each output k1
+    times W_n^(j2*k1); then the n2-point FFTs over j2, output k2 of row k1
+    at y[k1 + n1*k2].  ``first`` and ``second`` are each pass's (packed
+    twiddles, radices, bases).  No 1/n scaling."""
+    lead = x.shape[:-1]
+    cols = x.reshape(*lead, n1, n2).transpose(-1, -2)        # (j2, j1)
+    a = apply_stages(cols, *first, inverse)                  # (j2, k1)
+    e = torch.outer(torch.arange(n2, device=x.device),
+                    torch.arange(n1, device=x.device))
+    a = a * pass_twiddle(roots, e)
+    b = apply_stages(a.transpose(-1, -2), *second, inverse)  # (k1, k2)
+    return b.transpose(-1, -2).reshape(*lead, n1 * n2)
 
 
 def stockham_ref(x: torch.Tensor, radix: int = 8,

@@ -9,8 +9,10 @@
   mode), within rel-L2 1e-5 in float and 1e-12 in double: the same
   algorithm and twiddles, only the summation order differs; the same for
   the four-step and fused rank-2 clients;
-* a problem over a kernel's Hopper cap, or of the wrong rank, is a failed
-  node, never a result of another backend;
+* a problem over a kernel's cap (the reference's), or of the wrong rank,
+  is a failed node, never a result of another backend; the feasibility
+  rules are the reference's, and the reference's ``backends`` table's
+  nodes that need the kernels' passes validate;
 * byte accounting, plan keys, the device rule and the import rule.
 """
 
@@ -214,36 +216,40 @@ def test_reference_plan_runs_the_same_schedule():
 
 
 def test_hopper_cap_in_feasibility_and_as_a_failed_node(cpu):
+    """The caps are the reference's in both precisions; one block's
+    shared memory only decides whether a kernel runs as passes."""
     assert axis_feasible("stockham_pallas", 4096, "float")
     assert axis_feasible("stockham_pallas", 14406, "float")
-    assert not axis_feasible("stockham_pallas", 16384, "float")
-    assert axis_feasible("stockham_pallas", 7203, "double")
-    assert not axis_feasible("stockham_pallas", 8192, "double")
+    assert axis_feasible("stockham_pallas", 16384, "float")      # two passes
+    assert axis_feasible("stockham_pallas", 8192, "double")      # two passes
+    assert axis_feasible("stockham_pallas", 1 << 20, "double")
+    assert not axis_feasible("stockham_pallas", 1 << 21, "float")
     assert not axis_feasible("stockham_pallas", 97, "float")
     assert axis_feasible("xla", 16384) and axis_feasible("xla", 97)
     # the fused rank-2 kernel has no per-axis form (as in the reference);
-    # whole problems are held to its Hopper cap, the packed tile for a
-    # real kind: 8192 points in complex64, 4096 in complex128
+    # whole problems are held to the reference's 2^18 points, passes over
+    # one block's 8192 (complex64) / 4096 (complex128)
     assert not axis_feasible("fft2_pallas", 64)
     assert fft2_feasible(Problem((64, 128), "Outplace_Complex", "float"))
-    assert not fft2_feasible(Problem((128, 128), "Outplace_Complex", "float"))
-    assert not fft2_feasible(Problem((64, 128), "Inplace_Complex", "double"))
-    assert fft2_feasible(Problem((128, 128), "Outplace_Real", "float"))
+    assert fft2_feasible(Problem((128, 128), "Outplace_Complex", "float"))
+    assert fft2_feasible(Problem((512, 512), "Inplace_Complex", "double"))
+    assert not fft2_feasible(Problem((1024, 512), "Outplace_Complex", "float"))
+    assert not fft2_feasible(Problem((1024, 512), "Outplace_Real", "float"))
     assert not fft2_feasible(Problem((4, 4, 8), "Outplace_Complex"))
     assert axis_feasible("fourstep_pallas", 16384, "float")
-    assert axis_feasible("fourstep_pallas", 13920, "double")
-    assert axis_feasible("fourstep_pallas", 8192, "double")
-    assert not axis_feasible("fourstep_pallas", 16384, "double")
+    assert axis_feasible("fourstep_pallas", 16384, "double")     # two launches
+    assert axis_feasible("fourstep_pallas", 13824, "double")     # two launches
+    assert not axis_feasible("fourstep_pallas", 32768, "float")
     assert not axis_feasible("fourstep_pallas", 131, "float")
     # real kinds: the packed inner axis runs at n/2, an odd one at n
     real = Problem((16, 28812), "Outplace_Real", "float")
     assert [axis_engine_n(real, i) for i in (0, 1)] == [16, 14406]
     assert axis_engine_n(Problem((945,), "Inplace_Real"), 0) == 945
-    big = Problem((16384,), "Outplace_Complex", "float")
+    big = Problem((1 << 21,), "Outplace_Complex", "float")
     spec = SuiteSpec(output=None, warmups=0, repetitions=1)
     rs = Session(cpu).run(spec, nodes=[BenchNode(TorchStockhamPallas, big)])
     (row,) = rs.failures()
-    assert row.op == "validate" and "caps at n=14406" in row.error
+    assert row.op == "validate" and "caps at n=1048576" in row.error
 
 
 def test_non_estimate_rigor_is_a_failed_node(cpu):
@@ -433,13 +439,13 @@ def test_new_clients_fail_what_their_kernels_cannot_take(cpu):
     cases = [
         (TorchFft2Pallas, Problem((4, 4, 8), "Outplace_Complex"),
          "rank-2 only, got rank 3"),
-        (TorchFft2Pallas, Problem((128, 128), "Outplace_Complex", "float"),
-         "caps at n1*n2=8192"),
-        (TorchFft2Pallas, Problem((64, 128), "Inplace_Complex", "double"),
-         "caps at n1*n2=4096"),
+        (TorchFft2Pallas, Problem((1024, 512), "Outplace_Complex", "float"),
+         "caps at n1*n2=262144"),
+        (TorchFft2Pallas, Problem((512, 1024), "Inplace_Complex", "double"),
+         "caps at n1*n2=262144"),
         (TorchFft2Pallas, Problem((8, 12), "Outplace_Real"), "power-of-two"),
-        (TorchFourStepPallas, Problem((16384,), "Outplace_Complex", "double"),
-         "caps at n=13920"),
+        (TorchFourStepPallas, Problem((32768,), "Outplace_Complex", "double"),
+         "factorization"),
         (TorchFourStepPallas, Problem((8, 131), "Outplace_Complex"),
          "factorization"),
     ]
@@ -453,20 +459,24 @@ def test_new_clients_fail_what_their_kernels_cannot_take(cpu):
                             extents=row.extents)
 
 
-@pytest.mark.parametrize("n,precision", [(16384, "float"), (8192, "double")])
+@pytest.mark.parametrize("n,precision", [(16384, "float"), (8192, "double"),
+                                         (16384, "double")])
 def test_fourstep_cap_agrees_with_reference(n, precision):
     """The four-step kernel takes the reference's longest lengths: n =
-    16384 in float and 8192 in double are feasible in both packages (the
-    reference's rule has no precision)."""
+    16384 in both precisions (two launches in double) and 8192 are
+    feasible in both packages (the reference's rule has no precision)."""
     assert axis_feasible("fourstep_pallas", n, precision)
     assert ref_candidates.axis_feasible("fourstep_pallas", n) \
         == axis_feasible("fourstep_pallas", n, precision)
 
 
 def test_support_rules_match_reference_below_the_caps():
-    """Where no cap binds, the port's support matrix is the reference's."""
+    """The port's support matrix is the reference's, below and at the
+    caps, which now agree (Stockham 2^20, the four-step kernel 128x128,
+    fft2 2^18 points) and over them."""
     exts = ((16,), (945,), (131,), (8, 12), (8, 16), (1, 8), (16, 1),
-            (4, 4, 8), (64, 32), (7, 9))
+            (4, 4, 8), (64, 32), (7, 9), (13824,), (16384,), (65536,),
+            (1 << 20,), (3 << 20,), (128, 128), (256, 256), (1024, 512))
     for ext in exts:
         for kind in KINDS:
             for precision in ("float", "double"):
@@ -477,6 +487,37 @@ def test_support_rules_match_reference_below_the_caps():
                     assert backend_supports(backend, port) == \
                         ref_candidates.backend_supports(backend, ref), \
                         (backend, ext, kind, precision)
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_feasibility_is_the_reference_at_the_caps(precision):
+    """axis_feasible and fft2_feasible against the reference's candidates
+    at and over the caps: one block's shared memory no longer refuses
+    anything the reference takes."""
+    for n in (16384, 65536, 1 << 20, 3 << 20, 13824, 14406, 7203, 32768):
+        for backend in ("stockham_pallas", "fourstep_pallas", "dft", "xla"):
+            assert axis_feasible(backend, n, precision) == \
+                ref_candidates.axis_feasible(backend, n), (backend, n)
+    for ext in ((128, 128), (256, 256), (1024, 512), (512, 512), (1, 1 << 18)):
+        for kind in KINDS:
+            assert fft2_feasible(Problem(ext, kind, precision)) == \
+                ref_candidates.fft2_feasible(RefProblem(ext, kind, precision)), \
+                (ext, kind)
+
+
+@pytest.mark.parametrize("client,extents", [
+    (TorchStockhamPallas, (65536,)), (TorchFft2Pallas, (256, 256))])
+def test_backends_table_nodes_validate(client, extents, cpu):
+    """The reference's ``backends`` table (benchmarks/table_backends.py)
+    runs 65536 Outplace_Real under StockhamPallas (packed n = 32768: two
+    passes) and 256x256 under Fft2Pallas (packed 256x128: passes); both
+    validate here, through the kernels' plain versions."""
+    spec = SuiteSpec(output=None, warmups=0, repetitions=1)
+    node = BenchNode(client, Problem(extents, "Outplace_Real", "float", 1))
+    rs = Session(cpu).run(spec, nodes=[node])
+    assert not rs.failures()
+    (val,) = rs.query(op="validate")
+    assert val.success
 
 
 def test_build_cache_keys_on_shared_headers(tmp_path, monkeypatch):

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.core.client import KINDS, Problem, TorchContext
-from repro_torch.core.clients.torch_fft import TorchPlanned
+from repro_torch.core.clients.torch_fft import (TorchFft2Pallas, TorchPlanned,
+                                                TorchStockhamPallas)
 from repro_torch.core.suite import Session, SuiteSpec
 from repro_torch.core.tree import BenchNode
 from repro_torch.kernels.dft_matmul import ops as dft_ops
@@ -49,10 +50,11 @@ def rel_l2(got, want) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_kernel_against_plain_and_library(cuda_device, dtype):
-    """Every length class, radix and direction, with a ragged last tile
-    (37 rows in tiles of 8), counting one launch per call."""
+    """Every length class up to the one-block cap, radix and direction,
+    with a ragged last tile (37 rows in tiles of 8), counting one launch
+    per call."""
     rng = np.random.default_rng(11)
-    for n in (2, 3, 12, 100, 945, 1024, 3072, ops.MAX_N[dtype]):
+    for n in (2, 3, 12, 100, 945, 1024, 3072, ops.ONE_BLOCK_N[dtype]):
         x = torch.from_numpy(rng.standard_normal((37, n)) +
                              1j * rng.standard_normal((37, n))).to(cuda_device, dtype)
         tile = 8 if ops.smem_bytes(n, 8, x.element_size(), 2) \
@@ -75,11 +77,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ops.fft(x.transpose(0, 1))
     with pytest.raises(ValueError, match="caps at"):
-        ops.fft(torch.zeros((1, 16384), dtype=torch.complex64,
+        ops.fft(torch.zeros((1, 1 << 21), dtype=torch.complex64,
                             device=cuda_device))
     with pytest.raises(ValueError, match="tile_b"):
         ops.fft(torch.zeros((4, 4096), dtype=torch.complex64,
                             device=cuda_device), tile_b=4)
+    with pytest.raises(ValueError, match="tile_b"):   # two passes: no tile
+        ops.fft(torch.zeros((4, 16384), dtype=torch.complex64,
+                            device=cuda_device), tile_b=1)
 
 
 @pytest.mark.cuda
@@ -142,20 +147,22 @@ def test_fft2_kernel_against_plain_and_library(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_fourstep_kernel_against_plain_and_library(cuda_device, dtype):
     """Square, ragged-split and radix357 lengths up to the cap (16384 in
-    complex64; in complex128 8192 and the cap), tile 1 and a ragged last
-    tile, both directions, one launch per call."""
+    both dtypes: two launches in complex128), tile 1 and a ragged last
+    tile where one block holds the signal, both directions, one launch per
+    call (two for the two-launch form)."""
     for n in (2, 4, 60, 100, 945, 1024, 3072, 4096, 8192,
               fs_ops.MAX_N[dtype]):
         x = _rand(37, (n,), dtype, cuda_device, n)
         n1, n2 = fs_ops.choose_factors(n)
         fits = lambda t: fs_ops.smem_bytes(n1, n2, t, x.element_size()) \
             <= fs_ops.SMEM_LIMIT_BYTES
-        for tile in _tiles(fits):
+        one = fs_ops.one_block(n1, n2, x.element_size())
+        for tile in (_tiles(fits) if one else (None,)):
             for inverse in (False, True):
                 before = fs_ops.LAUNCHES
                 y = fs_ops.fft(x, inverse, tile_b=tile)
                 torch.cuda.synchronize(cuda_device)
-                assert fs_ops.LAUNCHES == before + 1
+                assert fs_ops.LAUNCHES == before + (1 if one else 2)
                 plain = fs_ref.fft4step_ref(x, inverse)
                 lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
                 assert rel_l2(y, plain) <= PLAIN_TOL[dtype], (n, tile, inverse)
@@ -167,16 +174,16 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda_device):
     x = torch.zeros((4, 16, 16), dtype=torch.complex64, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         f2_ops.fft2(x.transpose(0, 1))
-    with pytest.raises(ValueError, match="caps at n1\\*n2=8192"):
-        f2_ops.fft2(torch.zeros((1, 128, 128), dtype=torch.complex64,
+    with pytest.raises(ValueError, match="caps at n1\\*n2=262144"):
+        f2_ops.fft2(torch.zeros((1, 1024, 512), dtype=torch.complex64,
                                 device=cuda_device))
     with pytest.raises(ValueError, match="tile_b"):
         f2_ops.fft2(torch.zeros((4, 64, 128), dtype=torch.complex64,
                                 device=cuda_device), tile_b=4)
     with pytest.raises(ValueError, match="contiguous"):
         fs_ops.fft(x[:, 0, :].transpose(0, 1))
-    with pytest.raises(ValueError, match="caps at n="):
-        fs_ops.fft(torch.zeros((1, 16384), dtype=torch.complex128,
+    with pytest.raises(ValueError, match="factorization"):
+        fs_ops.fft(torch.zeros((1, 32768), dtype=torch.complex128,
                                device=cuda_device))
     with pytest.raises(ValueError, match="tile_b"):
         fs_ops.fft(torch.zeros((8, 4096), dtype=torch.complex64,
@@ -198,22 +205,88 @@ def test_session_on_card_launches_the_new_kernels(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_dft_kernel_against_plain_and_library(cuda_device, dtype):
-    """Every length class up to the cap of 128, tile 1 and a ragged last
-    tile (37 rows in tiles of 8), both directions, one launch per call."""
-    for n in (1, 2, 3, 7, 8, 64, 100, 127, 128):
+    """Every length up to the cap of 128 (the FFT body on the 7-smooth
+    ones, the direct product on the rest), tile 1, a ragged last tile (37
+    rows in tiles of 8) and the default, both directions, one launch per
+    call; against the body's plain version and the direct product."""
+    for n in range(1, 129):
         x = _rand(37, (n,), dtype, cuda_device, n)
-        for tile in (1, 8):
-            for inverse in (False, True):
+        for inverse in (False, True):
+            m = dft_ops.make_matrix(n, inverse, dtype, cuda_device)
+            yr, yi = dft_ref.dft_ref(x.real.contiguous(),
+                                     x.imag.contiguous(), inverse)
+            direct = torch.complex(yr, yi) / (n if inverse else 1)
+            plain = dft_ops.plain(x, m, inverse)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+            for tile in (1, 8, None):
                 before = dft_ops.LAUNCHES
-                y = dft_ops.dft(x, inverse, tile_b=tile)
+                y = dft_ops.dft(x, inverse, tile_b=tile, matrix=m)
                 torch.cuda.synchronize(cuda_device)
                 assert dft_ops.LAUNCHES == before + 1
-                yr, yi = dft_ref.dft_ref(x.real.contiguous(),
-                                         x.imag.contiguous(), inverse)
-                plain = torch.complex(yr, yi) / (n if inverse else 1)
-                lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
-                assert rel_l2(y, plain) <= PLAIN_TOL[dtype], (n, tile, inverse)
-                assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, tile, inverse)
+                case = (n, tile, inverse)
+                assert rel_l2(y, plain) <= PLAIN_TOL[dtype], case
+                assert rel_l2(y, direct) <= PLAIN_TOL[dtype], case
+                assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_stockham_two_passes_on_card(cuda_device, dtype):
+    """Lengths over the one-block cap up to 2^20 (a power of two and
+    945 x 81 = 76545), both directions, two launches per call, against
+    the two-pass plain version and torch.fft."""
+    for n in (16384 if dtype == torch.complex64 else 8192, 76545, 1 << 20):
+        x = _rand(2, (n,), dtype, cuda_device, n)
+        for inverse in (False, True):
+            plan = ops.make_twiddles(n, 8, inverse, dtype, cuda_device)
+            assert isinstance(plan, ops.TwoPass)
+            before = ops.LAUNCHES
+            y = ops.fft(x, inverse, twiddles=plan)
+            torch.cuda.synchronize(cuda_device)
+            assert ops.LAUNCHES == before + 2
+            plain = ops.plain(x, plan, inverse) / (n if inverse else 1)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+            assert rel_l2(y, plain) <= PLAIN_TOL[dtype], (n, inverse)
+            assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_fft2_passes_on_card(cuda_device, dtype):
+    """Tiles over the one-block cap up to 2^18 points: square ones, long
+    rows and long columns (two passes on that axis), both directions."""
+    for n1, n2, launches in ((128, 128, 2), (256, 256, 2), (512, 512, 2),
+                             (16, 16384, 3), (32768, 8, 3)):
+        x = _rand(2, (n1, n2), dtype, cuda_device, n1 + n2)
+        for inverse in (False, True):
+            plan = f2_ops.make_twiddles2(n1, n2, 8, inverse, dtype,
+                                         cuda_device)
+            before = f2_ops.LAUNCHES
+            y = f2_ops.fft2(x, inverse, twiddles=plan)
+            torch.cuda.synchronize(cuda_device)
+            assert f2_ops.LAUNCHES == before + launches
+            plain = f2_ops.plain(x, plan, inverse) / (n1 * n2 if inverse
+                                                      else 1)
+            lib = (torch.fft.ifft2 if inverse else torch.fft.fft2)(x)
+            case = (n1, n2, inverse)
+            assert rel_l2(y, plain) <= PLAIN_TOL[dtype], case
+            assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], case
+
+
+@pytest.mark.cuda
+def test_backends_table_nodes_on_card(cuda_device):
+    """The reference's backends table's 65536 and 256x256 Outplace_Real
+    nodes validate, each launching only its own kernel."""
+    session = Session(TorchContext())
+    for client, ext, mod in ((TorchStockhamPallas, (65536,), ops),
+                             (TorchFft2Pallas, (256, 256), f2_ops)):
+        others = [m for m in (ops, f2_ops, fs_ops, dft_ops) if m is not mod]
+        before = [m.LAUNCHES for m in (mod, *others)]
+        rs = session.run(SuiteSpec(output=None), nodes=[BenchNode(
+            client, Problem(ext, "Outplace_Real"))])
+        assert not rs.failures(), [r.error for r in rs.failures()]
+        after = [m.LAUNCHES for m in (mod, *others)]
+        assert after[0] > before[0] and after[1:] == before[1:]
 
 
 @pytest.mark.cuda

@@ -52,7 +52,7 @@ def test_pack_twiddles2_matches_reference(precision, inverse):
             assert got[0].dtype == want[0].dtype
             # the port's own plan is the reference's pack, uploaded as is
             cdt = CDTYPE[precision][1]
-            if n1 * n2 > ops.MAX_ELEMS[cdt]:
+            if n1 * n2 > ops.ONE_BLOCK_ELEMS[cdt]:
                 continue
             own = ops.make_twiddles2(n1, n2, radix, inverse, cdt, "cpu")
             carried = ops.twiddles_from_reference(*want, device="cpu")
@@ -63,9 +63,14 @@ def test_pack_twiddles2_matches_reference(precision, inverse):
 
 
 def test_hopper_cap_and_contract():
-    assert ops.MAX_ELEMS == {torch.complex64: 8192, torch.complex128: 4096}
-    for shape, dtype, match in (((1, 128, 128), torch.complex64, "caps at"),
-                                ((1, 64, 128), torch.complex128, "caps at"),
+    """The cap is the reference's 2^18 points in both dtypes; one block
+    holds 8192 / 4096 points and a larger tile runs as passes."""
+    assert ops.MAX_ELEMS == {torch.complex64: 1 << 18,
+                             torch.complex128: 1 << 18}
+    assert ops.ONE_BLOCK_ELEMS == {torch.complex64: 8192,
+                                   torch.complex128: 4096}
+    for shape, dtype, match in (((1, 1024, 512), torch.complex64, "caps at"),
+                                ((1, 512, 1024), torch.complex128, "caps at"),
                                 ((1, 8, 12), torch.complex64, "power-of-two"),
                                 ((16,), torch.complex64, "rank >= 2")):
         with pytest.raises(ValueError, match=match):
@@ -79,6 +84,51 @@ def test_hopper_cap_and_contract():
     with pytest.raises(ValueError, match="do not match"):
         ops.fft2(torch.zeros((1, 16, 16), dtype=torch.complex64), True,
                  twiddles=plan)
+    passes = ops.make_twiddles2(128, 128, 8, False, torch.complex64, "cpu")
+    assert isinstance(passes, ops.Passes2)
+    assert passes.nbytes == passes.rows.nbytes + passes.cols.nbytes
+    with pytest.raises(ValueError, match="do not match"):
+        ops.fft2(torch.zeros((1, 128, 128), dtype=torch.complex64), True,
+                 twiddles=passes)
+
+
+# tiles over one block: square, long rows (a two-pass row), long columns
+# (a two-pass column), an extent of 1 each way
+PASSES = [(256, 256, "float"), (64, 128, "double"), (4, 16384, "float"),
+          (32768, 2, "double"), (1, 32768, "float"), (16384, 1, "double")]
+
+
+@pytest.mark.parametrize("n1,n2,precision", PASSES)
+def test_passes_agree_with_numpy(n1, n2, precision):
+    """Tiles over the one-block cap: the plain version of the row pass and
+    the column pass (two passes where an axis is over the Stockham
+    one-block cap) against numpy, at the suite's bar and the plain
+    versions' tolerance."""
+    x = rand_c((2, n1, n2), precision, seed=n1 + n2)
+    xt = torch.from_numpy(x)
+    dtype = CDTYPE[precision][1]
+    for inverse in (False, True):
+        plan = ops.make_twiddles2(n1, n2, 8, inverse, dtype, "cpu")
+        assert isinstance(plan, ops.Passes2)
+        launches = ops.LAUNCHES
+        got = ops.fft2(xt, inverse, twiddles=plan)
+        assert ops.LAUNCHES == launches       # a CPU tensor never launches
+        want = (np.fft.ifft2 if inverse else np.fft.fft2)(
+            x.astype(np.complex128))
+        assert got.dtype == dtype
+        assert rel_l2(got, want) <= TOL[precision], inverse
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_passes_match_pallas_interpret(precision):
+    """256 x 256 (the backends table's node, over one block in both
+    dtypes) against the reference's kernel in interpret mode, at the
+    suite's bar."""
+    x = rand_c((2, 256, 256), precision, seed=256)
+    for inverse in (False, True):
+        got = ops.fft2(torch.from_numpy(x), inverse).numpy()
+        want = np.asarray(ref_ops.fft2(x, inverse, tile_b=1, interpret=True))
+        assert rel_l2(got, want) <= REL_L2_TOL[precision], inverse
 
 
 # (n1, n2, radix, reference tile): a padded batch (5 in tiles of 2), an

@@ -20,7 +20,7 @@ from helpers.accuracy import REL_L2_TOL, rel_l2
 from repro.fft import reference as ref_tables
 from repro.kernels.fft4step import ops as ref_ops
 from repro_torch.fft import reference as port_tables
-from repro_torch.kernels.fft4step import ops, ref
+from repro_torch.kernels.fft4step import fft4step as fs, ops, ref
 
 TOL = {"float": 1e-5, "double": 1e-12}
 CDTYPE = {"float": (np.complex64, torch.complex64),
@@ -48,22 +48,54 @@ def test_choose_factors_matches_reference_for_every_n():
 
 
 def test_hopper_cap():
-    """The cap is the longest factorable n whose padded plane and root
-    tables fit one block: 16384, the reference's, in complex64 and 13920
-    in complex128; a factorable n that does not fit is refused."""
-    assert ops.MAX_N == {torch.complex64: 16384, torch.complex128: 13920}
+    """The cap is the reference's 128*128 in both dtypes.  One block holds
+    every split's padded plane and root tables in complex64 and up to
+    13920 = 120*116 in complex128; a split that does not fit, such as
+    13824 = 128*108 or 16384, runs as two launches."""
+    assert ops.MAX_N == {torch.complex64: 16384, torch.complex128: 16384}
     for dtype, itemsize in ((torch.complex64, 8), (torch.complex128, 16)):
-        cap = ops.MAX_N[dtype]
-        n1, n2 = ops.choose_factors(cap)
-        assert ops.smem_bytes(n1, n2, 1, itemsize) <= ops.SMEM_LIMIT_BYTES
-        assert ops.feasible(cap, dtype) and ops.feasible(4096, dtype)
+        assert ops.feasible(16384, dtype) and ops.feasible(4096, dtype)
         assert ops.feasible(8192, dtype) and not ops.feasible(131, dtype)
-    assert not ops.feasible(16384, torch.complex128)
-    assert not ops.feasible(13824, torch.complex128)   # 128 x 108
-    with pytest.raises(ValueError, match="caps at n=13920"):
-        ops.fft(torch.zeros((1, 128 * 128), dtype=torch.complex128))
+        assert not ops.feasible(32768, dtype)
+        n1, n2 = ops.choose_factors(16384)
+        assert ops.one_block(n1, n2, itemsize) == (itemsize == 8)
+    assert ops.one_block(120, 116, 16)
+    assert not ops.one_block(*ops.choose_factors(13824), 16)
+    with pytest.raises(ValueError, match="factorization"):
+        ops.fft(torch.zeros((1, 32768), dtype=torch.complex128))
     with pytest.raises(ValueError, match="factorization"):
         ops.fft(torch.zeros((1, 131), dtype=torch.complex64))
+
+
+def test_two_launch_tiles_fit_half_a_block():
+    """Each launch of the two-launch form holds a power-of-two count of
+    panels within half a block's shared memory (two blocks an SM)."""
+    for n in (13824, 14000, 16384, 128 * 125):
+        n1, n2 = ops.choose_factors(n)
+        assert not ops.one_block(n1, n2, 16)
+        cols, rows = ops.pass_tiles(n1, n2, 16)
+        panel = 8 * fs.n_tiles(n1, n2)
+        for tile, plane in ((cols, n1 * fs.plane_pitch(cols)),
+                            (rows, rows * fs.plane_pitch(n2))):
+            assert tile % panel == 0 and (tile // panel) & (tile // panel - 1) == 0
+            assert fs.smem_bytes(n1, n2, 0, 16) + plane * 16 \
+                <= ops.SMEM_LIMIT_BYTES // 2
+    assert ops.pass_tiles(128, 128, 16) == (32, 32)
+
+
+@pytest.mark.parametrize("n", [16384, 13824])
+def test_two_launch_lengths_match_pallas_interpret(n):
+    """complex128 over one block's plane: the plain version (the same
+    products, in the same order, as the two launches) against the
+    reference's kernel in interpret mode and numpy."""
+    x = rand_c((2, n), "double", seed=n)
+    xt = torch.from_numpy(x)
+    for inverse in (False, True):
+        got = ops.fft(xt, inverse).numpy()
+        want = np.asarray(ref_ops.fft(x, inverse, interpret=True, tile_b=1))
+        assert rel_l2(got, want) <= REL_L2_TOL["double"], inverse
+        numpy = (np.fft.ifft if inverse else np.fft.fft)(x)
+        assert rel_l2(got, numpy) <= TOL["double"], inverse
 
 
 @pytest.mark.parametrize("n", [4096, 16384])

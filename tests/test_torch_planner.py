@@ -79,14 +79,16 @@ GRID = ((1,), (2,), (12,), (16,), (97,), (100,), (128,), (945,), (4096,),
 _FFT2_KNOBS = {"fft2_pallas", "fft2_pallas(radix=4,tile_b=2)",
                "fft2_pallas(radix=8,tile_b=2)", "fft2_pallas(radix=4,tile_b=8)",
                "fft2_pallas(radix=8,tile_b=8)"}
-#: What a Hopper cap refuses on the grid at batch 1: the fused rank-2
-#: kernel holds 8192 complex64 / 4096 complex128 points (128x128 complex,
-#: or packed 128x64 in double, is over), and at 3072x3072 a block holds
-#: only a few 3072- or 1536-point rows for the knobs' batch tiles.
+#: What the port refuses on the grid at batch 1: the fused rank-2 kernel
+#: holds 8192 complex64 / 4096 complex128 points in one block (128x128
+#: complex, or packed 128x64 in double, is over) and runs larger tiles as
+#: passes, which take no batch tile; at 3072x3072 a block holds only a few
+#: 3072- or 1536-point rows for the knobs' batch tiles.
+_FFT2_TILES = _FFT2_KNOBS - {"fft2_pallas"}
 CAPPED = {
-    ((128, 128), "complex", "float"): _FFT2_KNOBS,
-    ((128, 128), "complex", "double"): _FFT2_KNOBS,
-    ((128, 128), "real", "double"): _FFT2_KNOBS,
+    ((128, 128), "complex", "float"): _FFT2_TILES,
+    ((128, 128), "complex", "double"): _FFT2_TILES,
+    ((128, 128), "real", "double"): _FFT2_TILES,
     ((3072, 3072), "any", "float"): {
         "fourstep_pallas(tile_b=16)",
         "stockham_pallas(radix=4,tile_b=16)",
@@ -98,6 +100,10 @@ CAPPED = {
         "stockham_pallas(radix=4,tile_b=16)",
         "stockham_pallas(radix=8,tile_b=16)"},
 }
+#: Where the fused rank-2 kernel runs as passes on the grid (the tiles
+#: above): ESTIMATE prices it at one round trip a pass, so its estimate is
+#: the reference's times ``fft2_passes`` and its pick may differ.
+MULTI_PASS = {key for key in CAPPED if key[0] == (128, 128)}
 
 
 def _capped(ext, kind, precision) -> set:
@@ -126,16 +132,20 @@ def test_candidates_estimates_and_picks_match_reference(ext):
                 want = [c.key() for c in ref if c.key() not in capped]
                 got = [c.key() for c in pc.candidates(pp, patient)]
                 assert got == want, (ext, kind, precision, patient)
+            kclass = "complex" if kind.endswith("Complex") else "real"
+            multi = (ext, kclass, precision) in MULTI_PASS
             for cand in pc.candidates(pp, patient=True):
-                assert pcm.estimate_bytes_moved(pp, cand) == \
-                    rcm.estimate_bytes_moved(rp, _ref_cand(cand)), cand.key()
+                want = rcm.estimate_bytes_moved(rp, _ref_cand(cand))
+                if cand.backend == "fft2_pallas":
+                    want *= pc.fft2_passes(pp)
+                assert pcm.estimate_bytes_moved(pp, cand) == want, cand.key()
             ref_pick = rcm.estimate_choice(rp)
             pick = pcm.estimate_choice(pp)
             if not capped:
                 ref_chain = [c.key() for c in rplan.fallback_chain(rp)
                              if not _later(c)]
                 assert [c.key() for c in pplan.fallback_chain(pp)] == ref_chain
-            if not _later(ref_pick) and ref_pick.key() not in capped:
+            if not (_later(ref_pick) or multi) and ref_pick.key() not in capped:
                 assert pick.key() == ref_pick.key(), (ext, kind, precision)
             assert pcm.estimate_bytes_moved(pp, pick) < float("inf")
 
@@ -150,11 +160,11 @@ def test_estimate_picks_on_the_planner_problems():
 
 
 @pytest.mark.parametrize("ext,kind,precision", [
-    ((16384,), "Outplace_Complex", "float"),
-    ((8192,), "Inplace_Complex", "double"),
+    ((1 << 21,), "Outplace_Complex", "float"),
+    ((32768,), "Inplace_Complex", "double"),
     ((14407,), "Outplace_Complex", "float"),
-    ((128, 128), "Outplace_Complex", "float"),
-    ((128, 256), "Outplace_Real", "double"),
+    ((1024, 512), "Outplace_Complex", "float"),
+    ((1024, 1024), "Outplace_Real", "double"),
     ((131, 64), "Outplace_Complex", "float"),
 ])
 def test_over_the_caps_the_port_picks_what_it_can_run(ext, kind, precision):
@@ -292,11 +302,12 @@ def test_planned_dft_pin_matches_reference_forward(kind, precision):
                                           rc.Candidate("dft"))(x))
     assert got.shape == want.shape
     assert rel_l2(got, want) <= TOL[precision]
-    assert client.get_plan_size() == 50 * 50 * (8 if precision == "float"
-                                                 else 16) * (
-        4 if kind.endswith("Complex") else 1) + (
-        0 if kind.endswith("Complex") else 50 * (8 if precision == "float"
-                                                 else 16))
+    # the FFT body's table of the engine length's roots (100, or the
+    # packed 50), and for a real kind the pack roots
+    itemsize = 8 if precision == "float" else 16
+    complex_kind = kind.endswith("Complex")
+    assert client.get_plan_size() == (100 if complex_kind else 50) * \
+        itemsize + (0 if complex_kind else 50 * itemsize)
 
 
 @pytest.mark.parametrize("key", ["nd[dft;fourstep_pallas]",
