@@ -9,8 +9,13 @@ operands at the main path's shapes: the fft2 kernel at P7's and P6's
 tiles, the Stockham kernel at P7's axis and P3, the four-step kernel at
 the axes of P1-P7 (complex64 and complex128), the dft kernel at P8 and
 P9's packed axis, and
-the fused fftconv kernel at F2 and F3 (the default tile).  Inputs are
-made on the card from a fixed seed.  To compare two trees, run it on
+the fused fftconv kernel at F2 and F3 (the default tile); and the real
+transforms of the main path, forward and inverse: the fft2 kernel's fold
+at P6 (rfft2 of 128 x 128 x 8192 float32) and the Stockham kernel's at
+P1's inner axis (rfft of 256 x 65536) and P5 (945 x 65536).  A tree whose
+wrappers have no fold (``rfft`` / ``rfft2``: before they were folded into
+the kernels) times its ``fft/rfft.py`` packing around its kernel instead,
+under the same names.  Inputs are made on the card from a fixed seed.  To compare two trees, run it on
 each in turns (A, B, B, A) in one call, one process per run.  (Before
 the four-step and fftconv redesign it timed only fft2, Stockham and the
 four-step kernel at P3, under the name ``ab_fft2.py``.)
@@ -44,6 +49,10 @@ FOURSTEP_SHAPES = ((4096, 16384, torch.complex64),
 DFT_SHAPES = ((128, 524288, torch.complex64), (50, 655360, torch.complex128))
 #: (name, channels, signals, L = K) of the fused fftconv kernel
 CONV_SHAPES = (("F2", 768, 32, 2048), ("F3", 768, 8, 8192))
+#: (n, rows) of the Stockham kernel's real fold (float32): P1's inner
+#: axis, P5; (n1, n2, signals) of the fft2 kernel's: P6
+FOLD_SHAPES = ((256, 65536), (945, 65536))
+FOLD2_SHAPES = ((128, 128, 8192),)
 
 
 def median_ms(fn, reps: int = 50) -> float:
@@ -108,8 +117,57 @@ def main() -> None:
         op = conv.prepare(x, h)
         row[f"fftconv {name}"] = median_ms(lambda: conv.run_kernel(op))
         del x, h, op
+    time_folds(row, sp, f2, rand)
     torch.cuda.empty_cache()
     print(json.dumps(row), flush=True)
+
+
+def time_folds(row: dict, sp, f2, rand) -> None:
+    """The main path's real transforms: the kernels' folds, or (a tree
+    without them) ``fft/rfft.py``'s packing around the kernel."""
+    from repro_torch.fft import rfft as rfft_mod
+    from repro_torch.fft.reference import half_roots
+
+    dev = torch.device("cuda", 0)
+    c64 = torch.complex64
+    for n, rows in FOLD_SHAPES:
+        x = rand((rows, n), torch.float32)
+        m = n // 2 if n % 2 == 0 else n
+        fwd = sp.make_twiddles(m, 8, False, c64, dev)
+        inv = sp.make_twiddles(m, 8, True, c64, dev)
+        rf = half_roots(n, False, c64, device=dev) if n % 2 == 0 else None
+        ri = half_roots(n, True, c64, device=dev) if n % 2 == 0 else None
+        bins = torch.fft.rfft(x)
+        if hasattr(sp, "rfft"):
+            f = lambda: sp.rfft(x, twiddles=fwd, roots=rf)
+            g = lambda: sp.irfft(bins, n, twiddles=inv, roots=ri)
+        else:
+            f = lambda: rfft_mod.rfft(x, lambda z: sp.fft(
+                z, twiddles=fwd), rf)
+            g = lambda: rfft_mod.irfft(bins, n, lambda z, inverse=False: sp.fft(
+                z, True, twiddles=inv), ri)
+        row[f"rfft {n}x{rows} float32"] = median_ms(f)
+        row[f"irfft {n}x{rows} float32"] = median_ms(g)
+        del x, bins
+    for n1, n2, sigs in FOLD2_SHAPES:
+        x = rand((sigs, n1, n2), torch.float32)
+        fwd = f2.make_twiddles2(n1, n2 // 2, 8, False, c64, dev)
+        inv = f2.make_twiddles2(n1, n2 // 2, 8, True, c64, dev)
+        rf = half_roots(n2, False, c64, device=dev)
+        ri = half_roots(n2, True, c64, device=dev)
+        bins = torch.fft.rfft2(x)
+        if hasattr(f2, "rfft2"):
+            f = lambda: f2.rfft2(x, twiddles=fwd, roots=rf)
+            g = lambda: f2.irfft2(bins, n2, twiddles=inv, roots=ri)
+        else:
+            f = lambda: rfft_mod.rfftn_packed(x, lambda z: f2.fft2(
+                z, twiddles=fwd), 2, rf)
+            g = lambda: rfft_mod.irfftn_packed(
+                bins, (n1, n2), lambda z, inverse=False: f2.fft2(
+                    z, True, twiddles=inv), ri)
+        row[f"rfft2 {n1}x{n2}x{sigs} float32"] = median_ms(f)
+        row[f"irfft2 {n1}x{n2}x{sigs} float32"] = median_ms(g)
+        del x, bins
 
 
 if __name__ == "__main__":

@@ -12,13 +12,19 @@
    from 1 to 128); then the kernels' multi-pass paths, over one block's
    shared memory up to the reference's caps (Stockham to 2^20, fft2 to
    2^18 points, the four-step kernel's two launches in complex128), a
-   few rows each, forward and inverse;
+   few rows each, forward and inverse; then the real-input folds of the
+   one-block kernels (the Stockham kernel's rfft / irfft, the fused rank-2
+   kernel's rfft2 / irfft2) over fixed cases against their plain versions
+   (``fft/rfft.py``'s packing around the plain stages) and ``torch.fft``;
 4. drives the port's main path at full size: ``Session.run`` of each
    client on its problems (``TorchFFT``, ``TorchStockhamPallas`` and
    ``TorchFourStepPallas`` on P1-P7, ``TorchFft2Pallas`` on P6-P7), every
    node round-trip validated; each client's path runs with every launch
    count set to 0 just before it and read just after, which shows that the
-   path went through its kernel and through no other;
+   path went through its kernel and through no other; the real kinds of
+   P1, P4, P5 and P6 on ``TorchStockhamPallas`` and P6 on
+   ``TorchFft2Pallas`` launch the folds and call none of ``fft/rfft.py``'s
+   packing;
 5. shows that ``TorchFft2Pallas`` on a problem its kernel cannot take (P1,
    rank 3) is a failed node that launched nothing;
 6. drives the reference's ``backends`` table's two nodes that need the
@@ -51,8 +57,9 @@
    version, the library call (``torch.fft``; for fftconv the unfused
    ``torch.fft`` path) and its bound, and sweeps the batch tile of the
    fftconv and four-step kernels there (the check on their defaults);
-   then checks and times the multi-pass paths and the dft kernel's
-   direct product at 512 MiB shapes (``EXTRA_TIMING``);
+   then checks and times the multi-pass paths, the fused rank-2 kernel's
+   complex transform of P6's tile and the dft kernel's direct product at
+   512 MiB shapes (``EXTRA_TIMING``);
 10. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -111,15 +118,36 @@ CAPACITY_STOCKHAM = {"complex64": (16384, 76545, 1 << 20),
 CAPACITY_FFT2 = ((128, 128), (256, 256), (512, 512))
 CAPACITY_FOURSTEP = (13824, 16384)
 CAPACITY_ROWS = 3
+#: The real-input folds' fixed cases: Stockham rfft / irfft lengths (even n
+#: packed to n/2 points, n = 2 to one; odd n whole; P1's, P4's and P5's
+#: axes) with each dtype's largest even and odd length one block folds;
+#: fft2 rfft2 / irfft2 tiles (an even last extent, the packed tile up to
+#: one block's cap); tile 1, 8 where it fits, and the default.
+FOLD_NS = (2, 3, 4, 5, 12, 15, 128, 256, 945, 1536, 3072)
+FOLD2_SHAPES = {
+    "complex64": ((1, 2), (2, 2), (4, 16), (16, 4), (8, 256), (128, 128),
+                  (64, 256)),
+    "complex128": ((1, 2), (2, 2), (4, 16), (16, 4), (8, 256), (64, 128),
+                   (32, 256)),
+}
+#: Main-path nodes that must run their real kind through a fold:
+#: (client, problem, the fold keys of LAUNCH_SHAPES it launches).
+FOLD_NODES = {("TorchStockhamPallas", "P1"): ("rfft", "irfft"),
+              ("TorchStockhamPallas", "P4"): ("rfft", "irfft"),
+              ("TorchStockhamPallas", "P5"): ("rfft", "irfft"),
+              ("TorchStockhamPallas", "P6"): ("rfft", "irfft"),
+              ("TorchFft2Pallas", "P6"): ("rfft2", "irfft2")}
 #: The reference's backends table's nodes (benchmarks/table_backends.py)
 #: that need the passes: (client, extents, the kernel it launches).
 BACKENDS_NODES = (("TorchStockhamPallas", (65536,), "stockham_pallas"),
                   ("TorchFft2Pallas", (256, 256), "fft2_pallas"))
 #: Shapes timed beside the main path's, each moving 512 MiB each way:
-#: the dft kernel's direct product at n = 127 (P8's bytes), the
-#: Stockham kernel's two passes, fft2's passes, the four-step kernel's two
-#: launches.
+#: the dft kernel's direct product at n = 127 (P8's bytes), the fused
+#: rank-2 kernel's complex transform of P6's packed tile (the main path
+#: runs P6 through the fold), the Stockham kernel's two passes, fft2's
+#: passes, the four-step kernel's two launches.
 EXTRA_TIMING = (("dft_matmul", (127, 524288, "complex64")),
+                ("fft2_pallas", (128, 64, 8192, "complex64")),
                 ("stockham_pallas", (65536, 1024, "complex64")),
                 ("stockham_pallas", (1 << 20, 64, "complex64")),
                 ("fft2_pallas", (256, 256, 1024, "complex64")),
@@ -453,6 +481,126 @@ def check_capacity(device) -> dict:
     return worst
 
 
+def _fold_plain(ops, x, plan, roots, inverse: bool, n: int, fft2: bool):
+    """A fold's plain version on the card: ``fft/rfft.py``'s packing
+    around the kernel's plain stages (the wrappers' CPU path)."""
+    from repro_torch.fft import rfft as rfft_mod
+    if fft2:
+        m = plan.n1 * plan.n2
+        if inverse:
+            return rfft_mod.irfftn_packed(
+                x, (x.shape[-2], n), lambda z, inverse=False:
+                ops.plain(z, plan, True) / m, roots)
+        return rfft_mod.rfftn_packed(x, lambda z: ops.plain(z, plan, False),
+                                     2, roots)
+    if inverse:
+        return rfft_mod.irfft(x, n, lambda z, inverse=False:
+                              ops.plain(z, plan, True) / plan.n, roots)
+    return rfft_mod.rfft(x, lambda z: ops.plain(z, plan, False), roots)
+
+
+def check_folds(device) -> dict:
+    """The one-block kernels' real-input folds on fixed cases (``FOLD_NS``
+    and each dtype's fold caps, ``FOLD2_SHAPES``), forward and inverse,
+    against their plain versions and ``torch.fft`` at the kernels' bars;
+    raises on a miss.  Returns the worst errors per kernel and dtype."""
+    import torch
+    from repro_torch.fft.reference import half_roots
+    gen = torch.Generator(device=device).manual_seed(2024)
+    sp, _ = kernel_ops("stockham_pallas")
+    f2, _ = kernel_ops("fft2_pallas")
+    worst = {}
+    for dtype, rdtype in ((torch.complex64, torch.float32),
+                          (torch.complex128, torch.float64)):
+        name = str(dtype).removeprefix("torch.")
+        item = 16 if dtype == torch.complex128 else 8
+        cap = sp.ONE_BLOCK_N[dtype]
+        odd_cap = max(m for m in range(1, cap + 1, 2) if sp.smooth7(m))
+        w = Worst("stockham_pallas", name)
+        for n in FOLD_NS + (2 * cap, odd_cap):
+            m = n // 2 if n % 2 == 0 else n
+            x = torch.randn((CHECK_ROWS, n), dtype=rdtype, device=device,
+                            generator=gen)
+            fits = sp.smem_bytes(m, 8, item, 2) <= sp.SMEM_LIMIT_BYTES
+            for tile in ((1, 8, None) if fits else (1, None)):
+                bins = None
+                for inverse in (False, True):
+                    plan = sp.make_twiddles(m, 8, inverse, dtype, device)
+                    roots = half_roots(n, inverse, dtype, device=device) \
+                        if n % 2 == 0 else None
+                    if inverse:
+                        y = sp.irfft(bins, n, tile_b=tile, twiddles=plan,
+                                     roots=roots)
+                        lib = torch.fft.irfft(bins, n)
+                        src = bins
+                    else:
+                        y = sp.rfft(x, tile_b=tile, twiddles=plan,
+                                    roots=roots)
+                        lib = torch.fft.rfft(x)
+                        src = x
+                    torch.cuda.synchronize(device)
+                    w.add(y, _fold_plain(sp, src, plan, roots, inverse, n,
+                                         False), lib,
+                          f"{'irfft' if inverse else 'rfft'} n={n} "
+                          f"tile_b={tile}")
+                    bins = lib if not inverse else bins
+        rows = [w]
+        w = Worst("fft2_pallas", name)
+        for n1, n2 in FOLD2_SHAPES[name]:
+            h = n2 // 2
+            x = torch.randn((CHECK_ROWS, n1, n2), dtype=rdtype, device=device,
+                            generator=gen)
+            fits = f2.smem_bytes(n1 * h, 8, item, 2) <= f2.SMEM_LIMIT_BYTES
+            for tile in ((1, 8, None) if fits else (1, None)):
+                bins = torch.fft.rfft2(x)
+                for inverse in (False, True):
+                    plan = f2.make_twiddles2(n1, h, 8, inverse, dtype, device)
+                    roots = half_roots(n2, inverse, dtype, device=device)
+                    if inverse:
+                        y = f2.irfft2(bins, n2, tile_b=tile, twiddles=plan,
+                                      roots=roots)
+                        lib = torch.fft.irfft2(bins, s=(n1, n2))
+                    else:
+                        y = f2.rfft2(x, tile_b=tile, twiddles=plan,
+                                     roots=roots)
+                        lib = bins
+                    torch.cuda.synchronize(device)
+                    w.add(y, _fold_plain(f2, bins if inverse else x, plan,
+                                         roots, inverse, n2, True), lib,
+                          f"{'irfft2' if inverse else 'rfft2'} {n1}x{n2} "
+                          f"tile_b={tile}")
+        rows.append(w)
+        for w in rows:
+            w.row["check"] = "fold_vs_plain"
+            emit(w.row)
+            worst[(w.row["kernel"], f"{name} folds")] = w.row
+    return worst
+
+
+class _PackCalls:
+    """Counts calls of ``fft/rfft.py``'s separate pack and unpack (its
+    rfft, irfft, rfftn_packed, irfftn_packed) while installed."""
+
+    NAMES = ("rfft", "irfft", "rfftn_packed", "irfftn_packed")
+
+    def __init__(self):
+        from repro_torch.fft import rfft as rfft_mod
+        self.mod, self.calls = rfft_mod, 0
+        self.real = {n: getattr(rfft_mod, n) for n in self.NAMES}
+        for n, fn in self.real.items():
+            setattr(rfft_mod, n, self._counting(fn))
+
+    def _counting(self, fn):
+        def call(*args, **kwargs):
+            self.calls += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def close(self) -> None:
+        for n, fn in self.real.items():
+            setattr(self.mod, n, fn)
+
+
 def run_backends_nodes(device) -> dict:
     """``Session.run`` of the reference's backends-table nodes that need
     the passes (``BACKENDS_NODES``), each with the launch counts set to 0
@@ -673,13 +821,24 @@ def run_main_path(device) -> dict:
     per-node summaries, and per kernel the launches and launch shapes of
     its own client's path."""
     from repro_torch.core.client import TorchContext
-    from repro_torch.core.clients import torch_fft
-    from repro_torch.core.suite import Session, SuiteSpec
-    from repro_torch.core.tree import build_tree
+    from repro_torch.core.suite import Session
 
     session = Session(TorchContext(device))
     problems = {p[0]: p[1:] for p in PROBLEMS}
     summary = {"nodes": [], "launches": {}, "shapes": {}}
+    pack = _PackCalls()
+    try:
+        _run_paths(session, problems, summary, pack)
+    finally:
+        pack.close()
+    return summary
+
+
+def _run_paths(session, problems, summary, pack) -> None:
+    from repro_torch.core.clients import torch_fft
+    from repro_torch.core.suite import SuiteSpec
+    from repro_torch.core.tree import build_tree
+
     for client, names, kernel in PATHS:
         cls = getattr(torch_fft, client)
         _reset_counts()
@@ -693,6 +852,8 @@ def run_main_path(device) -> dict:
             nodes = build_tree([cls], [extents], kinds=(kind,),
                                precisions=(precision,), batch=batch)
             n0 = sum(c for c, _ in _read_counts().values())
+            shapes0 = {k: dict(sh) for k, (_, sh) in _read_counts().items()}
+            pack.calls = 0
             t0 = time.perf_counter()
             rs = session.run(spec, nodes=nodes)
             if rs.failures():
@@ -707,6 +868,16 @@ def run_main_path(device) -> dict:
                     if r.plan_cache == "miss"]
             transforms = 2 * (spec.warmups + spec.repetitions)
             launched = sum(c for c, _ in _read_counts().values()) - n0
+            folds = sorted({key[0] for key, c in _read_counts()[kernel][1]
+                            .items() if isinstance(key[0], str)
+                            and c > shapes0[kernel].get(key, 0)}) \
+                if kernel else []
+            want = FOLD_NODES.get((client, pname))
+            if want is not None and (folds != sorted(want) or pack.calls):
+                raise AssertionError(
+                    f"{client} {pname} should run its real kind through "
+                    f"{want} and none of rfft.py's packing: launched folds "
+                    f"{folds}, rfft.py calls {pack.calls}")
             node = {"node": pname, "client": client,
                     "path": nodes[0].path, "device": val[0].device,
                     "execute_forward_ms": med("execute_forward"),
@@ -714,6 +885,7 @@ def run_main_path(device) -> dict:
                     "init_forward_ms": med("init_forward"),
                     "init_forward_cold_ms": cold[0] if cold else None,
                     "kernel_launches_per_transform": launched / transforms,
+                    "folds": folds, "rfft_py_calls": pack.calls,
                     "node_s": time.perf_counter() - t0}
             emit(node)
             summary["nodes"].append(node)
@@ -731,7 +903,6 @@ def run_main_path(device) -> dict:
                                      f"every node: {node_launches}")
             summary["launches"][kernel] = launches
             summary["shapes"][kernel] = shapes
-    return summary
 
 
 def check_failed_node(device) -> None:
@@ -1021,29 +1192,51 @@ def _events_ms(fn, reps: int) -> float:
 class Shape:
     """One (kernel, launch shape) of the main path: its input, the kernel
     call with the main path's knobs, the plain versions, the torch.fft
-    call of the same function, and the work it does."""
+    call of the same function, and the work it does.  A fold's shape
+    (key ``("rfft", n, rows, dtype)``, ``("irfft2", n1, n2, signals,
+    dtype)``, ...) runs that one direction on real rows (their bins for an
+    inverse)."""
 
     def __init__(self, kernel: str, key: tuple, device, gen):
         import torch
         self.kernel, self.key = kernel, key
         self.ops, self.ref = kernel_ops(kernel)
+        self.fold = key[0] if isinstance(key[0], str) else None
+        dims = key[1:] if self.fold else key
         dname = key[-1]
         dtype = getattr(torch, dname)
         if kernel == "fft2_pallas":
-            n1, n2, rows, _ = key
+            n1, n2, rows, _ = dims
             self.shape = {"n1": n1, "n2": n2, "rows": rows, "dtype": dname}
             sig = (n1, n2)
         else:
-            n, rows, _ = key
+            n, rows, _ = dims
             self.shape = {"n": n, "rows": rows, "dtype": dname}
             sig = (n,)
-        self.x = torch.randn((rows, *sig), dtype=dtype, device=device,
-                             generator=gen)
         self.n = math.prod(sig)
         self.rows = rows
         self.dname = dname
+        if self.fold:
+            self.shape["fold"] = self.fold
+            real = torch.float64 if dname == "complex128" else torch.float32
+            x = torch.randn((rows, *sig), dtype=real, device=device,
+                            generator=gen)
+            self.x = torch.fft.rfftn(x, dim=tuple(range(-len(sig), 0))) \
+                if self.fold.startswith("i") else x
+            self.sig = sig
+        else:
+            self.x = torch.randn((rows, *sig), dtype=dtype, device=device,
+                                 generator=gen)
 
     def kernel_call(self, inverse: bool = False, plan=None):
+        if self.fold:
+            plan = plan or self.plan()[0]
+            tw, roots = plan
+            last = self.sig[-1]
+            fn = getattr(self.ops, self.fold)
+            if self.fold.startswith("i"):
+                return fn(self.x, last, twiddles=tw, roots=roots)
+            return fn(self.x, twiddles=tw, roots=roots)
         if self.kernel == "dft_matmul":
             return self.ops.dft(self.x, inverse, matrix=plan)
         fn = self.ops.fft2 if self.kernel == "fft2_pallas" else self.ops.fft
@@ -1060,8 +1253,28 @@ class Shape:
 
     def plan(self):
         """The forward plan, and the plain version of the kernel's own
-        arithmetic on it (what ``plain_ms`` times)."""
+        arithmetic on it (what ``plain_ms`` times); a fold's plan is the
+        packed length's (or tile's) twiddles in its direction and the pack
+        table."""
         device, dtype = self.x.device, self.x.dtype
+        if self.fold:
+            from repro_torch.fft.reference import half_roots
+            import torch
+            cdtype = torch.complex128 if self.dname == "complex128" \
+                else torch.complex64
+            inverse = self.fold.startswith("i")
+            last = self.sig[-1]
+            if self.kernel == "fft2_pallas":
+                tw = self.ops.make_twiddles2(self.sig[0], last // 2, 8,
+                                             inverse, cdtype, device)
+            else:
+                m = last // 2 if last % 2 == 0 else last
+                tw = self.ops.make_twiddles(m, 8, inverse, cdtype, device)
+            roots = half_roots(last, inverse, cdtype, device=device) \
+                if last % 2 == 0 else None
+            return (tw, roots), lambda: _fold_plain(
+                self.ops, self.x, tw, roots, inverse, last,
+                self.kernel == "fft2_pallas")
         if self.kernel == "dft_matmul":
             m = self.ops.make_matrix(self.n, False, dtype, device)
             return m, lambda: self.ops.plain(self.x, m, False)
@@ -1094,6 +1307,11 @@ class Shape:
 
     def library(self):
         import torch
+        if self.fold:
+            dims = tuple(range(-len(self.sig), 0))
+            if self.fold.startswith("i"):
+                return torch.fft.irfftn(self.x, s=self.sig, dim=dims)
+            return torch.fft.rfftn(self.x, dim=dims)
         if self.kernel == "fft2_pallas":
             return torch.fft.fft2(self.x)
         return torch.fft.fft(self.x)
@@ -1104,22 +1322,36 @@ class Shape:
 
     def pairs(self):
         """(what, kernel output, plain oracle) of the shape's checks: both
-        directions with the main path's knobs."""
+        directions with the main path's knobs (a fold: its direction,
+        against ``fft/rfft.py``'s packing around the plain stages)."""
+        if self.fold:
+            plan, plain = self.plan()
+            yield self.fold, self.kernel_call(plan=plan), plain()
+            return
         for inverse in (False, True):
             yield f"inverse={inverse}", self.kernel_call(inverse), \
                 self.oracle(inverse)
 
     def bytes_moved(self) -> int:
-        return 2 * self.rows * self.n * self.x.element_size()
+        """One read of the input and one write of the output: the signal
+        each way, or for a fold the real signal one way and its bins (n/2
+        + 1 on the last axis) the other."""
+        itemsize = 16 if self.dname == "complex128" else 8
+        if self.fold:
+            bins = self.n // self.sig[-1] * (self.sig[-1] // 2 + 1)
+            return self.rows * (self.n * itemsize // 2 + bins * itemsize)
+        return 2 * self.rows * self.n * itemsize
 
     def bound(self) -> tuple[float, str]:
-        """The least time for this function: bytes (one read and one write
-        of the signal) over the HBM rate, or the 5 n log2(n) flops per
-        signal that a length-n DFT needs over the dtype's peak, whichever
-        is larger.  The same for every kernel, whatever its algorithm."""
-        itemsize = 16 if self.dname == "complex128" else 8
-        bytes_ms = 2 * self.rows * self.n * itemsize / HBM_BYTES_PER_S * 1e3
+        """The least time for this function: its bytes (one read and one
+        write, ``bytes_moved``) over the HBM rate, or the 5 n log2(n) flops
+        per signal that a length-n DFT needs (half that for a real
+        signal's) over the dtype's peak, whichever is larger.  The same for
+        every kernel, whatever its algorithm."""
+        bytes_ms = self.bytes_moved() / HBM_BYTES_PER_S * 1e3
         flops = 5 * self.n * math.log2(self.n) * self.rows
+        if self.fold:
+            flops /= 2
         ops_ms = flops / PEAK_FLOPS[self.dname] * 1e3
         return (bytes_ms, "bytes") if bytes_ms >= ops_ms \
             else (ops_ms, "operations")
@@ -1241,7 +1473,7 @@ def _shapes(main_path: dict, device, seed: int):
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     for kernel, shapes in main_path["shapes"].items():
-        for key in sorted(shapes):
+        for key in sorted(shapes, key=str):
             cls = ConvShape if kernel == "fftconv" else Shape
             yield cls(kernel, key, device, gen), shapes[key]
 
@@ -1366,6 +1598,7 @@ def main() -> int:
     emit({"kernels": [k for k, _, _ in KERNELS]})
     checks = check_kernels(device)
     checks.update(check_capacity(device))
+    checks.update(check_folds(device))
     main_path = run_main_path(device)
     check_failed_node(device)
     backends = run_backends_nodes(device)
@@ -1395,9 +1628,9 @@ def main() -> int:
         # the headline shape: the one that moved the most bytes on the
         # main path
         head = max(mine, key=lambda t: t["launches"] * t["bytes_moved"])
-        shape = {k: head[k] for k in ("n", "n1", "n2", "rows", "channels",
-                                      "batch", "length", "taps", "tile_b",
-                                      "dtype") if k in head}
+        shape = {k: head[k] for k in ("fold", "n", "n1", "n2", "rows",
+                                      "channels", "batch", "length", "taps",
+                                      "tile_b", "dtype") if k in head}
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces,

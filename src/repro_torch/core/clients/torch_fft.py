@@ -4,15 +4,21 @@
                    whole-ND, the yardstick (client ``TorchFFT``)
   stockham_pallas  the hand-written fused Stockham kernel for Hopper
                    (``csrc/stockham.cu``), applied per axis through
-                   ``nd.fftn``, with the packed half-length path for real
-                   kinds (client ``TorchStockhamPallas``; knobs: tile_b,
+                   ``nd.fftn``; a real kind's last axis runs the kernel's
+                   fold (``ops.rfft`` / ``irfft``, ``csrc/stockham_fold.cu``:
+                   the R2C pack in its passes) where one block holds the
+                   packed axis, else the packed half-length path around
+                   it (client ``TorchStockhamPallas``; knobs: tile_b,
                    radix)
   fourstep_pallas  the hand-written fused four-step kernel
                    (``csrc/fft4step.cu``), per axis like the Stockham
                    kernel (client ``TorchFourStepPallas``; knob: tile_b)
   fft2_pallas      the hand-written fused rank-2 kernel (``csrc/fft2.cu``):
-                   the whole 2-D transform in one launch, real kinds
-                   through ``rfft.rfftn_packed`` (client ``TorchFft2Pallas``;
+                   the whole 2-D transform in one launch, real kinds of an
+                   even last extent through its fold (``ops.rfft2`` /
+                   ``irfft2``: the pack in its passes) where one block
+                   holds the packed tile, else through
+                   ``rfft.rfftn_packed`` (client ``TorchFft2Pallas``;
                    knobs: tile_b, radix); rank 2 only
   dft              the hand-written batched direct DFT kernel
                    (``csrc/dft.cu``) for axes up to 128 points, per axis
@@ -129,20 +135,71 @@ def _engine(cand: Candidate, table) -> Callable:
 
 
 def _axis_engines(problem: Problem, cand: Candidate, inverse: bool,
-                  device) -> tuple[list[Callable], int]:
-    """One engine per axis from the (possibly per-axis) plan, and the bytes
-    of their tables; axes with the same backend, knobs and engine length
-    share one table."""
+                  device) -> tuple[list[Callable], list, int]:
+    """One engine per axis from the (possibly per-axis) plan, each axis'
+    table, and the bytes of the tables; axes with the same backend, knobs
+    and engine length share one table."""
     dtype = _complex_dtype(problem)
     tables: dict = {}
-    engines = []
+    engines, per_axis = [], []
     for axis, c in enumerate(cand.per_axis(problem.rank)):
         n = axis_engine_n(problem, axis)
         key = (c.key(), n)
         if key not in tables:
             tables[key] = _axis_table(c, n, inverse, dtype, device)
         engines.append(_engine(c, tables[key]))
-    return engines, _bytes(*tables.values())
+        per_axis.append(tables[key])
+    return engines, per_axis, _bytes(*tables.values())
+
+
+def _stockham_fold(problem: Problem, cand: Candidate, table, roots,
+                   inverse: bool, device) -> tuple[Callable | None, int]:
+    """A real kind's last-axis fold on the Stockham kernel (``ops.rfft`` /
+    ``ops.irfft`` bound to the axis' table and the pack table) where the
+    plan runs that axis on ``stockham_pallas`` and one block holds its
+    packed length, with the bytes of a table it adds (a one-point packed
+    axis has none in the plan); else (None, 0): the axis runs ``rfft.py``
+    around its engine."""
+    last = cand.per_axis(problem.rank)[-1]
+    n = problem.extents[-1]
+    m = axis_engine_n(problem, problem.rank - 1)
+    dtype = _complex_dtype(problem)
+    if last.backend != "stockham_pallas" or m > sp_ops.ONE_BLOCK_N[dtype]:
+        return None, 0
+    opts = last.opts()
+    tile_b, radix = opts.get("tile_b"), opts.get("radix", 8)
+    added = 0
+    if table is None and n > 1:
+        table = sp_ops.make_twiddles(m, radix, inverse, dtype, device)
+        added = table.nbytes
+    if inverse:
+        return (lambda y, n: sp_ops.irfft(y, n, tile_b=tile_b, radix=radix,
+                                          twiddles=table, roots=roots)), added
+    return (lambda x: sp_ops.rfft(x, tile_b=tile_b, radix=radix,
+                                  twiddles=table, roots=roots)), added
+
+
+def _fft2_fold(problem: Problem, cand: Candidate, twiddles, roots,
+               inverse: bool, device) -> tuple[Callable | None, int]:
+    """A real kind's fold on the fused rank-2 kernel (``ops.rfft2`` /
+    ``ops.irfft2``) where the last extent is even and one block holds the
+    packed n1 x n2/2 tile, with the bytes of a table it adds; else (None,
+    0): ``rfft.rfftn_packed`` around the kernel."""
+    n1, n2 = problem.extents
+    dtype = _complex_dtype(problem)
+    if n2 % 2 or n1 * (n2 // 2) > f2_ops.ONE_BLOCK_ELEMS[dtype]:
+        return None, 0
+    opts = cand.opts()
+    tile_b, radix = opts.get("tile_b"), opts.get("radix", 8)
+    added = 0
+    if twiddles is None:   # the one-point packed tile
+        twiddles = f2_ops.make_twiddles2(1, 1, radix, inverse, dtype, device)
+        added = twiddles.nbytes
+    if inverse:
+        return (lambda y: f2_ops.irfft2(y, n2, tile_b=tile_b, radix=radix,
+                                        twiddles=twiddles, roots=roots)), added
+    return (lambda x: f2_ops.rfft2(x, tile_b=tile_b, radix=radix,
+                                   twiddles=twiddles, roots=roots)), added
 
 
 def _fft2_twiddles(problem: Problem, cand: Candidate, inverse: bool,
@@ -199,14 +256,20 @@ def _forward_fn(problem: Problem, cand: Candidate, device) -> Transform:
         if problem.complex_input:
             return Transform(eng2, _bytes(tw))
         roots = _pack_roots(problem, False, device)
+        fold, added = _fft2_fold(problem, cand, tw, roots, False, device)
+        if fold is not None:
+            return Transform(fold, _bytes(tw, roots=roots) + added)
         return Transform(lambda x: rfft_mod.rfftn_packed(x, eng2, 2, roots),
                          _bytes(tw, roots=roots))
-    engines, nbytes = _axis_engines(problem, cand, False, device)
+    engines, tables, nbytes = _axis_engines(problem, cand, False, device)
     if problem.complex_input:
         return Transform(lambda x: nd.fftn(x, engines, axes=axes), nbytes)
     roots = _pack_roots(problem, False, device)
-    return Transform(lambda x: nd.rfftn(x, engines, axes=axes, roots=roots),
-                     nbytes + _bytes(roots=roots))
+    fold, added = _stockham_fold(problem, cand, tables[-1], roots, False,
+                                 device)
+    return Transform(lambda x: nd.rfftn(x, engines, axes=axes, roots=roots,
+                                        r2c=fold),
+                     nbytes + _bytes(roots=roots) + added)
 
 
 def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
@@ -222,16 +285,21 @@ def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
         if problem.complex_input:
             return Transform(lambda y: eng2(y, inverse=True), _bytes(tw))
         roots = _pack_roots(problem, True, device)
+        fold, added = _fft2_fold(problem, cand, tw, roots, True, device)
+        if fold is not None:
+            return Transform(fold, _bytes(tw, roots=roots) + added)
         return Transform(lambda y: rfft_mod.irfftn_packed(
             y, problem.extents, eng2, roots), _bytes(tw, roots=roots))
-    engines, nbytes = _axis_engines(problem, cand, True, device)
+    engines, tables, nbytes = _axis_engines(problem, cand, True, device)
     if problem.complex_input:
         return Transform(lambda y: nd.fftn(y, engines, axes=axes,
                                            inverse=True), nbytes)
     roots = _pack_roots(problem, True, device)
+    fold, added = _stockham_fold(problem, cand, tables[-1], roots, True,
+                                 device)
     return Transform(lambda y: nd.irfftn(y, problem.extents, engines,
-                                         axes=axes, roots=roots),
-                     nbytes + _bytes(roots=roots))
+                                         axes=axes, roots=roots, c2r=fold),
+                     nbytes + _bytes(roots=roots) + added)
 
 
 class TorchFFTClient(FFTClient):

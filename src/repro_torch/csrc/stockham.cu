@@ -17,17 +17,44 @@
 // Bound: device-memory bytes.  An FFT does ~5 n log2(n) flops per row on
 // 2*n*sizeof(complex) bytes of traffic, far below the card's
 // flop-per-byte ridge, so the least time is one read and one write of the
-// B*n complex values.  The design does exactly that: one CTA owns a tile of
-// tile_b rows; the first stage reads the tile straight from global memory,
-// every intermediate stage ping-pongs between two shared-memory buffers,
-// and the last stage writes straight to global memory (with the inverse's
-// 1/n folded into that store).  log(n) stages cost one global round trip.
+// B*n complex values.  One CTA owns a tile of tile_b rows and runs the
+// schedule as register passes over ONE shared buffer (block_fft in
+// stockham_stages.cuh): the host groups the stages into passes of one or
+// two stages that one kernel's case family holds (a radix-8 pair is a
+// 64-point pass, the kBig family's), the first pass reads the tile
+// straight from global memory, each pass runs its stages in registers
+// and, after a barrier, writes back into the same buffer, and the last
+// pass writes straight to global memory (the inverse's 1/n folded into
+// that store).  So P3's 4096 = 8^4 is two passes, one barrier and one
+// trip through shared memory.  Half the shared memory of two ping-pong
+// buffers lets more rows share an SM; no index in the loop divides
+// (FastDiv), and a layout padded on the host keeps a warp's shared-memory
+// stores on distinct banks.  A family is a few cases compiled into one
+// switch: ptxas gives a kernel one register budget for all its cases, and
+// larger families spilled, so this library holds four small kernels
+// (block.py picks one a launch).
 //
-// The butterflies and the stage routine (run_stage) are in
-// stockham_stages.cuh, shared with the fused rank-2 kernel (fft2.cu).
+// The same kernels run the real-input folds (the plan's mode), numpy's
+// rfft / irfft along the last axis of a (B, n) real array / (B, n/2 + 1)
+// bins, in place of the separate torch passes that pack and unpack a real
+// signal around the kernel (fft/rfft.py: a strided gather, flip, roll,
+// conj, the 0.5 and roots arithmetic and a cat, each a pass over memory):
+//   * even n = 2h: the real row read as h complex points (no copy), the
+//     h-point FFT, and the post-pass X[k] = E + W_n^k O, X[h] = E - O (E,
+//     O from Z[k] and Z[-k]) in the last pass's registers, each butterfly
+//     paired with its mirror; the inverse builds z = E + i O from the bins
+//     in the first pass's registers the same way and stores the real
+//     output viewed as complex, times 1/h;
+//   * odd n: the real row read with zero imaginary parts and bins 0..n/2
+//     stored (forward); the Hermitian half rebuilt on load, conj Y[n - k]
+//     for k > n/2, and the real parts stored times 1/n (inverse).
+// A fold moves one read of the input and one write of the output: n reals
+// and n/2 + 1 bins a row, about half a complex transform's bytes.
 //
-// Two buffers of one row cap that kernel at 14406 points in complex64 and
-// 7203 in complex128 (227 KB per block).  Longer rows, up to the
+// The host caps one block at the rows that two buffers would hold (14406
+// points in complex64, 7203 in complex128: 227 KB per block), falling back
+// to two buffers only where a tile's butterflies outnumber the threads
+// that must hold them across a barrier.  Longer rows, up to the
 // reference's 2^20, run as two passes through global memory over a
 // second entry, the column pass: with n = n1*n2 and x[j1*n2 + j2],
 //   pass 1: the n2 strided columns' n1-point FFTs, each output k1 times
@@ -48,9 +75,11 @@
 // Twiddles: one interleaved complex vector; the twiddle of (stage, u, p)
 // sits at base[stage] + (u-1)*m + p.  Row offsets are 64-bit.
 //
-// Plain C interface (stockham_fft_f32 / stockham_fft_f64 and
-// stockham_columns_f32 / stockham_columns_f64), loaded with ctypes; each
-// returns the cudaError_t of the launch.
+// Plain C interface (stockham_block_f32: the host's BlockPlan, see
+// stockham_pallas/block.py; its complex128 twin stockham_block_f64 is
+// stockham64.cu, a library of its own so that the two compile in
+// parallel; stockham_columns_f32 / stockham_columns_f64), loaded with
+// ctypes; each returns the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
 
@@ -66,40 +95,6 @@ struct Schedule {
   int radix[kMaxStages];
   int base[kMaxStages];
 };
-
-template <typename T, bool INV>
-__global__ void __launch_bounds__(kThreads)
-stockham_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
-                const Cx<T>* __restrict__ tw, long long batch, int n,
-                int tile_b, Schedule sch, T inv_n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Cx<T>* buf0 = reinterpret_cast<Cx<T>*>(smem_raw);
-  Cx<T>* buf1 = buf0 + static_cast<long long>(tile_b) * n;
-  const long long row0 = static_cast<long long>(blockIdx.x) * tile_b;
-  const int rows = static_cast<int>(min(static_cast<long long>(tile_b), batch - row0));
-  const Cx<T>* src = x + row0 * n;
-  int cur = n;
-  for (int st = 0; st < sch.n_stages; ++st) {
-    const int r = sch.radix[st];
-    const int m = cur / r;
-    const int s = n / cur;
-    const bool last = st == sch.n_stages - 1;
-    Cx<T>* dst = last ? y + row0 * n : ((st & 1) ? buf1 : buf0);
-    switch (r) {
-      case 2: run_stage<2, INV>(src, dst, tw, n, rows, m, s, sch.base[st], last, inv_n); break;
-      case 3: run_stage<3, INV>(src, dst, tw, n, rows, m, s, sch.base[st], last, inv_n); break;
-      case 4: run_stage<4, INV>(src, dst, tw, n, rows, m, s, sch.base[st], last, inv_n); break;
-      case 5: run_stage<5, INV>(src, dst, tw, n, rows, m, s, sch.base[st], last, inv_n); break;
-      case 7: run_stage<7, INV>(src, dst, tw, n, rows, m, s, sch.base[st], last, inv_n); break;
-      default: run_stage<8, INV>(src, dst, tw, n, rows, m, s, sch.base[st], last, inv_n); break;
-    }
-    // the next stage reads what this one wrote, and writes the buffer
-    // this one read
-    __syncthreads();
-    src = dst;
-    cur = m;
-  }
-}
 
 // One column pass (see the header): signal `sig`'s column `col` holds
 // element j at x[sig*in_sig + j*in_k + col]; its output k, times
@@ -189,20 +184,6 @@ stockham_columns_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
   }
 }
 
-template <typename T, bool INV>
-int launch_dir(const void* x, void* y, const void* tw, long long batch, int n,
-               int tile_b, const Schedule& sch, size_t smem, cudaStream_t stream) {
-  auto kern = stockham_kernel<T, INV>;
-  const cudaError_t err = opt_in<stockham_kernel<T, INV>>(smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (batch + tile_b - 1) / tile_b;
-  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(y),
-      static_cast<const Cx<T>*>(tw), batch, n, tile_b, sch,
-      T(1) / static_cast<T>(n));
-  return cudaGetLastError();
-}
-
 // The stage schedule from the caller's radices and twiddle bases; false if
 // a radix is not one of the butterflies or the product is not n.
 bool make_schedule(int n, int n_stages, const int* radices, const int* bases,
@@ -272,38 +253,15 @@ int launch_columns(const void* x, void* y, const void* tw, const void* roots,
       : launch_columns_dir<T, false>(x, y, tw, roots, nsig, p, sch, smem, sc, s);
 }
 
-template <typename T>
-int launch(const void* x, void* y, const void* tw, long long batch, int n,
-           int tile_b, int inverse, int n_stages, const int* radices,
-           const int* bases, void* stream) {
-  if (n < 2 || tile_b < 1 || batch < 1) return cudaErrorInvalidValue;
-  if ((batch + tile_b - 1) / tile_b > 0x7fffffffLL) return cudaErrorInvalidValue;
-  Schedule sch{};
-  if (!make_schedule(n, n_stages, radices, bases, sch)) return cudaErrorInvalidValue;
-  const size_t smem =
-      n_stages > 1 ? 2 * static_cast<size_t>(tile_b) * n * sizeof(Cx<T>) : 0;
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return inverse ? launch_dir<T, true>(x, y, tw, batch, n, tile_b, sch, smem, s)
-                 : launch_dir<T, false>(x, y, tw, batch, n, tile_b, sch, smem, s);
-}
-
 }  // namespace
 
-extern "C" int stockham_fft_f32(const void* x, void* y, const void* tw,
-                                long long batch, int n, int tile_b,
-                                int inverse, int n_stages, const int* radices,
-                                const int* bases, void* stream) {
-  return launch<float>(x, y, tw, batch, n, tile_b, inverse, n_stages, radices,
-                       bases, stream);
-}
-
-extern "C" int stockham_fft_f64(const void* x, void* y, const void* tw,
-                                long long batch, int n, int tile_b,
-                                int inverse, int n_stages, const int* radices,
-                                const int* bases, void* stream) {
-  return launch<double>(x, y, tw, batch, n, tile_b, inverse, n_stages, radices,
-                        bases, stream);
+extern "C" int stockham_block_f32(const void* x, void* y, const void* tw,
+                                  const void* roots, const void* plan,
+                                  long long batch, int inverse, int family,
+                                  double scale, int threads, long long smem,
+                                  void* stream) {
+  return launch_block<float, false>(x, y, tw, roots, plan, batch, inverse,
+                                    family, scale, threads, smem, stream);
 }
 
 extern "C" int stockham_columns_f32(const void* x, void* y, const void* tw,

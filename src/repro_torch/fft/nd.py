@@ -6,7 +6,10 @@ axis there is one swap in and one swap out, and none at all when the axis
 *is* the last one (the innermost axis, and the whole transform for rank 1).
 ``rfftn`` transforms the last axis real-to-complex first, then the complex
 axes (numpy layout); ``roots`` is the real axis's prebuilt R2C pack table
-(see ``rfft``).
+(see ``rfft``).  ``r2c`` / ``c2r``, where given, transform the real axis
+in one call instead (a kernel that folds the pack into its passes, such as
+``stockham_pallas.ops.rfft`` / ``irfft``); without them the real axis runs
+``rfft.py``'s packing around its complex engine.
 
 ``cfft`` may be one callable (the same engine on every axis) or a sequence
 aligned with ``axes``.
@@ -54,11 +57,13 @@ def fftn(x: torch.Tensor, cfft: CFFTS, axes: Sequence[int] | None = None,
 
 
 def rfftn(x: torch.Tensor, cfft: CFFTS, axes: Sequence[int] | None = None,
-          roots: torch.Tensor | None = None) -> torch.Tensor:
+          roots: torch.Tensor | None = None,
+          r2c: Callable[[torch.Tensor], torch.Tensor] | None = None
+          ) -> torch.Tensor:
     axes = tuple(range(x.ndim)) if axes is None else tuple(axes)
     fns = _per_axis(cfft, len(axes))
     last, rest = axes[-1], axes[:-1]
-    y = _apply_last(x, last, lambda v: _rfft.rfft(v, fns[-1], roots))
+    y = _apply_last(x, last, r2c or (lambda v: _rfft.rfft(v, fns[-1], roots)))
     for ax, fn in zip(rest, fns[:-1]):
         y = _apply_last(y, ax, fn)
     return y
@@ -66,12 +71,16 @@ def rfftn(x: torch.Tensor, cfft: CFFTS, axes: Sequence[int] | None = None,
 
 def irfftn(y: torch.Tensor, shape: Sequence[int], cfft: CFFTS,
            axes: Sequence[int] | None = None,
-           roots: torch.Tensor | None = None) -> torch.Tensor:
+           roots: torch.Tensor | None = None,
+           c2r: Callable[[torch.Tensor, int], torch.Tensor] | None = None
+           ) -> torch.Tensor:
     axes = tuple(range(y.ndim)) if axes is None else tuple(axes)
     fns = _per_axis(cfft, len(axes))
     last, rest = axes[-1], axes[:-1]
     for ax, fn in zip(rest, fns[:-1]):
         y = _apply_last(y, ax, lambda v, f=fn: f(v, inverse=True))
     n_last = shape[-1] if len(shape) else y.shape[last]
+    if c2r is not None:
+        return _apply_last(y, last, lambda v: c2r(v, n_last))
     return _apply_last(y, last,
                        lambda v: _rfft.irfft(v, n_last, fns[-1], roots))

@@ -1,10 +1,15 @@
 """Public wrapper of the fused rank-2 kernel: per-axis schedules, one
-shared twiddle pack (host float64), shared-memory sizing, launch,
-normalization.
+shared twiddle pack (host float64), the register passes of one block
+(``stockham_pallas.block``), launch, normalization.
 
 ``fft2`` launches the CUDA kernel (``repro_torch/csrc/fft2.cu``) for a
-tensor on the card and takes the plain version (``ref.apply2``) only for a
-tensor on the CPU.  A tile over the one-block cap (up to the reference's
+tensor on the card and takes the plain version (``ref.apply2_passes``)
+only for a tensor on the CPU.  ``rfft2`` / ``irfft2`` are its real-input
+folds over the last two axes (an even last extent n2 on the packed n1 x
+n2/2 tile that one block holds): numpy's rfftn / irfftn in one launch, the
+pack and unpack inside the kernel; on a CPU tensor they run
+``fft/rfft.py``'s ``rfftn_packed`` / ``irfftn_packed`` around the plain
+stages.  A tile over the one-block cap (up to the reference's
 2^18 points) runs as passes through global memory on the Stockham
 library's entries (``csrc/stockham.cu``): the rows' n2-point FFTs, then
 the columns' n1-point FFTs on the column entry (``Passes2``).
@@ -22,11 +27,14 @@ import numpy as np
 import torch
 
 from .. import _build
+from ...fft import rfft as rfft_mod
+from ...fft.reference import half_roots
+from ..stockham_pallas import block
 from ..stockham_pallas import ops as sp
 from ..stockham_pallas.ops import (SMEM_LIMIT_BYTES, direction_of, interleave,
                                    pack_twiddles, stage_bases)
 from .fft2_pallas import SMEM_TARGET_BYTES, pow2, schedules, smem_bytes
-from .ref import apply2
+from .ref import apply2_passes
 
 _CDTYPES = (torch.complex64, torch.complex128)
 
@@ -155,9 +163,10 @@ def twiddles_from_reference(twr: np.ndarray, twi: np.ndarray, off1, off2,
 
 def default_tile_b(n_elems: int, batch: int, itemsize: int,
                    n_stages: int) -> int:
-    """Signals per block: as many as fill ``SMEM_TARGET_BYTES`` (at least
-    one), never more than the batch."""
-    per_sig = max(1, smem_bytes(n_elems, 1, itemsize, max(n_stages, 2)))
+    """Signals per block: as many as fill ``SMEM_TARGET_BYTES`` with one
+    padded buffer (at least one), never more than the batch."""
+    per_sig = max(1, (n_elems + n_elems // 16) * itemsize
+                  if n_stages > 1 else 0)
     return max(1, min(batch, SMEM_TARGET_BYTES // per_sig))
 
 
@@ -229,22 +238,37 @@ def plain(x: torch.Tensor, plan: Twiddles2 | Passes2,
             x = sp.plain(x.transpose(-1, -2), plan.cols,
                          inverse).transpose(-1, -2)
         return x
-    return apply2(x, plan.tw, plan.radices1, plan.radices2, plan.bases1,
-                  plan.bases2, inverse)
+    passes = block.group_passes(plan.n1, plan.n2, plan.radices2, plan.bases2,
+                                plan.radices1, plan.bases1, 1,
+                                x.element_size())[0]
+    rows = tuple(1 if p.rb == 1 else 2 for p in passes
+                 if not p.col and p.ra > 1)
+    cols = tuple(1 if p.rb == 1 else 2 for p in passes if p.col)
+    return apply2_passes(x, plan.tw, plan.radices1, plan.radices2,
+                         plan.bases1, plan.bases2, cols, rows, inverse)
 
 
 @functools.cache
 def _kernel(dtype: torch.dtype):
-    """The library's entry point for ``dtype``, its signature set once."""
+    """The library's one-block entry for ``dtype`` (the complex transform
+    and the fold), its signature set once."""
     lib = _build.library("fft2")
-    fn = lib.fft2_f64 if dtype == torch.complex128 else lib.fft2_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return block.entry(lib.fft2_block_f64 if dtype == torch.complex128
+                       else lib.fft2_block_f32)
+
+
+def layout(plan: Twiddles2, tile: int, itemsize: int, mode: int = block.C2C,
+           inverse: bool = False) -> block.Layout:
+    """The one-block kernel's launch of ``tile`` signals under ``plan``:
+    the row (n2) stages, then the column (n1) stages."""
+    return block.block_layout(plan.n1, plan.n2, plan.radices2, plan.bases2,
+                              plan.radices1, plan.bases1, tile, itemsize,
+                              mode, inverse)
+
+
+@functools.lru_cache(maxsize=1024)
+def _struct(lay: block.Layout, **fold) -> block.BlockPlanC:
+    return lay.struct(**fold)
 
 
 @functools.cache
@@ -317,31 +341,174 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
     return y
 
 
-def _run_one_block(x: torch.Tensor, y: torch.Tensor, twiddles: Twiddles2,
-                   tile_b: int | None, inverse: bool) -> int:
-    n1, n2 = x.shape[-2], x.shape[-1]
-    n = n1 * n2
-    sigs = x.numel() // n
-    itemsize = x.element_size()
-    radices = twiddles.radices2 + twiddles.radices1
-    n_stages = len(radices)
+def _tile(n: int, sigs: int, itemsize: int, n_stages: int,
+          tile_b: int | None, what: str, dtype) -> int:
     tile = tile_b if tile_b is not None else default_tile_b(
         n, sigs, itemsize, n_stages)
     tile = min(tile, sigs)
-    if tile < 1 or smem_bytes(n, tile, itemsize, n_stages) > SMEM_LIMIT_BYTES \
-            or tile * n >= 1 << 30:
+    if tile < 1 or tile * n >= 1 << 30:
         raise ValueError(f"tile_b={tile_b} does not fit one block for "
-                         f"{n1}x{n2} {x.dtype} (shared memory limit "
+                         f"{what} {dtype} (shared memory limit "
                          f"{SMEM_LIMIT_BYTES} bytes)")
-    fn = _kernel(x.dtype)
+    return tile
+
+
+def _launch_block(x: torch.Tensor, y: torch.Tensor, plan: Twiddles2,
+                  sigs: int, tile_b: int | None, inverse: bool, mode: int,
+                  roots: torch.Tensor | None, what: str,
+                  cdtype: torch.dtype, **fold) -> None:
+    n = plan.n1 * plan.n2
+    itemsize = 16 if cdtype == torch.complex128 else 8
+    n_stages = len(plan.radices1) + len(plan.radices2)
+    tile = _tile(n, sigs, itemsize, n_stages, tile_b, what, cdtype)
+    try:
+        lay = layout(plan, tile, itemsize, mode, inverse)
+    except ValueError as err:
+        raise ValueError(f"tile_b={tile_b} does not fit one block for "
+                         f"{what} {cdtype}: {err}") from None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), twiddles.tw.data_ptr(), sigs,
-                 n1, n2, tile, int(inverse), n_stages,
-                 len(twiddles.radices2), _c_ints(radices),
-                 _c_ints(twiddles.bases2 + twiddles.bases1), stream)
+        err = _kernel(cdtype)(
+            x.data_ptr(), y.data_ptr(), plan.tw.data_ptr(),
+            roots.data_ptr() if roots is not None else None,
+            ctypes.byref(_struct(lay, **fold)), sigs, int(inverse),
+            lay.family, 1.0 / n, lay.threads, lay.smem, stream)
     if err != 0:
         raise RuntimeError(f"fft2 kernel launch failed: cudaError_t {err} "
-                           f"({n1}x{n2}, signals={sigs}, tile_b={tile}, "
-                           f"{x.dtype})")
+                           f"({what}, signals={sigs}, tile_b={tile}, "
+                           f"{cdtype}, inverse={inverse})")
+
+
+def _run_one_block(x: torch.Tensor, y: torch.Tensor, twiddles: Twiddles2,
+                   tile_b: int | None, inverse: bool) -> int:
+    n1, n2 = x.shape[-2], x.shape[-1]
+    sigs = x.numel() // (n1 * n2)
+    _launch_block(x, y, twiddles, sigs, tile_b, inverse, block.C2C, None,
+                  f"{n1}x{n2}", x.dtype)
     return 1
+
+
+# ---------------------------------------------------------------------------
+# the real-input folds over the last two axes (an even n2): numpy's rfftn /
+# irfftn in one launch, the pack and unpack in the kernel's passes
+# ---------------------------------------------------------------------------
+def _fold_plan(n1: int, n2: int, radix: int, inverse: bool,
+               cdtype: torch.dtype, device, twiddles, roots):
+    """The fold's plan: the packed n1 x n2/2 tile's one-block twiddles and
+    the pack table ``half_roots(n2)``; raises for a tile the fold does not
+    take (an odd or non-power-of-two n2, over one block) or a plan that
+    does not match."""
+    h = n2 // 2
+    if n2 % 2 or not (pow2(n1) and pow2(h)):
+        raise ValueError("the fft2_pallas fold takes power-of-two extents "
+                         f"with an even last one, got {n1}x{n2}")
+    if n1 * h > ONE_BLOCK_ELEMS[cdtype]:
+        raise ValueError(f"the fft2_pallas fold takes a packed tile within "
+                         f"one block (n1*n2/2 <= {ONE_BLOCK_ELEMS[cdtype]} "
+                         f"for {cdtype}); got {n1}x{n2}")
+    if twiddles is None:
+        twiddles = make_twiddles2(n1, h, radix, inverse, cdtype, device)
+    elif not (isinstance(twiddles, Twiddles2) and _matches(
+            twiddles, n1, h, radix, inverse, cdtype, device)):
+        raise ValueError(f"twiddles do not match this fold: plan "
+                         f"{twiddles.n1}x{twiddles.n2}; call {n1}x{n2} "
+                         f"(packed {n1}x{h}) radix={radix} {cdtype} on "
+                         f"{device} inverse={inverse}")
+    if roots is None:
+        roots = half_roots(n2, inverse, cdtype, device=device)
+    return twiddles, roots
+
+
+def _count(kind: str, n1: int, n2: int, sigs: int, cdtype) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCH_SHAPES[(kind, n1, n2, sigs, str(cdtype).removeprefix("torch."))] \
+        += 1
+
+
+def rfft2(x: torch.Tensor, *, tile_b: int | None = None, radix: int = 8,
+          twiddles: Twiddles2 | None = None,
+          roots: torch.Tensor | None = None) -> torch.Tensor:
+    """numpy's rfftn over the last two axes of real ``x`` (n1 x n2, powers
+    of two, n2 even; float32 -> complex64, float64 -> complex128): n1 x
+    (n2/2 + 1) bins.  One launch for a tensor on the card: the real tile
+    read as n1 x n2/2 complex points, the unpack (the reversal mod both
+    axes) in the kernel's last pass.  The packed tile must fit one block
+    (``ONE_BLOCK_ELEMS``).  ``twiddles`` is the packed tile's forward plan
+    (``make_twiddles2(n1, n2 // 2, ...)``), ``roots`` ``half_roots(n2)``.
+    On a CPU tensor: ``fft/rfft.py``'s ``rfftn_packed`` around the plain
+    stages."""
+    if x.ndim < 2:
+        raise ValueError(f"rfft2 needs rank >= 2 input, got shape "
+                         f"{tuple(x.shape)}")
+    if x.is_complex():
+        raise TypeError(f"rfft2 takes real input, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.to(torch.float32)
+    cdtype = torch.complex128 if x.dtype == torch.float64 \
+        else torch.complex64
+    n1, n2 = x.shape[-2], x.shape[-1]
+    twiddles, roots = _fold_plan(n1, n2, radix, False, cdtype, x.device,
+                                 twiddles, roots)
+    if x.device.type == "cpu":
+        return rfft_mod.rfftn_packed(x, lambda z: fft2(
+            z, False, radix=radix, twiddles=twiddles), 2, roots)
+    if x.device.type != "cuda":
+        raise ValueError(f"fft2_pallas runs on cuda or cpu, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("fft2_pallas rfft2 needs a contiguous tensor (the "
+                         "two transformed axes last, row-major)")
+    h = n2 // 2
+    sigs = x.numel() // (n1 * n2)
+    y = torch.empty((*x.shape[:-1], h + 1), dtype=cdtype, device=x.device)
+    if sigs:
+        _launch_block(x, y, twiddles, sigs, tile_b, False, block.EVEN, roots,
+                      f"{n1}x{n2} (packed {n1}x{h})", cdtype, nyq=h,
+                      out_sig=n1 * (h + 1), out_row=h + 1)
+        _count("rfft2", n1, n2, sigs, cdtype)
+    return y
+
+
+def irfft2(y: torch.Tensor, n2: int, *, tile_b: int | None = None,
+           radix: int = 8, twiddles: Twiddles2 | None = None,
+           roots: torch.Tensor | None = None) -> torch.Tensor:
+    """numpy's irfftn over the last two axes of ``y`` (n1 x (n2/2 + 1)
+    bins; the output n1 x n2 reals, 1/(n1 n2) applied).  One launch for a
+    tensor on the card: the pack in the kernel's first pass, the real
+    output stored as n1 x n2/2 complex points.  ``twiddles`` is the packed
+    tile's inverse plan, ``roots`` ``half_roots(n2, inverse=True)``.  On a
+    CPU tensor: ``fft/rfft.py``'s ``irfftn_packed`` around the plain
+    stages."""
+    if y.ndim < 2:
+        raise ValueError(f"irfft2 needs rank >= 2 input, got shape "
+                         f"{tuple(y.shape)}")
+    cdtype = y.dtype if y.is_complex() else (
+        torch.complex128 if y.dtype == torch.float64 else torch.complex64)
+    if cdtype not in _CDTYPES:
+        raise TypeError(f"irfft2 takes complex64/complex128, got {y.dtype}")
+    y = y.to(cdtype)
+    n1 = y.shape[-2]
+    if y.shape[-1] != n2 // 2 + 1:
+        raise ValueError(f"irfft2 of n2={n2} takes {n2 // 2 + 1} bins, got "
+                         f"{y.shape[-1]}")
+    twiddles, roots = _fold_plan(n1, n2, radix, True, cdtype, y.device,
+                                 twiddles, roots)
+    if y.device.type == "cpu":
+        return rfft_mod.irfftn_packed(y, (n1, n2), lambda z, inverse=False:
+                                      fft2(z, inverse, radix=radix,
+                                           twiddles=twiddles), roots)
+    if y.device.type != "cuda":
+        raise ValueError(f"fft2_pallas runs on cuda or cpu, got {y.device}")
+    if not y.is_contiguous():
+        raise ValueError("fft2_pallas irfft2 needs a contiguous tensor (the "
+                         "two transformed axes last, row-major)")
+    h = n2 // 2
+    sigs = y.numel() // (n1 * (h + 1))
+    x = torch.empty((*y.shape[:-1], n2), dtype=sp._real_dtype(cdtype),
+                    device=y.device)
+    if sigs:
+        _launch_block(y, x, twiddles, sigs, tile_b, True, block.EVEN, roots,
+                      f"{n1}x{n2} (packed {n1}x{h})", cdtype, nyq=h,
+                      in_sig=n1 * (h + 1), in_row=h + 1)
+        _count("irfft2", n1, n2, sigs, cdtype)
+    return x

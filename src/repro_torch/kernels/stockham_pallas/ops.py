@@ -1,12 +1,18 @@
 """Public wrapper of the fused Stockham kernel: schedule, twiddle packing
-(host float64), shared-memory sizing, launch, normalization.
+(host float64), the one-block kernel's register passes (``block_layout``:
+the stages grouped into passes, the threads, the padded shared-memory
+layouts), launch, normalization.
 
 ``fft`` launches the CUDA kernel (``repro_torch/csrc/stockham.cu``) for a
-tensor on the card and takes the plain version (``ref.apply_stages``, or
+tensor on the card and takes the plain version (``ref.apply_passes``, or
 ``ref.apply_two_pass`` over the one-block cap) only for a tensor on the
 CPU.  An axis that one block holds runs in one launch; a longer one, up
 to the reference's 2^20, in two column passes through global memory
-(``TwoPass``).  ``LAUNCHES`` counts kernel launches.
+(``TwoPass``).  ``rfft`` / ``irfft`` are the real-input folds of one
+block's axis (``csrc/stockham_fold.cu``): numpy's rfft / irfft along the
+last axis in one launch, the R2C pack and unpack inside the kernel; on a
+CPU tensor they run ``fft/rfft.py``'s packing around the plain stages.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,8 +26,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...fft import rfft as rfft_mod
+from ...fft.reference import half_roots
 from .. import _build
-from .ref import apply_stages, apply_two_pass
+from . import block
+from .ref import apply_passes, apply_two_pass
 from .stockham_pallas import radix_schedule, smooth7
 
 #: Shared memory one block may use on Hopper (227 KB).
@@ -40,9 +49,10 @@ LAUNCH_SHAPES: Counter = Counter()
 
 
 def smem_bytes(n: int, tile_b: int, itemsize: int, n_stages: int) -> int:
-    """Dynamic shared memory of one block: two ping-pong buffers of
-    ``tile_b`` rows, or none for a single-stage schedule (global in, global
-    out).  ``itemsize`` is the complex element size."""
+    """The most dynamic shared memory one block can need: two buffers of
+    ``tile_b`` rows (the fallback of ``block_layout``; one padded buffer,
+    its rule, is less), or none for a single-stage schedule (global in,
+    global out).  ``itemsize`` is the complex element size."""
     return 2 * tile_b * n * itemsize if n_stages > 1 else 0
 
 
@@ -208,9 +218,9 @@ def _from_planes(twr: np.ndarray, twi: np.ndarray,
                  device) -> Twiddles:
     radices = tuple(len(o) + 1 for o in offsets)
     length = packed_length(radices)
-    return Twiddles(int(np.prod(radices)), radices, stage_bases(offsets),
-                    interleave(twr[0, :length], twi[0, :length], dtype,
-                               device),
+    tw = interleave(twr[0, :length], twi[0, :length], dtype, device) \
+        if length else torch.zeros(1, dtype=dtype, device=device)
+    return Twiddles(int(np.prod(radices)), radices, stage_bases(offsets), tw,
                     direction_of(twi[0, :length]))
 
 
@@ -296,9 +306,9 @@ def twiddles_from_reference(twr: np.ndarray, twi: np.ndarray,
 
 
 def default_tile_b(n: int, batch: int, itemsize: int, n_stages: int) -> int:
-    """Rows per block: as many as fill ``SMEM_TARGET_BYTES`` (at least
-    one), never more than the batch."""
-    per_row = max(1, smem_bytes(n, 1, itemsize, max(n_stages, 2)))
+    """Rows per block: as many as fill ``SMEM_TARGET_BYTES`` with one
+    padded buffer (at least one), never more than the batch."""
+    per_row = max(1, (n + n // 16) * itemsize if n_stages > 1 else 0)
     return max(1, min(batch, SMEM_TARGET_BYTES // per_row))
 
 
@@ -341,16 +351,11 @@ def fft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
 
 @functools.cache
 def _kernel(dtype: torch.dtype):
-    """The library's entry point for ``dtype``, its signature set once."""
-    lib = _build.library("stockham")
-    fn = lib.stockham_fft_f64 if dtype == torch.complex128 \
-        else lib.stockham_fft_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The library's one-block entry for complex ``dtype`` (complex
+    transforms and the folds), its signature set once."""
+    if dtype == torch.complex128:
+        return block.entry(_build.library("stockham64").stockham_block_f64)
+    return block.entry(_build.library("stockham").stockham_block_f32)
 
 
 @functools.cache
@@ -424,6 +429,36 @@ def run_two_pass(x: torch.Tensor, y: torch.Tensor, plan: TwoPass,
     return 2
 
 
+def layout(twiddles: Twiddles, tile: int, itemsize: int,
+           mode: int = block.C2C, inverse: bool = False) -> block.Layout:
+    """The one-block kernel's launch of ``tile`` rows under ``twiddles``
+    (``block.block_layout`` over its schedule)."""
+    return block.block_layout(1, twiddles.n, twiddles.radices,
+                              twiddles.bases, (), (), tile, itemsize, mode,
+                              inverse)
+
+
+def _tile(n: int, rows: int, itemsize: int, n_stages: int,
+          tile_b: int | None, dtype: torch.dtype) -> int:
+    tile = tile_b if tile_b is not None else default_tile_b(
+        n, rows, itemsize, n_stages)
+    tile = min(tile, rows)
+    if tile < 1 or tile * n >= 1 << 30:
+        raise ValueError(f"tile_b={tile_b} does not fit one block for n={n} "
+                         f"{dtype} (shared memory limit {SMEM_LIMIT_BYTES} "
+                         "bytes)")
+    return tile
+
+
+def _fits(twiddles: Twiddles, tile: int, itemsize: int, mode: int,
+          inverse: bool, tile_b: int | None, dtype) -> block.Layout:
+    try:
+        return layout(twiddles, tile, itemsize, mode, inverse)
+    except ValueError as err:
+        raise ValueError(f"tile_b={tile_b} does not fit one block for "
+                         f"n={twiddles.n} {dtype}: {err}") from None
+
+
 def run_one_block(x: torch.Tensor, y: torch.Tensor, twiddles: Twiddles,
                   inverse: bool, tile_b: int | None) -> int:
     """One launch of the one-block kernel along the last axis of ``x``
@@ -432,25 +467,24 @@ def run_one_block(x: torch.Tensor, y: torch.Tensor, twiddles: Twiddles,
     n = x.shape[-1]
     rows = x.numel() // n
     itemsize = x.element_size()
-    n_stages = len(twiddles.radices)
-    tile = tile_b if tile_b is not None else default_tile_b(
-        n, rows, itemsize, n_stages)
-    tile = min(tile, rows)
-    if tile < 1 or smem_bytes(n, tile, itemsize, n_stages) > SMEM_LIMIT_BYTES \
-            or tile * n >= 1 << 30:
-        raise ValueError(f"tile_b={tile_b} does not fit one block for n={n} "
-                         f"{x.dtype} (shared memory limit "
-                         f"{SMEM_LIMIT_BYTES} bytes)")
-    fn = _kernel(x.dtype)
-    radices, bases = _c_ints(twiddles.radices), _c_ints(twiddles.bases)
+    tile = _tile(n, rows, itemsize, len(twiddles.radices), tile_b, x.dtype)
+    lay = _fits(twiddles, tile, itemsize, block.C2C, inverse, tile_b,
+                x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), twiddles.tw.data_ptr(), rows, n,
-                 tile, int(inverse), n_stages, radices, bases, stream)
+        err = _kernel(x.dtype)(
+            x.data_ptr(), y.data_ptr(), twiddles.tw.data_ptr(), None,
+            ctypes.byref(_struct(lay)), rows, int(inverse), lay.family,
+            1.0 / n, lay.threads, lay.smem, stream)
     if err != 0:
         raise RuntimeError(f"stockham kernel launch failed: cudaError_t {err} "
                            f"(n={n}, rows={rows}, tile_b={tile}, {x.dtype})")
     return 1
+
+
+@functools.lru_cache(maxsize=1024)
+def _struct(lay: block.Layout, **fold) -> block.BlockPlanC:
+    return lay.struct(**fold)
 
 
 def run_plan(x: torch.Tensor, y: torch.Tensor, plan: Twiddles | TwoPass,
@@ -478,7 +512,10 @@ def plain(x: torch.Tensor, plan: Twiddles | TwoPass,
                               (t1.tw, t1.radices, t1.bases),
                               (t2.tw, t2.radices, t2.bases), plan.roots,
                               inverse)
-    return apply_stages(x, plan.tw, plan.radices, plan.bases, inverse)
+    groups = tuple(1 if p.rb == 1 else 2 for p in block.group_passes(
+        1, plan.n, plan.radices, plan.bases, (), (), 1, x.element_size())[0]
+        if p.ra > 1)   # a one-point plan's identity pass has no stage
+    return apply_passes(x, plan.tw, plan.radices, plan.bases, groups, inverse)
 
 
 def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
@@ -493,3 +530,162 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
     LAUNCHES += launched
     LAUNCH_SHAPES[(n, rows, str(x.dtype).removeprefix("torch."))] += launched
     return y
+
+
+# ---------------------------------------------------------------------------
+# the real-input folds: numpy's rfft / irfft along the last axis in one
+# launch of the one-block kernel (csrc/stockham_fold.cu)
+# ---------------------------------------------------------------------------
+def _real_dtype(cdtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if cdtype == torch.complex128 else torch.float32
+
+
+def _fold_plan(n: int, radix: int, inverse: bool, cdtype: torch.dtype,
+               device, twiddles: Twiddles | None, roots: torch.Tensor | None
+               ) -> tuple[Twiddles, torch.Tensor | None]:
+    """The fold's plan: the one-block twiddles of the packed length (n/2
+    for an even n, n for an odd one) and, for an even n, the pack table
+    ``half_roots(n)``; raises for a length the fold does not take (over
+    one block, or not 7-smooth) or a plan that does not match."""
+    m = n // 2 if n % 2 == 0 else n
+    if not smooth7(m) or m > ONE_BLOCK_N[cdtype]:
+        raise ValueError(f"the stockham_pallas fold takes a 7-smooth packed "
+                         f"length within one block (<= {ONE_BLOCK_N[cdtype]} "
+                         f"for {cdtype}); got n={n}")
+    if twiddles is None:
+        twiddles = make_twiddles(m, radix, inverse, cdtype, device)
+    elif not (isinstance(twiddles, Twiddles)
+              and _matches(twiddles, m, radix, inverse, cdtype, device)):
+        raise ValueError(f"twiddles do not match this fold: plan "
+                         f"{_describe(twiddles)}; call n={n} (packed {m}) "
+                         f"radix={radix} {cdtype} on {device} "
+                         f"inverse={inverse}")
+    if n % 2 == 0 and roots is None:
+        roots = half_roots(n, inverse, cdtype, device=device)
+    return twiddles, roots
+
+
+def fold_layout(n: int, twiddles: Twiddles, tile: int, itemsize: int,
+                inverse: bool) -> block.Layout:
+    """The fold's launch of ``tile`` rows of length ``n``."""
+    mode = block.EVEN if n % 2 == 0 else block.ODD
+    return layout(twiddles, tile, itemsize, mode, inverse)
+
+
+def _fold_struct(n: int, lay: block.Layout, inverse: bool):
+    bins = n // 2 + 1
+    nyq = n // 2
+    return _struct(lay, nyq=nyq, **({"in_sig": bins, "in_row": bins}
+                                    if inverse else
+                                    {"out_sig": bins, "out_row": bins}))
+
+
+def _run_fold(x: torch.Tensor, y: torch.Tensor, n: int, rows: int,
+              twiddles: Twiddles, roots, inverse: bool,
+              tile_b: int | None, cdtype: torch.dtype) -> None:
+    m = twiddles.n
+    itemsize = 16 if cdtype == torch.complex128 else 8
+    tile = _tile(m, rows, itemsize, len(twiddles.radices), tile_b, cdtype)
+    try:
+        lay = fold_layout(n, twiddles, tile, itemsize, inverse)
+    except ValueError as err:
+        raise ValueError(f"tile_b={tile_b} does not fit one block for "
+                         f"n={n} {cdtype}: {err}") from None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel(cdtype)(
+            x.data_ptr(), y.data_ptr(), twiddles.tw.data_ptr(),
+            roots.data_ptr() if roots is not None else None,
+            ctypes.byref(_fold_struct(n, lay, inverse)), rows, int(inverse),
+            lay.family, 1.0 / (n if n % 2 else m), lay.threads, lay.smem,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"stockham fold launch failed: cudaError_t {err} "
+                           f"(n={n}, rows={rows}, tile_b={tile}, {cdtype}, "
+                           f"inverse={inverse})")
+
+
+def _count(kind: str, n: int, rows: int, cdtype: torch.dtype) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCH_SHAPES[(kind, n, rows, str(cdtype).removeprefix("torch."))] += 1
+
+
+def rfft(x: torch.Tensor, *, tile_b: int | None = None, radix: int = 8,
+         twiddles: Twiddles | None = None,
+         roots: torch.Tensor | None = None) -> torch.Tensor:
+    """numpy's rfft along the last axis of real ``x`` (float32 ->
+    complex64, float64 -> complex128; other reals cast to float32): n//2+1
+    bins.  One launch of the fold kernel for a tensor on the card: an even
+    n packed as n/2 complex points with the unpack in the kernel's last
+    pass, an odd n as real values with bins 0..n/2 stored.  The packed
+    length must be 7-smooth and within one block (``ONE_BLOCK_N``).
+    ``twiddles`` is the packed length's forward plan (``make_twiddles``),
+    ``roots`` the even n's ``half_roots(n)``.  On a CPU tensor:
+    ``fft/rfft.py``'s packing around the plain stages."""
+    if x.is_complex():
+        raise TypeError(f"rfft takes real input, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.to(torch.float32)
+    cdtype = torch.complex128 if x.dtype == torch.float64 \
+        else torch.complex64
+    n = x.shape[-1]
+    if n == 1:
+        return x.to(cdtype)   # the one-point DFT is the identity
+    twiddles, roots = _fold_plan(n, radix, False, cdtype, x.device, twiddles,
+                                 roots)
+    if x.device.type == "cpu":
+        return rfft_mod.rfft(x, lambda z: fft(z, False, radix=radix,
+                                              twiddles=twiddles), roots)
+    if x.device.type != "cuda":
+        raise ValueError(f"stockham_pallas runs on cuda or cpu, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("stockham_pallas rfft needs a contiguous tensor "
+                         "(the transformed axis last, unit stride)")
+    rows = x.numel() // n
+    y = torch.empty((*x.shape[:-1], n // 2 + 1), dtype=cdtype,
+                    device=x.device)
+    if rows:
+        _run_fold(x, y, n, rows, twiddles, roots, False, tile_b, cdtype)
+        _count("rfft", n, rows, cdtype)
+    return y
+
+
+def irfft(y: torch.Tensor, n: int, *, tile_b: int | None = None,
+          radix: int = 8, twiddles: Twiddles | None = None,
+          roots: torch.Tensor | None = None) -> torch.Tensor:
+    """numpy's irfft along the last axis of ``y`` (n//2+1 bins; the output
+    has n reals; 1/n applied).  One launch of the fold kernel for a tensor
+    on the card: an even n's pack in the kernel's first pass and the real
+    output stored as n/2 complex points, an odd n's Hermitian half rebuilt
+    on load and the real parts stored.  ``twiddles`` is the packed
+    length's inverse plan, ``roots`` the even n's ``half_roots(n,
+    inverse=True)``.  On a CPU tensor: ``fft/rfft.py``'s packing around
+    the plain stages."""
+    cdtype = y.dtype if y.is_complex() else (
+        torch.complex128 if y.dtype == torch.float64 else torch.complex64)
+    if cdtype not in _CDTYPES:
+        raise TypeError(f"irfft takes complex64/complex128, got {y.dtype}")
+    y = y.to(cdtype)
+    if y.shape[-1] != n // 2 + 1:
+        raise ValueError(f"irfft of n={n} takes {n // 2 + 1} bins, got "
+                         f"{y.shape[-1]}")
+    if n == 1:
+        return y.real.contiguous()   # the one-point DFT is the identity
+    twiddles, roots = _fold_plan(n, radix, True, cdtype, y.device, twiddles,
+                                 roots)
+    if y.device.type == "cpu":
+        return rfft_mod.irfft(y, n, lambda z, inverse=False: fft(
+            z, inverse, radix=radix, twiddles=twiddles), roots)
+    if y.device.type != "cuda":
+        raise ValueError(f"stockham_pallas runs on cuda or cpu, got {y.device}")
+    if not y.is_contiguous():
+        raise ValueError("stockham_pallas irfft needs a contiguous tensor "
+                         "(the transformed axis last, unit stride)")
+    rows = y.numel() // (n // 2 + 1)
+    x = torch.empty((*y.shape[:-1], n), dtype=_real_dtype(cdtype),
+                    device=y.device)
+    if rows:
+        _run_fold(y, x, n, rows, twiddles, roots, True, tile_b, cdtype)
+        _count("irfft", n, rows, cdtype)
+    return x

@@ -8,7 +8,10 @@ the reference package, so it also runs where JAX is not installed:
 Tolerances: the kernel against its plain PyTorch version, rel-L2 <= 1e-5
 in float and <= 1e-12 in double (the same algorithm and twiddles, only the
 summation order differs); against ``torch.fft`` the suite's bar, 1e-3 and
-1e-8.  The fftconv kernel (float32 only) is held at 1e-5 against its plain
+1e-8.  The real-input folds (``ops.rfft`` / ``irfft``, ``rfft2`` /
+``irfft2``) hold the same bars against their plain versions
+(``fft/rfft.py``'s packing around the plain stages) and
+``torch.fft.rfft`` / ``irfft`` / ``rfftn`` / ``irfftn``.  The fftconv kernel (float32 only) is held at 1e-5 against its plain
 version and against the float64 ``torch.fft`` oracle: a float32 model of
 its arithmetic agrees with float64 convolution to ~3e-7 at n = 16384.
 """
@@ -22,6 +25,8 @@ from repro_torch.core.clients.torch_fft import (TorchFft2Pallas, TorchPlanned,
                                                 TorchStockhamPallas)
 from repro_torch.core.suite import Session, SuiteSpec
 from repro_torch.core.tree import BenchNode
+from repro_torch.fft import rfft as rfft_mod
+from repro_torch.fft.reference import half_roots
 from repro_torch.kernels.dft_matmul import ops as dft_ops
 from repro_torch.kernels.dft_matmul import ref as dft_ref
 from repro_torch.kernels.fft2_pallas import ops as f2_ops
@@ -79,9 +84,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="caps at"):
         ops.fft(torch.zeros((1, 1 << 21), dtype=torch.complex64,
                             device=cuda_device))
-    with pytest.raises(ValueError, match="tile_b"):
-        ops.fft(torch.zeros((4, 4096), dtype=torch.complex64,
-                            device=cuda_device), tile_b=4)
+    with pytest.raises(ValueError, match="tile_b"):   # 8 rows: 256 KB
+        ops.fft(torch.zeros((8, 4096), dtype=torch.complex64,
+                            device=cuda_device), tile_b=8)
     with pytest.raises(ValueError, match="tile_b"):   # two passes: no tile
         ops.fft(torch.zeros((4, 16384), dtype=torch.complex64,
                             device=cuda_device), tile_b=1)
@@ -391,3 +396,121 @@ def test_kernel_table_on_card(cuda_device):
         assert not rs.failures(), [r.error for r in rs.failures()]
         assert len(rs.query(op="validate")) == len(spec.clients)
     assert conv_ops.LAUNCHES > before
+
+
+def _fold_rows(rows, shape, real, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((rows, *shape))).to(device,
+                                                                    real)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_stockham_folds_against_plain_and_library(cuda_device, dtype):
+    """rfft / irfft along the last axis: even and odd n, n = 2 (one packed
+    point), P1's, P4's and P5's axes, the largest even and odd lengths one
+    block folds; 37 rows in tiles of 1, 8 (a ragged last tile) and the
+    default; one launch a call."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    item = 16 if dtype == torch.complex128 else 8
+    cap = ops.ONE_BLOCK_N[dtype]
+    odd_cap = max(m for m in range(1, cap + 1, 2) if ops.smooth7(m))
+    for n in (2, 3, 4, 5, 12, 15, 256, 945, 1536, 2 * cap, odd_cap):
+        m = n // 2 if n % 2 == 0 else n
+        x = _fold_rows(37, (n,), real, cuda_device, n)
+        fwd = ops.make_twiddles(m, 8, False, dtype, cuda_device)
+        inv = ops.make_twiddles(m, 8, True, dtype, cuda_device)
+        rf = half_roots(n, False, dtype, device=cuda_device) if n % 2 == 0 \
+            else None
+        ri = half_roots(n, True, dtype, device=cuda_device) if n % 2 == 0 \
+            else None
+        lib = torch.fft.rfft(x)
+        plain = rfft_mod.rfft(x, lambda z: ops.plain(z, fwd, False), rf)
+        plain_i = rfft_mod.irfft(lib, n, lambda z, inverse=False:
+                                 ops.plain(z, inv, True) / m, ri)
+        tiles = (1, 8, None) if ops.smem_bytes(m, 8, item, 2) \
+            <= ops.SMEM_LIMIT_BYTES else (1, None)
+        for tile in tiles:
+            before = ops.LAUNCHES
+            y = ops.rfft(x, tile_b=tile, twiddles=fwd, roots=rf)
+            back = ops.irfft(lib, n, tile_b=tile, twiddles=inv, roots=ri)
+            torch.cuda.synchronize(cuda_device)
+            assert ops.LAUNCHES == before + 2
+            assert y.shape == (37, n // 2 + 1) and back.shape == (37, n)
+            case = (n, tile)
+            assert rel_l2(y, plain) <= PLAIN_TOL[dtype], case
+            assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], case
+            assert rel_l2(back, plain_i) <= PLAIN_TOL[dtype], case
+            assert rel_l2(back, x) <= LIBRARY_TOL[dtype], case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_fft2_folds_against_plain_and_library(cuda_device, dtype):
+    """rfft2 / irfft2 over the last two axes: the packed tile from 1 x 1
+    (n2 = 2) to one block's cap, long rows and long columns, 37 signals in
+    tiles of 1, 8 where it fits and the default; one launch a call."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    item = 16 if dtype == torch.complex128 else 8
+    shapes = ((1, 2), (2, 2), (4, 16), (16, 4), (8, 256), (4096, 2),
+              (2, 8192 if dtype == torch.complex64 else 4096),
+              (128, 128) if dtype == torch.complex64 else (64, 128))
+    for n1, n2 in shapes:
+        h = n2 // 2
+        x = _fold_rows(37, (n1, n2), real, cuda_device, n1 + n2)
+        fwd = f2_ops.make_twiddles2(n1, h, 8, False, dtype, cuda_device)
+        inv = f2_ops.make_twiddles2(n1, h, 8, True, dtype, cuda_device)
+        rf = half_roots(n2, False, dtype, device=cuda_device)
+        ri = half_roots(n2, True, dtype, device=cuda_device)
+        lib = torch.fft.rfft2(x)
+        plain = rfft_mod.rfftn_packed(x, lambda z: f2_ops.plain(z, fwd, False),
+                                      2, rf)
+        plain_i = rfft_mod.irfftn_packed(
+            lib, (n1, n2), lambda z, inverse=False:
+            f2_ops.plain(z, inv, True) / (n1 * h), ri)
+        tiles = (1, 8, None) if f2_ops.smem_bytes(n1 * h, 8, item, 2) \
+            <= f2_ops.SMEM_LIMIT_BYTES else (1, None)
+        for tile in tiles:
+            before = f2_ops.LAUNCHES
+            y = f2_ops.rfft2(x, tile_b=tile, twiddles=fwd, roots=rf)
+            back = f2_ops.irfft2(lib, n2, tile_b=tile, twiddles=inv,
+                                 roots=ri)
+            torch.cuda.synchronize(cuda_device)
+            assert f2_ops.LAUNCHES == before + 2
+            case = (n1, n2, tile)
+            assert rel_l2(y, plain) <= PLAIN_TOL[dtype], case
+            assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], case
+            assert rel_l2(back, plain_i) <= PLAIN_TOL[dtype], case
+            assert rel_l2(back, x) <= LIBRARY_TOL[dtype], case
+
+
+@pytest.mark.cuda
+def test_fold_wrappers_raise_on_the_card(cuda_device):
+    """A CUDA tensor the fold does not take raises: no other path."""
+    with pytest.raises(ValueError, match="within one block"):
+        ops.rfft(torch.zeros((1, 32768), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rfft(torch.zeros((16, 4), device=cuda_device).T)
+    with pytest.raises(ValueError, match="within one block"):
+        f2_ops.rfft2(torch.zeros((1, 128, 256), device=cuda_device))
+    with pytest.raises(ValueError, match="tile_b"):
+        f2_ops.rfft2(torch.zeros((8, 128, 128), device=cuda_device),
+                     tile_b=8)
+
+
+@pytest.mark.cuda
+def test_session_real_kinds_launch_the_folds(cuda_device):
+    """Real kinds on the Stockham and fft2 clients launch the folds (their
+    own keys in ``LAUNCH_SHAPES``) and validate."""
+    session = Session(TorchContext())
+    for cls, ext, mod, keys in (
+            (TorchStockhamPallas, (945,), ops, {"rfft", "irfft"}),
+            (TorchStockhamPallas, (64, 96), ops, {"rfft", "irfft"}),
+            (TorchFft2Pallas, (64, 64), f2_ops, {"rfft2", "irfft2"})):
+        for precision in ("float", "double"):
+            mod.LAUNCH_SHAPES.clear()
+            rs = session.run(SuiteSpec(output=None), nodes=[BenchNode(
+                cls, Problem(ext, "Outplace_Real", precision, 3))])
+            assert not rs.failures(), [r.error for r in rs.failures()]
+            folds = {k[0] for k in mod.LAUNCH_SHAPES if isinstance(k[0], str)}
+            assert folds == keys, (cls.title, ext, precision, folds)

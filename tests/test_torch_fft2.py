@@ -3,7 +3,7 @@
 Inputs come from a seeded numpy generator and go through both packages:
 the reference's ``fft2_pallas`` runs in Pallas interpret mode, the port's
 ``ops.fft2`` on a CPU tensor takes the kernel's plain version
-(``ref.apply2``), fed the reference's own twiddle pack
+(``ref.apply2_passes``), fed the reference's own twiddle pack
 (``twiddles_from_reference``).
 
 Tolerance: rel-L2 <= 1e-5 in float, <= 1e-12 in double against the

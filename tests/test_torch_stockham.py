@@ -3,7 +3,8 @@
 Inputs come from a seeded numpy generator and go through both packages:
 the reference's ``stockham_pallas`` runs in Pallas interpret mode, the
 port's ``ops.fft`` on a CPU tensor takes the kernel's plain version
-(``ref.apply_stages``) with the same packed twiddles.
+(``ref.apply_passes``, the kernel's stages in its register passes) with
+the same packed twiddles.
 
 Tolerance: rel-L2 <= 1e-5 in float, <= 1e-12 in double.  Both sides run
 the same algorithm (the same radix schedule, the same float64-computed
