@@ -32,16 +32,30 @@
    Outplace_Real under ``TorchFft2Pallas``) through ``Session.run``, each
    with the launch counts set to 0 just before it and read just after:
    each validates and launches its own kernel and no other;
-7. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P9 (the
+7. drives the large-N and oddshape paths at full size (P10-P14, about
+   512 MiB each way): ``Session.run`` of ``TorchSixStep`` on P10-P11,
+   ``TorchChirpZPallas`` on P12-P14, ``TorchBluestein`` on P12-P14 and
+   ``TorchFFT`` on P10-P14, each node validated, with the launch counts
+   set to 0 just before it and read just after: a six-step node launches
+   the Stockham and four-step kernels and no other, a chirp-Z node the
+   Stockham kernel (and the four-step kernel at P12, whose padded m = 2^18
+   runs six-step), the Bluestein baseline and torch.fft none;
+8. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P14 (the
    reference's picks, each node launching its pick's kernels and no
    other; the ``dft_matmul`` kernel's main path, on P8 and P9), under
-   MEASURE with a wisdom file under ``build/`` (every candidate of the
-   port's ``candidates()`` built and timed finite), the pinned kernel
-   clients under PATIENT into the same file (each sweeping only its own
-   knobs), every swept candidate's forward against torch.fft's on
-   MEASURE's input, then under WISDOM_ONLY on that file (every node
-   planned from wisdom, launching only the recorded pick's kernels);
-8. holds the fused fftconv kernel against its plain version and the
+   MEASURE on P1-P9 and P12-P14 with a wisdom file under ``build/``
+   (every candidate of the port's ``candidates()`` built and timed
+   finite), the pinned kernel clients under PATIENT into the same file
+   (each sweeping only its own knobs; ``TorchSixStep`` on P10,
+   ``TorchChirpZPallas`` on P13), every swept candidate's forward against
+   torch.fft's on MEASURE's input, then under WISDOM_ONLY on that file
+   (every node planned from wisdom, launching only the recorded pick's
+   kernels);
+9. runs the ported ``backends`` and ``radix`` tables (the paper's Figs. 6
+   and 7) through ``Session.run``: every node its client supports
+   validates, the others are failed nodes; then their entry point
+   ``python -m repro_torch.benchmarks.run backends radix``;
+10. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -50,17 +64,18 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-9. holds each kernel against its plain version at every shape the main
-   path, the backends nodes and the sweeps launched it with (radix 8 and the default tile,
-   both directions; fftconv against its plain version and the float64
-   oracle), then times it at the main path's shapes beside its plain
-   version, the library call (``torch.fft``; for fftconv the unfused
-   ``torch.fft`` path) and its bound, and sweeps the batch tile of the
-   fftconv and four-step kernels there (the check on their defaults);
-   then checks and times the multi-pass paths, the fused rank-2 kernel's
-   complex transform of P6's tile and the dft kernel's direct product at
-   512 MiB shapes (``EXTRA_TIMING``);
-10. prints the kernel summary and, as the last line,
+11. holds each kernel against its plain version at every shape the main
+   path (P1-P14), the backends nodes and the sweeps launched it with
+   (radix 8 and the default tile, both directions; fftconv against its
+   plain version and the float64 oracle), then times it at the main
+   path's shapes beside its plain version, the library call
+   (``torch.fft``; for fftconv the unfused ``torch.fft`` path) and its
+   bound, and sweeps the batch tile of the fftconv and four-step kernels
+   there (the check on their defaults); then checks and times the
+   multi-pass paths, the fused rank-2 kernel's complex transform of P6's
+   tile and the dft kernel's direct product at 512 MiB shapes
+   (``EXTRA_TIMING``);
+12. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -169,8 +184,32 @@ PROBLEMS = (
     ("P7", (64, 64), "Inplace_Complex", "double", 8192),
     ("P8", (128,), "Outplace_Complex", "float", 524288),
     ("P9", (100,), "Inplace_Real", "double", 655360),
+    ("P10", (1 << 22,), "Outplace_Complex", "float", 16),
+    ("P11", (1 << 24,), "Inplace_Complex", "double", 2),
+    ("P12", (19 ** 4,), "Outplace_Complex", "float", 512),
+    ("P13", (19 ** 3,), "Inplace_Real", "double", 8192),
+    ("P14", (361, 361), "Outplace_Real", "float", 1024),
 )
 ALL = ("P1", "P2", "P3", "P4", "P5", "P6", "P7")
+#: The large-N and oddshape problems, about 512 MiB each way: six-step at
+#: 256 x 16384 (P10) and at its cap 1024 x 16384 in complex128 (P11), the
+#: chirp-Z path on powers of 19 (P12: "auto" runs six-step at m = 2^18;
+#: P13: an odd real axis, m = 13720 complex128, the Stockham kernel's two
+#: column passes; P14: per axis, m = 729 in one block).
+LARGE = ("P10", "P11", "P12", "P13", "P14")
+#: Their paths: (client, its problems, the kernels each node launches and
+#: no other).
+LARGE_PATHS = (
+    ("TorchSixStep", ("P10", "P11"), ("stockham_pallas", "fft4step")),
+    ("TorchChirpZPallas", ("P12",), ("stockham_pallas", "fft4step")),
+    ("TorchChirpZPallas", ("P13", "P14"), ("stockham_pallas",)),
+    ("TorchBluestein", ("P12", "P13", "P14"), ()),
+    ("TorchFFT", LARGE, ()),
+)
+#: The problems TorchPlanned plans under MEASURE (every candidate timed)
+#: and then WISDOM_ONLY: P1-P9 and the oddshape ones.
+MEASURE_NAMES = ("P1", "P2", "P3", "P4", "P5", "P6", "P7", "P8", "P9",
+                 "P12", "P13", "P14")
 #: A problem whose PATIENT grid holds fused rank-2 knobs (P6 and P7 sit at
 #: the kernel's cap, where no batch tile but the default fits a block).
 PATIENT_PROBLEMS = (
@@ -179,15 +218,18 @@ PATIENT_PROBLEMS = (
 #: The pinned clients' PATIENT paths: (client, problem); each sweeps only
 #: its own kernel's knobs.
 PATIENT_PATHS = (("TorchStockhamPallas", "P5"), ("TorchFourStepPallas", "P5"),
-                 ("TorchFft2Pallas", "F1"))
-#: TorchPlanned's ESTIMATE picks on P1-P9: the reference's
+                 ("TorchFft2Pallas", "F1"), ("TorchSixStep", "P10"),
+                 ("TorchChirpZPallas", "P13"))
+#: TorchPlanned's ESTIMATE picks on P1-P14: the reference's
 #: ``repro.core.costmodel.estimate_choice`` (tests/test_torch_planner.py
 #: holds the port's picks to it).
 ESTIMATE_PICKS = {"P1": "xla", "P2": "xla", "P3": "fourstep_pallas",
                   "P4": "xla", "P5": "fourstep_pallas", "P6": "fft2_pallas",
-                  "P7": "fft2_pallas", "P8": "dft", "P9": "dft"}
+                  "P7": "fft2_pallas", "P8": "dft", "P9": "dft",
+                  "P10": "xla", "P11": "xla", "P12": "xla",
+                  "P13": "chirpz_pallas", "P14": "fourstep_pallas"}
 #: The kernel each planner backend launches (none for torch.fft and the
-#: plain-torch baselines).
+#: plain-torch baselines; six-step and chirp-Z: see ``_kernels_of``).
 BACKEND_KERNEL = {"stockham_pallas": "stockham_pallas",
                   "fourstep_pallas": "fft4step", "fft2_pallas": "fft2_pallas",
                   "dft": "dft_matmul"}
@@ -640,6 +682,130 @@ def run_backends_nodes(device) -> dict:
     return out
 
 
+def run_large_paths(device) -> dict:
+    """``Session.run`` of the large-N and oddshape paths (``LARGE_PATHS``):
+    each node validated, with the launch counts set to 0 just before it
+    and read just after, launching its path's kernels and no other.
+    Returns the node summaries, and per kernel the launches and launch
+    shapes of these paths."""
+    import gc
+
+    import torch
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.clients import torch_fft
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.core.tree import BenchNode
+
+    session = Session(TorchContext(device))
+    out = {"nodes": [], "launches": {}, "shapes": {}}
+    spec = SuiteSpec(warmups=1, repetitions=3, plan_cache=True, output=None)
+    for client, names, kernels in LARGE_PATHS:
+        cls = getattr(torch_fft, client)
+        for pname in names:
+            problem = _problem(pname)
+            _reset_counts()
+            t0 = time.perf_counter()
+            rs = session.run(spec, nodes=[BenchNode(cls, problem)])
+            counts = _read_counts()
+            val = rs.query(op="validate")
+            if rs.failures() or len(val) != 1 or not val[0].success:
+                raise AssertionError(f"{client} {pname} failed: "
+                                     f"{[r.error for r in rs.failures()]}")
+            launched = {k: c for k, (c, _) in counts.items() if c}
+            if set(launched) != set(kernels):
+                raise AssertionError(f"{client} {pname} should launch "
+                                     f"{sorted(kernels)} and no other, "
+                                     f"launched {launched}")
+            med = lambda op: statistics.median(
+                r.time_ms for r in rs.query(op=op) if r.run >= 0)
+            cold = [r.time_ms for r in rs.query(op="init_forward")
+                    if r.plan_cache == "miss"]
+            node = {"node": pname, "client": client,
+                    "extents": "x".join(map(str, problem.extents)),
+                    "kind": problem.kind, "precision": problem.precision,
+                    "batch": problem.batch, "device": val[0].device,
+                    "execute_forward_ms": med("execute_forward"),
+                    "execute_inverse_ms": med("execute_inverse"),
+                    "init_forward_cold_ms": cold[0] if cold else None,
+                    "launches": launched, "node_s": time.perf_counter() - t0}
+            emit(node)
+            out["nodes"].append(node)
+            for k in kernels:
+                out["launches"][k] = out["launches"].get(k, 0) + counts[k][0]
+                shapes = out["shapes"].setdefault(k, {})
+                for key, c in counts[k][1].items():
+                    shapes[key] = shapes.get(key, 0) + c
+            del rs
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({"main_path": "six-step, chirp-Z, Bluestein on P10-P14",
+          "launches": out["launches"]})
+    return out
+
+
+def run_tables(device) -> None:
+    """The ported ``backends`` and ``radix`` tables (the paper's Figs. 6
+    and 7): every spec through ``Session.run`` on the card, with the
+    launch counts set to 0 just before the tables and read just after.
+    Every node its client supports (``backend_supports``) validates; the
+    others (the Stockham kernel on 19^3) are failed nodes that ran no
+    transform; the tables launch the Stockham, four-step and fft2
+    kernels.  Then the entry point ``python -m
+    repro_torch.benchmarks.run backends radix`` prints one row for each
+    node that ran."""
+    from dataclasses import replace
+
+    from repro_torch.benchmarks import table_backends as tb
+    from repro_torch.benchmarks import table_radix as tr
+    from repro_torch.core.candidates import backend_supports
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.suite import Session
+
+    session = Session(TorchContext(device))
+    specs = [(f"backend/{tag}", spec) for tag, spec in tb.SPECS.items()]
+    specs.append(("radix", tr.SPEC))
+    t0 = time.perf_counter()
+    _reset_counts()
+    ran = 0
+    for name, spec in specs:
+        spec = replace(spec, repetitions=3)
+        rs = session.run(spec)
+        for node in spec.build_nodes():
+            cls, problem = node.client_cls, node.problem
+            ext = "x".join(map(str, problem.extents))
+            want = cls.backend_filter is None or backend_supports(
+                cls.backend_filter, problem)
+            val = rs.query(op="validate", library=cls.title, extents=ext)
+            fwd = rs.query(op="execute_forward", library=cls.title,
+                           extents=ext)
+            if len(val) != 1 or val[0].success != want or bool(fwd) != want:
+                raise AssertionError(
+                    f"table {name}: {cls.title} {ext} should "
+                    f"{'validate' if want else 'be a failed node'}: "
+                    f"{[(r.success, r.error) for r in val]}")
+            ran += want
+    launched = _counts()
+    emit({"tables": "backends radix", "nodes_ran": ran,
+          "launches": launched, "tables_s": time.perf_counter() - t0})
+    missing = [k for k in ("stockham_pallas", "fft4step", "fft2_pallas")
+               if not launched[k]]
+    if missing:
+        raise AssertionError(f"the tables did not launch {missing}")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "backends",
+         "radix"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+        capture_output=True, text=True, timeout=600)
+    rows = [line for line in out.stdout.splitlines()
+            if line.startswith(("backend/", "radix/"))]
+    emit({"tables_cli_rc": out.returncode, "rows": len(rows),
+          "cli_s": time.perf_counter() - t0})
+    if out.returncode != 0 or len(rows) != ran:
+        raise AssertionError(f"run backends radix: rc {out.returncode}, "
+                             f"{len(rows)} rows for {ran} nodes: "
+                             f"{out.stderr[-2000:]}")
+
+
 def _conv_inputs(device, gen, c, b, L, K):
     import torch
     x = torch.randn((c, b, L), device=device, generator=gen)
@@ -938,10 +1104,24 @@ def _problem(pname: str):
     return Problem(extents, kind, precision, batch)
 
 
-def _kernels_of(cand, rank: int) -> set:
-    """The kernels a plan runs (none for torch.fft and the baselines)."""
-    return {BACKEND_KERNEL[a.backend] for a in cand.per_axis(rank)
-            if a.backend in BACKEND_KERNEL}
+def _kernels_of(cand, problem) -> set:
+    """The kernels a plan runs on ``problem`` (none for torch.fft and the
+    baselines): a six-step axis the Stockham and four-step kernels (the
+    Stockham kernel alone below n = 4), a chirp-Z axis its padded
+    engine's as the card resolves it."""
+    from repro_torch.core.candidates import axis_engine_n
+    from repro_torch.fft.bluestein import resolve_engine
+    out = set()
+    for i, a in enumerate(cand.per_axis(problem.rank)):
+        n, backend = axis_engine_n(problem, i), a.backend
+        if backend == "chirpz_pallas" and n > 1:
+            backend = resolve_engine(n, a.opts().get("engine", "auto"))[0]
+        if backend == "sixstep":
+            out |= {"stockham_pallas", "fft4step"} if n >= 4 \
+                else {"stockham_pallas"}
+        elif backend in BACKEND_KERNEL:
+            out.add(BACKEND_KERNEL[backend])
+    return out
 
 
 def _counts() -> dict:
@@ -1039,9 +1219,14 @@ def _planned_node(session, pname: str, rigor: str,
             "node_s": node_s, "_plan": plan}
 
 
-def _check_launches(node: dict, rank: int) -> None:
-    """The node launched its pick's kernels and no other."""
-    want = _kernels_of(node["_plan"].candidate, rank)
+def _check_launches(node: dict, problem) -> None:
+    """The node launched its pick's kernels and no other (a sweep: the
+    kernels of the candidates it timed, whose engines may differ, as
+    chirp-Z's ``engine`` knob does)."""
+    from repro_torch.core.candidates import Candidate
+    want = _kernels_of(node["_plan"].candidate, problem)
+    for key in node["measured_ms"]:
+        want |= _kernels_of(Candidate.from_key(key), problem)
     wrong = {k: c for k, c in node["launches"].items()
              if (c > 0) != (k in want)}
     if wrong:
@@ -1056,13 +1241,13 @@ def _emit_node(node: dict) -> None:
 
 
 def run_planner(device) -> dict:
-    """The planner's paths on P1-P9: ESTIMATE (the dft_matmul kernel's main
-    path: the launch counts are set to 0 just before it and read just
-    after), MEASURE with a fresh wisdom file, the pinned clients' PATIENT
-    sweeps into the same file, every swept candidate's forward against
-    torch.fft's, and WISDOM_ONLY on that file.  Returns the ESTIMATE
-    path's dft_matmul launches and launch shapes, and the shapes the
-    sweeps launched each kernel with."""
+    """The planner's paths: ESTIMATE on P1-P14 (the dft_matmul kernel's
+    main path: the launch counts are set to 0 just before it and read just
+    after), MEASURE on ``MEASURE_NAMES`` with a fresh wisdom file, the
+    pinned clients' PATIENT sweeps into the same file, every swept
+    candidate's forward against torch.fft's, and WISDOM_ONLY on that
+    file.  Returns the ESTIMATE path's dft_matmul launches and launch
+    shapes, and the shapes the paths launched each kernel with."""
     from repro_torch.core.candidates import candidates
     from repro_torch.core.client import TorchContext
     from repro_torch.core.clients import torch_fft
@@ -1081,7 +1266,7 @@ def run_planner(device) -> dict:
             raise AssertionError(f"TorchPlanned ESTIMATE {pname} picked "
                                  f"{node['pick']}, the reference picks "
                                  f"{ESTIMATE_PICKS[pname]}")
-        _check_launches(node, _problem(pname).rank)
+        _check_launches(node, _problem(pname))
         table[pname].update(estimate_pick=node["pick"],
                             estimate_init_forward_cold_ms=node[
                                 "init_forward_cold_ms"],
@@ -1089,6 +1274,7 @@ def run_planner(device) -> dict:
                                 "execute_forward_ms"])
     dft_ops, _ = kernel_ops("dft_matmul")
     launches, shapes = dft_ops.LAUNCHES, dict(dft_ops.LAUNCH_SHAPES)
+    sweep_shapes = [_launch_shapes()]
     emit({"main_path": "TorchPlanned estimate", "launches": _counts()})
     if launches <= 0:
         raise AssertionError("TorchPlanned ESTIMATE did not launch dft_matmul")
@@ -1096,6 +1282,7 @@ def run_planner(device) -> dict:
     if os.path.exists(WISDOM_PATH):
         os.remove(WISDOM_PATH)
     session = Session(TorchContext(device))
+    names = list(MEASURE_NAMES)
     _reset_counts()
     for pname in names:
         node = _planned_node(session, pname, "measure", WISDOM_PATH)
@@ -1113,7 +1300,7 @@ def run_planner(device) -> dict:
                             measure_execute_forward_ms=node[
                                 "execute_forward_ms"],
                             candidates=len(times))
-    sweep_shapes = [_launch_shapes()]
+    sweep_shapes.append(_launch_shapes())
     emit({"main_path": "TorchPlanned measure", "launches": _counts()})
 
     session = Session(TorchContext(device))
@@ -1132,7 +1319,7 @@ def run_planner(device) -> dict:
             raise AssertionError(
                 f"{client} PATIENT {pname}: source {node['plan_source']}, "
                 f"knobs {sorted(want)}, timed {times}")
-        _check_launches(node, problem.rank)
+        _check_launches(node, problem)
         rec = Wisdom(WISDOM_PATH, device_kind=session.device_kind).lookup(
             problem, scope=backend)
         if rec is None or rec.key() != node["pick"]:
@@ -1161,12 +1348,12 @@ def run_planner(device) -> dict:
                 f"{node['plan_source']} (rows {node['row_plan_sources']}), "
                 f"pick {node['pick']}, MEASURE picked "
                 f"{table[pname]['measure_pick']}")
-        _check_launches(node, _problem(pname).rank)
+        _check_launches(node, _problem(pname))
         table[pname].update(wisdom_init_forward_cold_ms=node[
                                 "init_forward_cold_ms"],
                             wisdom_execute_forward_ms=node[
                                 "execute_forward_ms"])
-    for pname in names:
+    for pname in table:
         emit({"planning": table[pname]})
     return {"launches": launches, "shapes": shapes,
             "sweep_shapes": sweep_shapes}
@@ -1596,13 +1783,30 @@ def main() -> int:
     emit(card_info())
     emit({"build_s": build()})
     emit({"kernels": [k for k, _, _ in KERNELS]})
+    t_checks = time.perf_counter()
     checks = check_kernels(device)
     checks.update(check_capacity(device))
     checks.update(check_folds(device))
+    emit({"kernel_checks_s": time.perf_counter() - t_checks})
+    t_main = time.perf_counter()
     main_path = run_main_path(device)
+    emit({"main_paths_s": time.perf_counter() - t_main})
     check_failed_node(device)
     backends = run_backends_nodes(device)
+    t_large = time.perf_counter()
+    large = run_large_paths(device)
+    emit({"large_paths_s": time.perf_counter() - t_large})
+    for kernel, n in large["launches"].items():
+        main_path["launches"][kernel] += n
+        for key, c in large["shapes"][kernel].items():
+            shapes = main_path["shapes"][kernel]
+            shapes[key] = shapes.get(key, 0) + c
+    t_planner = time.perf_counter()
     planner = run_planner(device)
+    emit({"planner_s": time.perf_counter() - t_planner})
+    t_tables = time.perf_counter()
+    run_tables(device)
+    emit({"tables_phase_s": time.perf_counter() - t_tables})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     t_conv = time.perf_counter()
@@ -1618,9 +1822,13 @@ def main() -> int:
             for key, n in shapes.items():
                 checked.setdefault(kernel, {}).setdefault(key, 0)
                 checked[kernel][key] += n
+    t_shapes = time.perf_counter()
     errors = check_main_path_shapes(device, {"shapes": checked})
+    emit({"shape_checks_s": time.perf_counter() - t_shapes})
+    t_timing = time.perf_counter()
     timings = time_kernels(device, main_path, errors)
     time_extra(device)
+    emit({"timing_phases_s": time.perf_counter() - t_timing})
 
     summary = []
     for kernel, source, replaces in KERNELS:

@@ -6,9 +6,11 @@ Prints ``name,us_per_call,derived`` CSV.
 Tables run on ``cuda:0`` (no card: the run fails).  ``kernels`` is the
 beyond-paper kernel table: each hand-written CUDA kernel against its plain
 engine, and the fused fftconv kernel against the unfused ``torch.fft``
-path.  Every table is a declarative
-:class:`repro_torch.core.suite.SuiteSpec` executed by the shared
-``run_suite`` helper.
+path; ``backends`` is the paper's Fig. 6 (runtime per backend, 1D/2D/3D
+and the non-power-of-two classes) and ``radix`` its Fig. 7 (the extent
+classes under the vendor path, the planner and chirp-Z).  Every table is
+a declarative :class:`repro_torch.core.suite.SuiteSpec` executed by the
+shared ``run_suite`` helper.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import importlib
 import sys
 import time
 
-TABLES = ["kernels"]
+TABLES = ["kernels", "backends", "radix"]
 
 
 def main(argv: list[str] | None = None) -> int:

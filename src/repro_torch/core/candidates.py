@@ -9,10 +9,11 @@ wisdom record selected runs the same schedule here
 kernel takes what the reference's takes (Stockham 7-smooth n <= 2^20, the
 four-step kernel n1, n2 <= 128, fft2 n1*n2 <= 2^18), running as passes
 through global memory where one block's 227 KB of shared memory does not
-hold the signal (:func:`kernel_passes`); the PATIENT grid offers only the
-knobs a kernel honors at the problem's shape.  Enumeration prunes per-axis
-assignments by the active cost model (:mod:`.costmodel`), imported lazily
-as in the reference.
+hold the signal (:func:`kernel_passes`); the six-step composition takes
+powers of two 4 ... 2^24 and the chirp-Z path any n <= 2^23.  The PATIENT
+grid offers only the knobs a kernel honors at the problem's shape.
+Enumeration prunes per-axis assignments by the active cost model
+(:mod:`.costmodel`), imported lazily as in the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from dataclasses import dataclass
 from typing import Any
 
 from .client import Problem
-from .extents import _factors_only
+from .extents import _factors_only, next_pow2 as _next_pow2, next_smooth
 
 _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)(?:\((.*)\))?$")
 
@@ -32,11 +33,18 @@ _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)(?:\((.*)\))?$")
 FUSED_ND = ("xla", "fft2_pallas")
 
 #: Every backend the port's planner knows, in the reference's enumeration
-#: (preference-tie) order.  The reference's ``sixstep``, ``chirpz_pallas``
-#: and ``bluestein`` wait for the large-N/oddshape slice; its distributed
-#: decompositions for the distributed one.
+#: (preference-tie) order.  The reference's distributed decompositions
+#: wait for the distributed slice.
 BACKENDS = ("xla", "stockham", "fourstep", "dft", "fourstep_pallas",
-            "stockham_pallas", "fft2_pallas")
+            "stockham_pallas", "sixstep", "fft2_pallas", "chirpz_pallas",
+            "bluestein")
+
+#: The six-step composition's lengths (``fft/sixstep.py``: n1 <= 2^10
+#: over the four-step kernel's n2 <= 2^14).
+SIXSTEP_MIN_N, SIXSTEP_MAX_N = 4, 1 << 24
+#: Longest chirp-Z length whose padded transform (next_pow2(2n-1)) the
+#: six-step composition still takes.
+CHIRPZ_PALLAS_MAX_N = 1 << 23
 
 
 @dataclass(frozen=True)
@@ -158,8 +166,9 @@ def axis_feasible(backend: str, n: int, precision: str = "float") -> bool:
     """Can ``backend`` transform one batched axis of engine length ``n``
     (see :func:`axis_engine_n`)?  The reference's rule, in both
     precisions.  Whole-transform backends other than ``xla`` have no
-    per-axis form."""
-    if backend == "xla":
+    per-axis form; the chirp backends take any length (odd real kinds run
+    the full complex transform there)."""
+    if backend in ("xla", "bluestein"):
         return True
     if backend == "stockham":
         return _pow2(n)
@@ -173,6 +182,12 @@ def axis_feasible(backend: str, n: int, precision: str = "float") -> bool:
     if backend == "fourstep_pallas":
         from ..kernels.fft4step.ops import feasible
         return feasible(n, _torch_dtype(precision))
+    if backend == "chirpz_pallas":
+        return 1 <= n <= CHIRPZ_PALLAS_MAX_N
+    if backend == "sixstep":
+        # the engine runs the Stockham kernel alone below SIXSTEP_MIN_N
+        # (a packed real half can land there)
+        return _pow2(n) and 2 <= n <= SIXSTEP_MAX_N
     return False
 
 
@@ -219,19 +234,55 @@ def backend_supports(backend: str, problem: Problem) -> bool:
         return fft2_feasible(problem)
     if backend == "xla":
         return True
+    if backend == "sixstep" and not all(
+            _pow2(v) and SIXSTEP_MIN_N <= v <= SIXSTEP_MAX_N
+            for v in problem.extents):
+        return False   # offered only where six-step is the real algorithm
     return all(axis_feasible(backend, axis_engine_n(problem, i),
                              problem.precision)
                for i in range(problem.rank))
 
 
-def knobs_fit(problem: Problem, cand: Candidate) -> bool:
-    """Does every launch of ``cand``'s kernel on ``problem`` fit one block
-    with its ``tile_b`` (and ``radix``) knobs?  A tile is capped at the
-    rows a launch has, as the wrappers cap it."""
-    from ..kernels.fft2_pallas import fft2_pallas as f2
+def _tile_fits(kernel: str, n: int, tile: int, itemsize: int,
+               radix: int = 8) -> bool:
+    """Does one block of the Stockham (``kernel`` "stockham_pallas") or
+    four-step kernel hold ``tile`` rows of length ``n``?  A length-1 axis
+    launches nothing; an axis the kernel runs as passes takes no tile."""
     from ..kernels.fft4step import fft4step as fs
     from ..kernels.stockham_pallas import stockham_pallas as sp
     from ..kernels.stockham_pallas.ops import SMEM_LIMIT_BYTES, smem_bytes
+
+    if n == 1:
+        return True
+    if kernel == "stockham_pallas":
+        need = smem_bytes(n, tile, itemsize, len(sp.radix_schedule(n, radix)))
+    else:
+        need = fs.smem_bytes(*fs.choose_factors(n), tile, itemsize)
+    return need <= SMEM_LIMIT_BYTES
+
+
+def _sixstep_fits(n: int, rows: int, tile_b: int, itemsize: int,
+                  n1: int | None = None) -> bool:
+    """Does a six-step transform of ``rows`` signals of length ``n`` take
+    the batch tile in both its kernels?"""
+    from ..fft import sixstep
+    if n < SIXSTEP_MIN_N:
+        return _tile_fits("stockham_pallas", n, min(tile_b, rows), itemsize)
+    n1, n2 = sixstep.choose_split(n, n1)
+    return (_tile_fits("stockham_pallas", n1, min(tile_b, rows * n2),
+                       itemsize)
+            and _tile_fits("fourstep_pallas", n2, min(tile_b, rows * n1),
+                           itemsize))
+
+
+def knobs_fit(problem: Problem, cand: Candidate) -> bool:
+    """Does every launch of ``cand``'s kernels on ``problem`` fit one block
+    with its ``tile_b`` (and ``radix``) knobs?  A tile is capped at the
+    rows a launch has, as the wrappers cap it.  A chirp-Z knob is judged
+    where its engine runs on the card (``bluestein.resolve_engine``)."""
+    from ..fft.bluestein import resolve_engine
+    from ..kernels.fft2_pallas import fft2_pallas as f2
+    from ..kernels.stockham_pallas.ops import SMEM_LIMIT_BYTES
 
     opts = cand.opts()
     tile_b, radix = opts.get("tile_b"), opts.get("radix", 8)
@@ -246,16 +297,23 @@ def knobs_fit(problem: Problem, cand: Candidate) -> bool:
                                              stages) <= SMEM_LIMIT_BYTES
     for axis in range(problem.rank):
         n = axis_engine_n(problem, axis)
-        if n == 1:
-            continue   # a length-1 axis launches nothing
-        tile = min(tile_b, axis_elems(problem, axis) // n)
-        if cand.backend == "stockham_pallas":
-            need = smem_bytes(n, tile, itemsize, len(sp.radix_schedule(n, radix)))
-        elif cand.backend == "fourstep_pallas":
-            need = fs.smem_bytes(*fs.choose_factors(n), tile, itemsize)
+        rows = axis_elems(problem, axis) // n
+        if cand.backend in ("stockham_pallas", "fourstep_pallas"):
+            fits = _tile_fits(cand.backend, n, min(tile_b, rows), itemsize,
+                              radix)
+        elif cand.backend == "sixstep":
+            fits = _sixstep_fits(n, rows, tile_b, itemsize,
+                                 opts.get("split_n1"))
+        elif cand.backend == "chirpz_pallas" and n > 1:
+            engine, m = resolve_engine(n, opts.get("engine", "auto"))
+            fits = (engine == "stockham"
+                    or engine == "sixstep" and _sixstep_fits(
+                        m, rows, tile_b, itemsize)
+                    or engine == "stockham_pallas" and _tile_fits(
+                        engine, m, min(tile_b, rows), itemsize))
         else:
             continue
-        if need > SMEM_LIMIT_BYTES:
+        if not fits:
             return False
     return True
 
@@ -265,7 +323,8 @@ def candidates(problem: Problem, patient: bool = False) -> list[Candidate]:
     vendor path, every homogeneous backend that supports the problem, the
     per-axis assignments for rank >= 2 (pruned by the bytes-moved model),
     and under ``patient`` the kernels' knobs (batch tiles, radix
-    schedules) -- those that fit a block at this problem's shape."""
+    schedules, the six-step split, the chirp-Z engine) -- those that fit
+    a block at this problem's shape."""
     out: list[Candidate] = [Candidate("xla")]
     for b in BACKENDS[1:]:
         if backend_supports(b, problem):
@@ -286,6 +345,24 @@ def candidates(problem: Problem, patient: bool = False) -> list[Candidate]:
                         extra.append(Candidate(
                             "stockham_pallas",
                             (("radix", radix), ("tile_b", tb))))
+            elif c.backend == "sixstep":
+                for n1 in _sixstep_splits(problem.extents[-1]):
+                    extra.append(Candidate("sixstep", (("split_n1", n1),)))
+                extra.append(Candidate("sixstep", (("tile_b", 16),)))
+            elif c.backend == "chirpz_pallas":
+                # a forced engine applies to every axis, so each knob is
+                # gated on every axis's engine length
+                eng_ns = [axis_engine_n(problem, i)
+                          for i in range(problem.rank)]
+                if all(next_smooth(2 * v - 1) <= stockham_max_n(
+                        problem.precision) for v in eng_ns):
+                    extra.append(Candidate("chirpz_pallas",
+                                           (("engine", "stockham_pallas"),)))
+                if all(SIXSTEP_MIN_N <= _next_pow2(2 * v - 1) <= SIXSTEP_MAX_N
+                       for v in eng_ns):
+                    extra.append(Candidate("chirpz_pallas",
+                                           (("engine", "sixstep"),)))
+                extra.append(Candidate("chirpz_pallas", (("tile_b", 16),)))
             elif c.backend == "fft2_pallas":
                 for tb in (2, 8):
                     for radix in (4, 8):
@@ -321,3 +398,17 @@ def _mixed_candidates(problem: Problem, limit: int) -> list[Candidate]:
             scored.append((cost, cand))
     scored.sort(key=lambda t: t[0])
     return [cand for _, cand in scored[:limit]]
+
+
+def _sixstep_splits(n: int) -> list[int]:
+    """Alternative n = n1*n2 residual splits for the PATIENT sweep: the
+    balanced split and a residual-heavy one, besides the default; both
+    within ``sixstep.choose_split``'s limits (n1 <= 2^10, n2 <= 2^14), so
+    every knob is one the engine honors."""
+    if not _pow2(n) or n < SIXSTEP_MIN_N:
+        return []
+    k = n.bit_length() - 1
+    default_k1 = k - min(14, k - 1)
+    opts = {max(1, k // 2), max(1, min(10, k - 1))} - {default_k1}
+    return sorted(1 << k1 for k1 in opts
+                  if 1 <= k1 <= 10 and k - k1 <= 14)

@@ -5,8 +5,9 @@
   stockham_pallas  the hand-written fused Stockham kernel for Hopper
                    (``csrc/stockham.cu``), applied per axis through
                    ``nd.fftn``; a real kind's last axis runs the kernel's
-                   fold (``ops.rfft`` / ``irfft``, ``csrc/stockham_fold.cu``:
-                   the R2C pack in its passes) where one block holds the
+                   fold (``ops.rfft`` / ``irfft``, the same kernels of
+                   ``csrc/stockham.cu`` / ``stockham64.cu``: the R2C pack
+                   in their passes) where one block holds the
                    packed axis, else the packed half-length path around
                    it (client ``TorchStockhamPallas``; knobs: tile_b,
                    radix)
@@ -25,9 +26,20 @@
                    (knob: tile_b); it has no client of its own, as in the
                    reference: the planner reaches it (ESTIMATE's rank-1
                    pin and per-axis ``nd[...]`` plans)
+  sixstep          the six-step composition (``fft/sixstep.py``): the
+                   Stockham kernel on the n1 residual, the four-step
+                   kernel on n2 <= 16384, transposes and the twiddle
+                   multiply in torch; powers of two 4 ... 2^24, per axis
+                   (client ``TorchSixStep``; knobs: split_n1, tile_b)
+  chirpz_pallas    chirp-Z (``fft/bluestein.py``) with its two padded
+                   transforms on the kernels: the Stockham kernel at a
+                   7-smooth m <= 2^15, the six-step composition beyond;
+                   any n <= 2^23, per axis (client ``TorchChirpZPallas``;
+                   knobs: engine, tile_b)
   stockham,        the reference's plain baselines in torch
-  fourstep         (``fft/stockham.py``, ``fft/fourstep.py``; clients
-                   ``TorchStockham``, ``TorchFourStep``)
+  fourstep,        (``fft/stockham.py``, ``fft/fourstep.py``, and chirp-Z
+  bluestein        on the staged Stockham; clients ``TorchStockham``,
+                   ``TorchFourStep``, ``TorchBluestein``)
 
 ``TorchPlanned`` is the open planner: its rigor (ESTIMATE, MEASURE,
 PATIENT, WISDOM_ONLY) picks the backend, or a per-axis assignment
@@ -39,13 +51,15 @@ wisdom or a key) is a failed node that names it.
 A client owns the device buffers and the built transforms of ONE Problem.
 ``init_forward``/``init_inverse`` are the measured build: for the kernel
 backends they compute the twiddle tables (and, for real kinds, the R2C
-pack table) on the host and upload them to the device; ``execute_*``
-builds no table.  A problem a kernel cannot take (over its Hopper cap, the
-wrong rank) fails in ``init_forward``: the node is recorded as failed,
-never handed to another backend.  Without a PlanCache every run rebuilds
-(planning stays a measured quantity, paper Figs. 4/5); with one, the first
-run pays the build and later runs reuse it, with hit/miss events surfaced
-per op.
+pack table) on the host and upload them to the device -- for six-step the
+n1 Stockham twiddles, the n2 four-step tables and the twiddle grid, for
+chirp-Z the chirp, the filter spectrum and the padded engine's tables;
+``execute_*`` builds no table.  A problem a kernel cannot take (over its
+Hopper cap, the wrong rank) fails in ``init_forward``: the node is
+recorded as failed, never handed to another backend.  Without a
+PlanCache every run rebuilds (planning stays a measured quantity, paper
+Figs. 4/5); with one, the first run pays the build and later runs reuse
+it, with hit/miss events surfaced per op.
 """
 
 from __future__ import annotations
@@ -57,14 +71,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ...fft import fourstep, nd, stockham
+from ...fft import bluestein, fourstep, nd, sixstep, stockham
 from ...fft import rfft as rfft_mod
 from ...fft.reference import half_roots
 from ...kernels.dft_matmul import ops as dft_ops
 from ...kernels.fft2_pallas import ops as f2_ops
 from ...kernels.fft4step import ops as fs_ops
 from ...kernels.stockham_pallas import ops as sp_ops
-from ..candidates import Candidate, axis_engine_n, candidates
+from ..candidates import (CHIRPZ_PALLAS_MAX_N, Candidate, axis_engine_n,
+                          candidates)
 from ..client import FFTClient, Problem, TorchContext
 from ..plan import (Plan, PlanCache, PlanRigor, cached_build, make_plan,
                     measure_plan)
@@ -95,18 +110,31 @@ def _complex_dtype(problem: Problem) -> torch.dtype:
 def _axis_table(cand: Candidate, n: int, inverse: bool, dtype: torch.dtype,
                 device):
     """The plan state of one kernel axis of engine length ``n``: Stockham
-    twiddles, the four-step kernel's W1/W2/T tables or the DFT matrix
-    (None for the plain-torch baselines, and for a length-1 axis, which
-    the FFT kernels return untouched)."""
+    twiddles, the four-step kernel's W1/W2/T tables, the DFT matrix, a
+    six-step or chirp-Z plan (None for the plain-torch baselines, and for
+    a length-1 axis, which the FFT kernels return untouched).  Raises for
+    a length over the backend's cap."""
+    opts = cand.opts()
     if cand.backend == "dft":
         return dft_ops.make_matrix(n, inverse, dtype, device)
     if n == 1:
         return None
     if cand.backend == "stockham_pallas":
-        return sp_ops.make_twiddles(n, cand.opts().get("radix", 8), inverse,
+        return sp_ops.make_twiddles(n, opts.get("radix", 8), inverse,
                                     dtype, device)
     if cand.backend == "fourstep_pallas":
         return fs_ops.make_tables(n, inverse, dtype, device)
+    if cand.backend == "sixstep":
+        return sixstep.make_plan(n, inverse, dtype, device,
+                                 opts.get("split_n1"))
+    if cand.backend == "chirpz_pallas":
+        if n > CHIRPZ_PALLAS_MAX_N:
+            raise ValueError(f"chirpz_pallas caps at n={CHIRPZ_PALLAS_MAX_N}"
+                             f", as the reference does; got {n}")
+        return bluestein.make_plan(n, inverse, dtype, device,
+                                   opts.get("engine", "auto"))
+    if cand.backend == "bluestein":
+        return bluestein.make_plan(n, inverse, dtype, device, "stockham")
     return None
 
 
@@ -126,6 +154,13 @@ def _engine(cand: Candidate, table) -> Callable:
     if cand.backend == "dft":
         return lambda x, inverse=False: dft_ops.dft(x, inverse, tile_b=tile_b,
                                                     matrix=table)
+    if cand.backend == "sixstep":
+        n1 = opts.get("split_n1")
+        return lambda x, inverse=False: sixstep.fft(
+            x, inverse, n1=n1, tile_b=tile_b, plan=table)
+    if cand.backend in ("chirpz_pallas", "bluestein"):
+        return lambda x, inverse=False: bluestein.fft(
+            x, inverse, tile_b=tile_b, plan=table)
     if cand.backend == "stockham":
         return stockham.fft
     if cand.backend == "fourstep":
@@ -510,6 +545,24 @@ class TorchStockham(TorchFFTClient):
 class TorchFourStep(TorchFFTClient):
     title = "TorchFourStep"
     backend_filter = "fourstep"
+
+
+@register_client()
+class TorchSixStep(TorchFFTClient):
+    title = "TorchSixStep"
+    backend_filter = "sixstep"
+
+
+@register_client()
+class TorchChirpZPallas(TorchFFTClient):
+    title = "TorchChirpZPallas"
+    backend_filter = "chirpz_pallas"
+
+
+@register_client()
+class TorchBluestein(TorchFFTClient):
+    title = "TorchBluestein"
+    backend_filter = "bluestein"
 
 
 @register_client()

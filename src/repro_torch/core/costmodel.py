@@ -17,7 +17,12 @@ Two things differ, both for Hopper:
   (:func:`.candidates.kernel_passes`), where the reference prices
   ``stockham_pallas`` with a VMEM budget apart from its cap.  So
   :meth:`CostModel.hbm_passes` takes the precision, and
-  :meth:`CostModel.estimate` passes the problem's;
+  :meth:`CostModel.estimate` passes the problem's.  The composed paths
+  (``sixstep``, ``chirpz_pallas``, ``bluestein``) keep the reference's
+  pass counts: the passes of the kernels under them (a padded chirp
+  length over one block, the four-step kernel's two complex128 launches
+  at n2 = 16384) are not priced, so their ESTIMATE picks are the
+  reference's;
 * the distributed branch is left out (the port has no distributed
   backends).
 
@@ -35,11 +40,13 @@ from contextlib import contextmanager
 from dataclasses import dataclass, fields
 from typing import Optional
 
-from .candidates import (FUSED_ND, Candidate, _smooth7, axis_elems,
-                         axis_engine_n, axis_feasible, candidates,
-                         fft2_feasible, fft2_passes, kernel_passes)
+from ..fft.bluestein import PALLAS_SINGLE_MAX_M
+from .candidates import (FUSED_ND, SIXSTEP_MIN_N, Candidate, _smooth7,
+                         axis_elems, axis_engine_n, axis_feasible,
+                         candidates, fft2_feasible, fft2_passes,
+                         kernel_passes)
 from .client import Problem
-from .extents import next_pow2 as _next_pow2
+from .extents import next_pow2 as _next_pow2, next_smooth
 
 #: Schema stamped into coefficient-table files; loaders reject others.
 COSTMODEL_SCHEMA_VERSION = 1
@@ -132,6 +139,24 @@ class CostModel:
         if backend == "stockham_pallas":
             return c.stockham_pallas_passes * kernel_passes(backend, n,
                                                             precision)
+        if backend == "sixstep":
+            # 2 kernel passes + 3 transposes; the Stockham kernel alone
+            # below the smallest split is not priced, as in the reference
+            return c.sixstep_passes if n >= SIXSTEP_MIN_N else float("inf")
+        if backend == "chirpz_pallas":
+            # two padded transforms + the chirp, filter and final chirp
+            # multiplies (the filter spectrum is prebuilt), charged at the
+            # padded length: the Stockham kernel's 7-smooth m, or the
+            # six-step composition's power of two
+            ms = next_smooth(2 * n - 1)
+            if ms <= PALLAS_SINGLE_MAX_M:
+                return c.chirpz_smooth_passes * (ms / n)
+            return c.chirpz_pow2_passes * (_next_pow2(2 * n - 1) / n)
+        if backend == "bluestein":
+            m = _next_pow2(2 * n - 1)
+            # 3 staged Stockham transforms of padded length m + the chirps
+            return (c.bluestein_stage_passes * max(1, m.bit_length() - 1)
+                    + c.bluestein_setup_passes) * (m / n)
         return float("inf")
 
     def estimate(self, problem: Problem, cand: Candidate) -> float:
@@ -179,12 +204,14 @@ class CostModel:
         if "dft" in by_backend and problem.rank == 1 \
                 and problem.extents[-1] <= self.coeffs.dft_pin_max_n:
             return by_backend["dft"]
-        best, best_cost = by_backend["xla"], float("inf")
+        best, best_cost = None, float("inf")
         for c in cands:
             cost = self.estimate(problem, c)
             if cost < best_cost:
                 best, best_cost = c, cost
-        return best
+        if best is not None:
+            return best
+        return by_backend.get("xla", by_backend["bluestein"])
 
 
 #: The hand-written model, installed by default.

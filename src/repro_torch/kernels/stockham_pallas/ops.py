@@ -9,7 +9,9 @@ tensor on the card and takes the plain version (``ref.apply_passes``, or
 CPU.  An axis that one block holds runs in one launch; a longer one, up
 to the reference's 2^20, in two column passes through global memory
 (``TwoPass``).  ``rfft`` / ``irfft`` are the real-input folds of one
-block's axis (``csrc/stockham_fold.cu``): numpy's rfft / irfft along the
+block's axis (the same one-block kernels of ``csrc/stockham.cu`` and
+``csrc/stockham64.cu``, their mode set by the plan; the fold's passes
+live in ``csrc/stockham_stages.cuh``): numpy's rfft / irfft along the
 last axis in one launch, the R2C pack and unpack inside the kernel; on a
 CPU tensor they run ``fft/rfft.py``'s packing around the plain stages.
 ``LAUNCHES`` counts kernel launches.
@@ -534,7 +536,7 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
 
 # ---------------------------------------------------------------------------
 # the real-input folds: numpy's rfft / irfft along the last axis in one
-# launch of the one-block kernel (csrc/stockham_fold.cu)
+# launch of the one-block kernel (csrc/stockham.cu, csrc/stockham64.cu)
 # ---------------------------------------------------------------------------
 def _real_dtype(cdtype: torch.dtype) -> torch.dtype:
     return torch.float64 if cdtype == torch.complex128 else torch.float32

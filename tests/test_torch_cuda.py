@@ -11,7 +11,10 @@ summation order differs); against ``torch.fft`` the suite's bar, 1e-3 and
 1e-8.  The real-input folds (``ops.rfft`` / ``irfft``, ``rfft2`` /
 ``irfft2``) hold the same bars against their plain versions
 (``fft/rfft.py``'s packing around the plain stages) and
-``torch.fft.rfft`` / ``irfft`` / ``rfftn`` / ``irfftn``.  The fftconv kernel (float32 only) is held at 1e-5 against its plain
+``torch.fft.rfft`` / ``irfft`` / ``rfftn`` / ``irfftn``.  The six-step
+and chirp-Z paths (``fft/sixstep.py``, ``fft/bluestein.py``, compositions
+of the Stockham and four-step kernels) hold the suite's bar against
+``torch.fft``.  The fftconv kernel (float32 only) is held at 1e-5 against its plain
 version and against the float64 ``torch.fft`` oracle: a float32 model of
 its arithmetic agrees with float64 convolution to ~3e-7 at n = 16384.
 """
@@ -21,10 +24,14 @@ import pytest
 import torch
 
 from repro_torch.core.client import KINDS, Problem, TorchContext
-from repro_torch.core.clients.torch_fft import (TorchFft2Pallas, TorchPlanned,
+from repro_torch.core.clients.torch_fft import (TorchBluestein,
+                                                TorchChirpZPallas,
+                                                TorchFft2Pallas, TorchPlanned,
+                                                TorchSixStep,
                                                 TorchStockhamPallas)
 from repro_torch.core.suite import Session, SuiteSpec
 from repro_torch.core.tree import BenchNode
+from repro_torch.fft import bluestein, sixstep
 from repro_torch.fft import rfft as rfft_mod
 from repro_torch.fft.reference import half_roots
 from repro_torch.kernels.dft_matmul import ops as dft_ops
@@ -514,3 +521,74 @@ def test_session_real_kinds_launch_the_folds(cuda_device):
             assert not rs.failures(), [r.error for r in rs.failures()]
             folds = {k[0] for k in mod.LAUNCH_SHAPES if isinstance(k[0], str)}
             assert folds == keys, (cls.title, ext, precision, folds)
+
+
+def _launches():
+    return ops.LAUNCHES, fs_ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [1 << 16, 1 << 22])
+def test_sixstep_against_library(cuda_device, n, dtype):
+    """The six-step composition at 2^16 and 2^22 (splits 4 x 16384 and
+    256 x 16384; the four-step side as two launches in complex128),
+    forward and inverse, against torch.fft; each call launches the
+    Stockham kernel once and the four-step kernel once or twice."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((3, n)) +
+                         1j * rng.standard_normal((3, n))).to(cuda_device, dtype)
+    for inverse in (False, True):
+        plan = sixstep.make_plan(n, inverse, dtype, cuda_device)
+        before = _launches()
+        y = sixstep.fft(x, inverse, plan=plan)
+        torch.cuda.synchronize(cuda_device)
+        sp, fs = (a - b for a, b in zip(_launches(), before))
+        assert sp == 1 and fs == (2 if dtype == torch.complex128 else 1)
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [19 ** 3, 19 ** 4])
+def test_chirpz_against_library(cuda_device, n, dtype):
+    """Chirp-Z at 19^3 ("auto": the Stockham kernel at m = 13720, two
+    column passes in complex128) and 19^4 ("auto": six-step at m = 2^18),
+    and each forced engine, forward and inverse, against torch.fft; the
+    padded transforms launch the kernels of their engine and no other."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((3, n)) +
+                         1j * rng.standard_normal((3, n))).to(cuda_device, dtype)
+    for engine in ("auto", "stockham_pallas", "sixstep"):
+        for inverse in (False, True):
+            plan = bluestein.make_plan(n, inverse, dtype, cuda_device, engine)
+            assert plan.engine == (bluestein.resolve_engine(n, engine)[0])
+            before = _launches()
+            y = bluestein.fft(x, inverse, plan=plan)
+            torch.cuda.synchronize(cuda_device)
+            sp, fs = (a - b for a, b in zip(_launches(), before))
+            assert sp > 0 and (fs > 0) == (plan.engine == "sixstep")
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+            assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, engine, inverse)
+
+
+@pytest.mark.cuda
+def test_new_clients_validate_on_the_card(cuda_device):
+    """``TorchSixStep``, ``TorchChirpZPallas`` and ``TorchBluestein``
+    through ``Session.run`` on every kind: every node validates; the
+    bluestein baseline launches no kernel."""
+    session = Session(TorchContext())
+    for cls, ext in ((TorchSixStep, (1 << 16,)), (TorchSixStep, (64, 128)),
+                     (TorchChirpZPallas, (19 ** 3,)),
+                     (TorchChirpZPallas, (19, 19)),
+                     (TorchBluestein, (19 ** 3,))):
+        for kind in KINDS:
+            for precision in ("float", "double"):
+                before = _launches()
+                rs = session.run(SuiteSpec(output=None), nodes=[BenchNode(
+                    cls, Problem(ext, kind, precision, 2))])
+                assert not rs.failures(), [r.error for r in rs.failures()]
+                launched = [a - b for a, b in zip(_launches(), before)]
+                assert (sum(launched) == 0) == (cls is TorchBluestein), \
+                    (cls.title, ext, kind, precision, launched)

@@ -289,7 +289,7 @@ def test_table_run_prints_one_row_per_client(capsys):
 
 
 def test_entry_point_validates_tables_and_needs_the_card(capsys):
-    assert port_run.TABLES == ["kernels"]
+    assert port_run.TABLES == ["kernels", "backends", "radix"]
     assert port_run.main(["bogus"]) == 2
     assert "unknown table(s): bogus" in capsys.readouterr().err
     import torch

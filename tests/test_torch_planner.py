@@ -1,18 +1,19 @@
 """The port's planner against the reference package's.
 
 * ``candidates()``, with PATIENT off and on, lists the reference's
-  candidates minus the backends the port does not have yet (``sixstep``,
-  ``chirpz_pallas``, ``bluestein``) and, over a Hopper cap, minus what the
-  cap refuses (listed here); ``estimate_bytes_moved``, ``estimate_choice``
-  and ``fallback_chain`` agree wherever the reference's answer is a port
-  backend; over the caps the port picks what it can run;
+  candidates (every backend of the reference's single-device planner,
+  ``sixstep``, ``chirpz_pallas`` and ``bluestein`` included) minus the
+  batch-tile knobs one block cannot hold (listed here);
+  ``estimate_bytes_moved``, ``estimate_choice`` and ``fallback_chain``
+  agree with the reference's; over the caps the port picks what it can
+  run;
 * the cost-model tables and wisdom files read the same in both packages
   (per-axis ``nd[...]`` records, demotions, nearest-neighbor lookups);
 * ``TorchPlanned`` under a fixed candidate (the dft pin, an ``nd[...]``
   plan from wisdom) gives the reference's forward, MEASURE on the CPU
   picks the fastest of its own timings and writes v3 wisdom, WISDOM_ONLY
-  runs the committed CPU wisdom file's records through their recorded
-  plans, and a miss is fftw's NULL plan.
+  runs all the committed CPU wisdom file's records through their recorded
+  plans (``bluestein`` included), and a miss is fftw's NULL plan.
 
 The reference's MEASURE never runs here (it would compile every
 candidate): lists, estimates, picks, and forwards under a fixed candidate
@@ -47,14 +48,12 @@ from repro_torch.core.plan import PlanCache, PlanRigor
 from repro_torch.core.suite import Session, SuiteSpec
 from repro_torch.core.tree import BenchNode
 from repro_torch.core.wisdom import Wisdom
-from repro_torch.kernels.dft_matmul import ops as dft_ops
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINES = os.path.join(ROOT, "benchmarks", "baselines")
 TOL = {"float": 1e-5, "double": 1e-12}
-LATER = {"sixstep", "chirpz_pallas", "bluestein"}
 
-#: The planner's problems (``chip_smoke.py``'s P1-P9) with their batches.
+#: The planner's problems (``chip_smoke.py``'s P1-P14) with their batches.
 PROBLEMS = {
     "P1": ((256, 256, 256), "Outplace_Real", "float", 1),
     "P2": ((128, 128, 128), "Inplace_Complex", "double", 1),
@@ -65,11 +64,18 @@ PROBLEMS = {
     "P7": ((64, 64), "Inplace_Complex", "double", 8192),
     "P8": ((128,), "Outplace_Complex", "float", 524288),
     "P9": ((100,), "Inplace_Real", "double", 655360),
+    "P10": ((1 << 22,), "Outplace_Complex", "float", 16),
+    "P11": ((1 << 24,), "Inplace_Complex", "double", 2),
+    "P12": ((19 ** 4,), "Outplace_Complex", "float", 512),
+    "P13": ((19 ** 3,), "Inplace_Real", "double", 8192),
+    "P14": ((361, 361), "Outplace_Real", "float", 1024),
 }
 #: The reference's ESTIMATE picks there (``chip_smoke.ESTIMATE_PICKS``).
 ESTIMATE_PICKS = {"P1": "xla", "P2": "xla", "P3": "fourstep_pallas",
                   "P4": "xla", "P5": "fourstep_pallas", "P6": "fft2_pallas",
-                  "P7": "fft2_pallas", "P8": "dft", "P9": "dft"}
+                  "P7": "fft2_pallas", "P8": "dft", "P9": "dft",
+                  "P10": "xla", "P11": "xla", "P12": "xla",
+                  "P13": "chirpz_pallas", "P14": "fourstep_pallas"}
 
 #: Rank 1-3 extents (P1-P9's among them), with every kind and precision.
 GRID = ((1,), (2,), (12,), (16,), (97,), (100,), (128,), (945,), (4096,),
@@ -83,8 +89,13 @@ _FFT2_KNOBS = {"fft2_pallas", "fft2_pallas(radix=4,tile_b=2)",
 #: holds 8192 complex64 / 4096 complex128 points in one block (128x128
 #: complex, or packed 128x64 in double, is over) and runs larger tiles as
 #: passes, which take no batch tile; at 3072x3072 a block holds only a few
-#: 3072- or 1536-point rows for the knobs' batch tiles.
+#: 3072- or 1536-point rows for the knobs' batch tiles.  The chirp-Z
+#: batch tile of 16 runs the Stockham kernel at the padded length m: a
+#: block does not hold 16 rows of m = 6144 (3072x3072) or m = 512
+#: complex128 (256^3), and m = 8192 complex128 (4096, complex) runs as two
+#: column passes, which take no batch tile.
 _FFT2_TILES = _FFT2_KNOBS - {"fft2_pallas"}
+_CHIRPZ_TILE = "chirpz_pallas(tile_b=16)"
 CAPPED = {
     ((128, 128), "complex", "float"): _FFT2_TILES,
     ((128, 128), "complex", "double"): _FFT2_TILES,
@@ -92,13 +103,15 @@ CAPPED = {
     ((3072, 3072), "any", "float"): {
         "fourstep_pallas(tile_b=16)",
         "stockham_pallas(radix=4,tile_b=16)",
-        "stockham_pallas(radix=8,tile_b=16)"},
+        "stockham_pallas(radix=8,tile_b=16)", _CHIRPZ_TILE},
     ((3072, 3072), "any", "double"): {
         "fourstep_pallas(tile_b=8)",
         "fourstep_pallas(tile_b=16)", "stockham_pallas(radix=4,tile_b=4)",
         "stockham_pallas(radix=8,tile_b=4)",
         "stockham_pallas(radix=4,tile_b=16)",
-        "stockham_pallas(radix=8,tile_b=16)"},
+        "stockham_pallas(radix=8,tile_b=16)", _CHIRPZ_TILE},
+    ((4096,), "complex", "double"): {_CHIRPZ_TILE},
+    ((256, 256, 256), "any", "double"): {_CHIRPZ_TILE},
 }
 #: Where the fused rank-2 kernel runs as passes on the grid (the tiles
 #: above): ESTIMATE prices it at one round trip a pass, so its estimate is
@@ -110,10 +123,6 @@ def _capped(ext, kind, precision) -> set:
     kclass = "complex" if kind.endswith("Complex") else "real"
     return (CAPPED.get((ext, kclass, precision), set())
             | CAPPED.get((ext, "any", precision), set()))
-
-
-def _later(cand) -> bool:
-    return cand.backend in LATER or any(a.backend in LATER for a in cand.axes)
 
 
 def _ref_cand(cand):
@@ -128,8 +137,8 @@ def test_candidates_estimates_and_picks_match_reference(ext):
             rp, pp = RProblem(ext, kind, precision), Problem(ext, kind, precision)
             capped = _capped(ext, kind, precision)
             for patient in (False, True):
-                ref = [c for c in rc.candidates(rp, patient) if not _later(c)]
-                want = [c.key() for c in ref if c.key() not in capped]
+                want = [c.key() for c in rc.candidates(rp, patient)
+                        if c.key() not in capped]
                 got = [c.key() for c in pc.candidates(pp, patient)]
                 assert got == want, (ext, kind, precision, patient)
             kclass = "complex" if kind.endswith("Complex") else "real"
@@ -142,16 +151,15 @@ def test_candidates_estimates_and_picks_match_reference(ext):
             ref_pick = rcm.estimate_choice(rp)
             pick = pcm.estimate_choice(pp)
             if not capped:
-                ref_chain = [c.key() for c in rplan.fallback_chain(rp)
-                             if not _later(c)]
+                ref_chain = [c.key() for c in rplan.fallback_chain(rp)]
                 assert [c.key() for c in pplan.fallback_chain(pp)] == ref_chain
-            if not (_later(ref_pick) or multi) and ref_pick.key() not in capped:
+            if not multi and ref_pick.key() not in capped:
                 assert pick.key() == ref_pick.key(), (ext, kind, precision)
             assert pcm.estimate_bytes_moved(pp, pick) < float("inf")
 
 
 def test_estimate_picks_on_the_planner_problems():
-    """P1-P9 at their batches: the reference's picks, as ``chip_smoke.py``
+    """P1-P14 at their batches: the reference's picks, as ``chip_smoke.py``
     hardcodes them."""
     for name, (ext, kind, precision, batch) in PROBLEMS.items():
         ref = rcm.estimate_choice(RProblem(ext, kind, precision, batch)).key()
@@ -391,8 +399,8 @@ def test_pinned_clients_sweep_only_their_own_knobs(tmp_path):
 
 def test_wisdom_only_runs_the_committed_cpu_wisdom(tmp_path):
     """Every record of ``benchmarks/baselines/wisdom_cpu.json`` runs through
-    its recorded plan; the one naming ``bluestein`` (384/Outplace_Real),
-    which the port does not have yet, is a failed node that names it."""
+    its recorded plan, the one naming ``bluestein`` (384/Outplace_Real)
+    included: no node fails."""
     path = str(tmp_path / "wisdom_cpu.json")
     shutil.copy(os.path.join(BASELINES, "wisdom_cpu.json"), path)
     wisdom = Wisdom(path, device_kind="cpu")
@@ -402,17 +410,17 @@ def test_wisdom_only_runs_the_committed_cpu_wisdom(tmp_path):
     rs = session.run(SuiteSpec(rigor="wisdom_only", wisdom=path, output=None,
                                warmups=0, repetitions=1),
                      nodes=[BenchNode(TorchPlanned, p) for p in problems])
-    fails = rs.failures()
-    assert [(r.extents, r.kind) for r in fails] == [("384", "Outplace_Real")]
-    assert "'bluestein'" in fails[0].error and "not in the port" in \
-        fails[0].error
-    assert len([r for r in rs.query(op="validate") if r.success]) == 25
+    assert not rs.failures(), [(r.extents, r.error) for r in rs.failures()]
+    assert len([r for r in rs.query(op="validate") if r.success]) == 26
     ref = RWisdom(path, device_kind="cpu")
+    picks = set()
     for p in problems:
         plan = _plan(session, p, PlanRigor.WISDOM_ONLY)
         assert plan.source == "wisdom"
         assert plan.candidate.key() == ref.lookup(
             RProblem(p.extents, p.kind, p.precision, p.batch)).key()
+        picks.add(plan.candidate.key())
+    assert "bluestein" in picks
     assert {r.plan_source for r in rs.rows if r.library == "TorchPlanned"
             and r.op != "validate"} == {"wisdom"}
 
@@ -433,17 +441,27 @@ def test_wisdom_miss_is_a_null_plan(tmp_path):
 @pytest.mark.parametrize("key", ["sixstep(split_n1=8)", "chirpz_pallas",
                                  "nd[dft;bluestein]"])
 def test_a_backend_the_port_lacks_is_a_failed_node(key, tmp_path):
+    """The reference's last three backends, which the port lacked before
+    its large-N slice (a plan naming one was a failed node): a wisdom
+    record of each builds, runs through ``Session.run`` on the CPU and
+    gives the reference's forward under the same plan."""
     problem = Problem((16, 64), "Outplace_Complex")
     wisdom = Wisdom(str(tmp_path / "w.json"), device_kind="cpu")
-    wisdom.record(problem, pc.Candidate.from_key(key))
-    launches = dft_ops.LAUNCHES
+    cand = pc.Candidate.from_key(key)
+    wisdom.record(problem, cand)
     rs = Session(TorchContext("cpu"), wisdom=wisdom).run(
         SuiteSpec(rigor="wisdom_only", output=None, warmups=0, repetitions=1),
         nodes=[BenchNode(TorchPlanned, problem)])
-    (row,) = rs.failures()
-    name = pc.Candidate.from_key(key).per_axis(2)[-1].backend
-    assert row.op == "validate" and f"'{name}'" in row.error
-    assert not rs.query(op="execute_forward") and dft_ops.LAUNCHES == launches
+    assert not rs.failures(), [r.error for r in rs.failures()]
+    assert rs.query(op="execute_forward")
+    x, got, client = _forward_of(problem, TorchContext("cpu"),
+                                 PlanRigor.WISDOM_ONLY, wisdom)
+    assert client.plan.candidate == cand and client.plan_source == "wisdom"
+    want = np.asarray(jax_fft._forward_fn(RProblem((16, 64),
+                                                   "Outplace_Complex"),
+                                          _ref_cand(cand))(x))
+    assert got.shape == want.shape
+    assert rel_l2(got, want) <= TOL["float"]
 
 
 def test_demotion_steers_estimate_as_in_the_reference(tmp_path):
