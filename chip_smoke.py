@@ -55,7 +55,25 @@
    and 7) through ``Session.run``: every node its client supports
    validates, the others are failed nodes; then their entry point
    ``python -m repro_torch.benchmarks.run backends radix``;
-10. holds the fused fftconv kernel against its plain version and the
+10. drives the gearshifft CLI (``repro_torch.core.cli.main``) in process
+   at the main path's full sizes (P1 on ``TorchFFT``,
+   ``TorchStockhamPallas`` and ``TorchPlanned``; P3 on the Stockham and
+   four-step clients into the JSONL sink; P7 on ``TorchFft2Pallas``; P8 on
+   ``TorchPlanned``, whose ESTIMATE pick launches the dft kernel), with the
+   launch counts set to 0 just before each node and read just after:
+   every node validated, launching its client's (or pick's) kernels and
+   no other, P1's Stockham node through the R2C fold and none of
+   ``fft/rfft.py``'s packing, every file in the reference's columns; a
+   ``-r`` selection gives exactly ``tree.select``'s nodes;
+   ``--dump-config`` writes P3's spec, equal to the invocation's with the
+   same tree, and ``python -m repro_torch.core.cli --config`` replays it
+   as a program at one repetition (the same columns); then the
+   paper's ``overhead``, ``tts``, ``plan_rigor`` and ``dtypes`` tables
+   (Figs. 2, 3, 4-5 and 8) through ``Session.run`` (every node its client
+   supports validates; their rows emitted as CSV), and their entry point
+   ``python -m repro_torch.benchmarks.run overhead tts plan_rigor
+   dtypes``;
+11. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -64,7 +82,7 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-11. holds each kernel against its plain version at every shape the main
+12. holds each kernel against its plain version at every shape the main
    path (P1-P14), the backends nodes and the sweeps launched it with
    (radix 8 and the default tile, both directions; fftconv against its
    plain version and the float64 oracle), then times it at the main
@@ -75,7 +93,7 @@
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
    tile and the dft kernel's direct product at 512 MiB shapes
    (``EXTRA_TIMING``);
-12. prints the kernel summary and, as the last line,
+13. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -103,6 +121,11 @@ PEAK_FLOPS = {"complex64": 67e12, "complex128": 67e12, "float32": 67e12}
 #: The TF32 tensor-core peak (dense), which the four-step kernel's
 #: complex64 products run at (3xTF32).
 PEAK_TF32 = 495e12
+
+#: CUDA-event repetitions of the timing phases (the median is kept): a
+#: kernel and its library call, and the far slower plain versions.
+TIMING_REPS = 10
+PLAIN_REPS = 3
 
 CHECK_NS = (2, 3, 8, 12, 100, 945, 1024, 3072, 4096)
 CHECK_RADICES = (2, 4, 8)
@@ -234,6 +257,38 @@ BACKEND_KERNEL = {"stockham_pallas": "stockham_pallas",
                   "fourstep_pallas": "fft4step", "fft2_pallas": "fft2_pallas",
                   "dft": "dft_matmul"}
 WISDOM_PATH = os.path.join(ROOT, "build", "chip_smoke_wisdom.json")
+CLI_DIR = os.path.join(ROOT, "build", "cli")
+#: The CLI at the main path's full sizes: (problem, argv, per client the
+#: kernels each of its nodes launches and no other).  P1's Stockham node
+#: runs its real kind through the fold (``FOLD_NODES``); TorchPlanned's
+#: ESTIMATE picks are cuFFT at P1 and the dft kernel at P8.
+CLI_RUNS = (
+    ("P1", ["-e", "256x256x256", "--kinds", "Outplace_Real", "--client",
+            "TorchFFT", "TorchStockhamPallas", "TorchPlanned",
+            "-o", os.path.join(CLI_DIR, "p1.csv")],
+     {"TorchFFT": (), "TorchStockhamPallas": ("stockham_pallas",),
+      "TorchPlanned": ()}),
+    ("P3", ["-e", "4096", "-b", "16384", "--kinds", "Outplace_Complex",
+            "--client", "TorchStockhamPallas", "TorchFourStepPallas",
+            "-o", os.path.join(CLI_DIR, "p3.jsonl")],
+     {"TorchStockhamPallas": ("stockham_pallas",),
+      "TorchFourStepPallas": ("fft4step",)}),
+    ("P7", ["-e", "64x64", "-b", "8192", "--precisions", "double",
+            "--kinds", "Inplace_Complex", "--client", "TorchFft2Pallas",
+            "-o", os.path.join(CLI_DIR, "p7.csv")],
+     {"TorchFft2Pallas": ("fft2_pallas",)}),
+    ("P8", ["-e", "128", "-b", "524288", "--kinds", "Outplace_Complex",
+            "--client", "TorchPlanned", "-o", os.path.join(CLI_DIR, "p8.csv")],
+     {"TorchPlanned": ("dft_matmul",)}),
+)
+#: A ``-r`` selection over a two-client, two-kind tree (one node of four).
+CLI_SELECT = (["-e", "1024", "-b", "64", "--kinds", "Outplace_Complex",
+               "Inplace_Real", "--client", "TorchStockhamPallas",
+               "TorchFourStepPallas", "-r", "TorchFourStep*/*/*/Inplace_Real",
+               "-o", os.path.join(CLI_DIR, "select.csv")],
+              {"TorchFourStepPallas": ("fft4step",)})
+#: The paper tables the CLI phase runs: Figs. 2, 3, 4-5 and 8.
+PAPER_TABLES = ("overhead", "tts", "plan_rigor", "dtypes")
 #: Each client's main path: (client, its problems, the kernel it runs).
 PATHS = (
     ("TorchFFT", ALL, None),
@@ -804,6 +859,252 @@ def run_tables(device) -> None:
         raise AssertionError(f"run backends radix: rc {out.returncode}, "
                              f"{len(rows)} rows for {ran} nodes: "
                              f"{out.stderr[-2000:]}")
+
+
+class _NodeLaunches:
+    """While installed, sets the launch counts and ``fft/rfft.py``'s call
+    count to 0 just before each node ``run_nodes`` runs and reads them
+    just after; ``nodes`` holds one record per node."""
+
+    def __init__(self, pack: _PackCalls):
+        from repro_torch.core import benchmark
+        self.mod, self.real, self.pack = benchmark, benchmark.run_node, pack
+        self.nodes: list[dict] = []
+        benchmark.run_node = self._run
+
+    def _run(self, node, **kwargs) -> None:
+        _reset_counts()
+        self.pack.calls = 0
+        self.real(node, **kwargs)
+        counts = _read_counts()
+        self.nodes.append({
+            "path": node.path, "client": node.client_cls.title,
+            "launches": {k: c for k, (c, _) in counts.items() if c},
+            "folds": sorted({key[0] for _, shapes in counts.values()
+                             for key in shapes if isinstance(key[0], str)}),
+            "rfft_py_calls": self.pack.calls})
+
+    def close(self) -> None:
+        self.mod.run_node = self.real
+
+
+def _read_result_file(path: str) -> tuple[list, list[dict]]:
+    """A CLI result file's columns and rows (CSV, or JSONL by extension)."""
+    import csv
+    with open(path, newline="") as f:
+        if path.endswith(".jsonl"):
+            rows = [json.loads(line) for line in f]
+            return (list(rows[0]) if rows else []), rows
+        reader = csv.DictReader(f)
+        return list(reader.fieldnames or []), list(reader)
+
+
+def _cli_call(argv, session, hook) -> tuple[int, str]:
+    """``repro_torch.core.cli.main(argv, session=...)`` with its stdout
+    captured."""
+    import contextlib
+    import io
+
+    from repro_torch.core import cli
+    hook.nodes.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, session=session)
+    return rc, buf.getvalue()
+
+
+def _check_cli_run(name: str, argv, kernels: dict, hook) -> list[dict]:
+    """The run's file holds the reference's columns and one successful
+    validate row per node of the spec's tree; each node launched its
+    client's kernels and no other (a fold node: its folds, and none of
+    ``fft/rfft.py``'s packing).  Returns the node summaries."""
+    from repro_torch.core import cli
+    from repro_torch.core.results import columns_for
+
+    spec = cli.spec_from_args(cli.build_parser().parse_args(argv))
+    want_paths = [n.path for n in spec.build_nodes()]
+    if [n["path"] for n in hook.nodes] != want_paths:
+        raise AssertionError(f"CLI {name} ran {[n['path'] for n in hook.nodes]}"
+                             f", the spec's tree is {want_paths}")
+    columns, rows = _read_result_file(spec.output)
+    if columns != columns_for(spec.plan_cache,
+                              plan_source=spec.wisdom is not None):
+        raise AssertionError(f"CLI {name}: columns {columns}")
+    val = [r for r in rows if r["op"] == "validate"]
+    if len(val) != len(want_paths) \
+            or not all(r["success"] in (True, "True") for r in val):
+        raise AssertionError(f"CLI {name}: validate rows "
+                             f"{[(r['library'], r['error']) for r in val]}")
+    out = []
+    for node in hook.nodes:
+        client = node["client"]
+        if set(node["launches"]) != set(kernels[client]):
+            raise AssertionError(f"CLI {name} {node['path']} should launch "
+                                 f"{kernels[client]} and no other, launched "
+                                 f"{node['launches']}")
+        fold = FOLD_NODES.get((client, name))
+        if fold is not None and (node["folds"] != sorted(fold)
+                                 or node["rfft_py_calls"]):
+            raise AssertionError(f"CLI {name} {node['path']} should run "
+                                 f"through {fold}: {node}")
+        fwd = [float(r["time_ms"]) for r in rows
+               if r["op"] == "execute_forward" and r["library"] == client
+               and int(r["run"]) >= 0]
+        out.append({"cli": name, **node,
+                    "execute_forward_ms": statistics.median(fwd)})
+    return out
+
+
+def run_cli(device) -> None:
+    """The CLI at the main path's full sizes (``CLI_RUNS``), in process on
+    a ``cuda:0`` session with the launch counts read per node; a ``-r``
+    selection (``CLI_SELECT``); ``--dump-config`` on P3, whose file
+    ``python -m repro_torch.core.cli --config`` then replays at one
+    repetition: the same spec and tree, the same columns, every node
+    validated."""
+    from repro_torch.core import cli
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.clients import torch_fft
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.core.tree import build_tree, select
+
+    session = Session(TorchContext(device))
+    pack = _PackCalls()
+    hook = _NodeLaunches(pack)
+    try:
+        for name, argv, kernels in CLI_RUNS:
+            t0 = time.perf_counter()
+            rc, text = _cli_call(argv, session, hook)
+            if rc != 0:
+                raise AssertionError(f"CLI {name} returned {rc}: {text}")
+            for node in _check_cli_run(name, argv, kernels, hook):
+                emit(node)
+            emit({"cli": name, "stdout": text.splitlines(),
+                  "cli_s": time.perf_counter() - t0})
+
+        argv, kernels = CLI_SELECT
+        rc, text = _cli_call(argv, session, hook)
+        spec = cli.spec_from_args(cli.build_parser().parse_args(argv))
+        tree = build_tree([getattr(torch_fft, c) for c in spec.clients],
+                          spec.extents, kinds=spec.kinds,
+                          precisions=spec.precisions, batch=spec.batch)
+        want = [n.path for n in select(tree, spec.select)]
+        if rc != 0 or len(want) != 1 or len(tree) != 4:
+            raise AssertionError(f"CLI selection: rc {rc}, {want}: {text}")
+        nodes = _check_cli_run("select", argv, kernels, hook)
+        if [n["path"] for n in nodes] != want:
+            raise AssertionError(f"CLI selection ran {nodes}, tree.select "
+                                 f"gives {want}")
+        emit({"cli": "select", "pattern": spec.select,
+              "tree": len(tree), "ran": [n["path"] for n in nodes]})
+
+        p3 = CLI_RUNS[1][1]
+        toml = os.path.join(CLI_DIR, "p3.toml")
+        rc, _ = _cli_call(p3 + ["--dump-config", toml], session, hook)
+        replayed = SuiteSpec.from_file(toml)
+        direct = cli.spec_from_args(cli.build_parser().parse_args(p3))
+        if rc != 0 or hook.nodes or replayed != direct \
+                or replayed.build_nodes() != direct.build_nodes():
+            raise AssertionError(f"--dump-config P3: rc {rc}, {replayed} != "
+                                 f"{direct}")
+    finally:
+        hook.close()
+        pack.close()
+
+    # the replay runs as a program: P3's spec file at one repetition
+    t0 = time.perf_counter()
+    replay = os.path.join(CLI_DIR, "p3b.csv")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.cli", "--config", toml,
+         "-o", replay, "--reps", "1"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True,
+        timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.core.cli: rc "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    columns, rows = _read_result_file(replay)
+    val = [r for r in rows if r["op"] == "validate"]
+    if columns != _read_result_file(direct.output)[0] \
+            or [r["library"] for r in val] != list(direct.clients) \
+            or not all(r["success"] == "True" for r in val) \
+            or {r["run"] for r in rows if r["op"] == "execute_forward"} \
+            != {"0"}:
+        raise AssertionError(f"the replayed P3 program: columns {columns}, "
+                             f"validate rows {val}")
+    emit({"cli": "P3 replayed as a program", "config":
+          os.path.relpath(toml, ROOT), "rc": out.returncode,
+          "rows": len(rows), "stdout": out.stdout.splitlines(),
+          "program_s": time.perf_counter() - t0})
+
+
+def run_paper_tables(device) -> None:
+    """The paper's ``overhead``, ``tts``, ``plan_rigor`` and ``dtypes``
+    tables (``PAPER_TABLES``) through ``Session.run`` on the card, their
+    rows emitted as CSV: every node its client supports validates.  Then
+    their entry point ``python -m repro_torch.benchmarks.run ...`` prints
+    the same row names."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.core.candidates import backend_supports
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.suite import Session
+
+    class Recording(Session):
+        def __init__(self, context):
+            super().__init__(context)
+            self.runs = []
+
+        def run(self, spec, nodes=None):
+            rs = super().run(spec, nodes)
+            self.runs.append((spec, rs))
+            return rs
+
+    session = Recording(TorchContext(device))
+    names = []
+    t0 = time.perf_counter()
+    _reset_counts()
+    for table in PAPER_TABLES:
+        mod = importlib.import_module(f"repro_torch.benchmarks.table_{table}")
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.run(session=session)
+        lines = buf.getvalue().splitlines()
+        emit({"table": table, "csv": lines,
+              "table_s": time.perf_counter() - t1})
+        names += [line.split(",")[0] for line in lines]
+    ran = 0
+    for spec, rs in session.runs:
+        for node in spec.build_nodes():
+            cls, problem = node.client_cls, node.problem
+            want = cls.backend_filter is None or backend_supports(
+                cls.backend_filter, problem)
+            val = rs.query(op="validate", library=cls.title,
+                           extents="x".join(map(str, problem.extents)),
+                           kind=problem.kind, precision=problem.precision)
+            if len(val) != 1 or val[0].success != want:
+                raise AssertionError(
+                    f"table spec {spec.rigor} {node.path} should "
+                    f"{'validate' if want else 'be a failed node'}: "
+                    f"{[(r.success, r.error) for r in val]}")
+            ran += want
+    emit({"tables": " ".join(PAPER_TABLES), "runs": len(session.runs),
+          "nodes_ran": ran, "rows": len(names), "launches": _counts(),
+          "tables_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", *PAPER_TABLES],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    rows = [line.split(",")[0] for line in out.stdout.splitlines()[1:]]
+    emit({"tables_cli_rc": out.returncode, "rows": len(rows),
+          "cli_s": time.perf_counter() - t0})
+    if out.returncode != 0 or sorted(rows) != sorted(names):
+        raise AssertionError(f"run {' '.join(PAPER_TABLES)}: rc "
+                             f"{out.returncode}, rows {sorted(rows)} against "
+                             f"{sorted(names)}: {out.stderr[-2000:]}")
 
 
 def _conv_inputs(device, gen, c, b, L, K):
@@ -1482,11 +1783,11 @@ class Shape:
                                        self.x.element_size())
 
     def tile_sweep(self, plan) -> dict:
-        """Four-step kernel ms (CUDA events, median of 20) at tiles of 1
-        to 32 signals that fit a block."""
+        """Four-step kernel ms (CUDA events, median of ``TIMING_REPS``) at
+        tiles of 1 to 32 signals that fit a block."""
         n1, n2 = self.ops.choose_factors(self.n)
         return {t: _events_ms(lambda: self.ops.fft(
-                    self.x, False, tile_b=t, twiddles=plan), 20)
+                    self.x, False, tile_b=t, twiddles=plan), TIMING_REPS)
                 for t in (1, 2, 4, 8, 16, 32)
                 if t <= self.rows and self.ops.smem_bytes(
                     n1, n2, t, self.x.element_size())
@@ -1605,12 +1906,13 @@ class ConvShape(Shape):
         return op, op.plain
 
     def tile_sweep(self) -> dict:
-        """Kernel ms (CUDA events, median of 20) at every tile that fits a
-        block, up to the largest: the check on ``DEFAULT_TILE_B``."""
+        """Kernel ms (CUDA events, median of ``TIMING_REPS``) at every tile
+        that fits a block, up to the largest: the check on
+        ``DEFAULT_TILE_B``."""
         out = {}
         for t in range(1, self.ops.largest_tile_b(self.n) + 1):
             op = self.ops.prepare(self.x, self.h, tile_b=t)
-            out[t] = _events_ms(lambda: self.ops.run_kernel(op), 20)
+            out[t] = _events_ms(lambda: self.ops.run_kernel(op), TIMING_REPS)
             del op
         return out
 
@@ -1702,9 +2004,9 @@ def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
         plan, plain = s.plan()
         bound_ms, bound_by = s.bound()
         row = {"kernel": s.kernel, **s.shape, "launches": launches,
-               "ms": _events_ms(lambda: s.kernel_call(plan=plan), 20),
-               "plain_ms": _events_ms(plain, 5),
-               "library_ms": _events_ms(s.library, 20),
+               "ms": _events_ms(lambda: s.kernel_call(plan=plan), TIMING_REPS),
+               "plain_ms": _events_ms(plain, PLAIN_REPS),
+               "library_ms": _events_ms(s.library, TIMING_REPS),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "algorithm_ops_ms": s.algorithm_ops_ms(),
                "bytes_moved": s.bytes_moved(),
@@ -1713,7 +2015,7 @@ def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
             # the whole wrapper (operands included), and the kernel at
             # every tile that fits a block: fewer signals per block, more
             # blocks per SM
-            row["op_ms"] = _events_ms(s.kernel_call, 20)
+            row["op_ms"] = _events_ms(s.kernel_call, TIMING_REPS)
             row["tile_sweep_ms"] = s.tile_sweep()
         elif s.kernel == "fft4step":
             # the kernel at tiles of 1 to 32 signals that fit a block: the
@@ -1750,9 +2052,9 @@ def time_extra(device) -> list[dict]:
         plan, plain = s.plan()
         bound_ms, bound_by = s.bound()
         row = {"kernel": kernel, **s.shape, "launches": 0,
-               "ms": _events_ms(lambda: s.kernel_call(plan=plan), 20),
-               "plain_ms": _events_ms(plain, 5),
-               "library_ms": _events_ms(s.library, 20),
+               "ms": _events_ms(lambda: s.kernel_call(plan=plan), TIMING_REPS),
+               "plain_ms": _events_ms(plain, PLAIN_REPS),
+               "library_ms": _events_ms(s.library, TIMING_REPS),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "algorithm_ops_ms": s.algorithm_ops_ms(),
                "bytes_moved": s.bytes_moved(), "rel_l2_plain": rel,
@@ -1807,6 +2109,10 @@ def main() -> int:
     t_tables = time.perf_counter()
     run_tables(device)
     emit({"tables_phase_s": time.perf_counter() - t_tables})
+    t_cli = time.perf_counter()
+    run_cli(device)
+    run_paper_tables(device)
+    emit({"cli_tables_phase_s": time.perf_counter() - t_cli})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     t_conv = time.perf_counter()

@@ -3,14 +3,18 @@ Prints ``name,us_per_call,derived`` CSV.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [table ...]
 
-Tables run on ``cuda:0`` (no card: the run fails).  ``kernels`` is the
-beyond-paper kernel table: each hand-written CUDA kernel against its plain
-engine, and the fused fftconv kernel against the unfused ``torch.fft``
-path; ``backends`` is the paper's Fig. 6 (runtime per backend, 1D/2D/3D
-and the non-power-of-two classes) and ``radix`` its Fig. 7 (the extent
-classes under the vendor path, the planner and chirp-Z).  Every table is
-a declarative :class:`repro_torch.core.suite.SuiteSpec` executed by the
-shared ``run_suite`` helper.
+Tables run on ``cuda:0`` (no card: the run fails).  They map to the
+paper: overhead=Fig. 2 (the framework's per-op timers against one timer
+around the round trip), tts=Fig. 3 (time-to-solution of powerof2 3-D
+R2C), plan_rigor=Figs. 4-5 (planning against transform time per rigor),
+backends=Fig. 6 (runtime per backend, 1D/2D/3D and the non-power-of-two
+classes), radix=Fig. 7 (the extent classes under the vendor path, the
+planner and chirp-Z), dtypes=Fig. 8 (R2C against C2C, f32 against f64);
+``kernels`` is the beyond-paper kernel table: each hand-written CUDA
+kernel against its plain engine, and the fused fftconv kernel against the
+unfused ``torch.fft`` path.  Every table is a declarative
+:class:`repro_torch.core.suite.SuiteSpec` executed by the shared
+``run_suite`` helper.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import importlib
 import sys
 import time
 
-TABLES = ["kernels", "backends", "radix"]
+TABLES = ["overhead", "tts", "plan_rigor", "backends", "radix", "dtypes",
+          "kernels"]
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,17 +1,37 @@
 """Suite-result aggregation: the one mean/stdev core behind
 ``results.aggregate_rows``, ``ResultSet.aggregate_named`` and the
-benchmark tables.
+benchmark tables, and the percentile helper behind
+``ResultSet.summary``'s tail-latency view.
 
-The reference package's ``core/compare.py`` also has percentiles (read
-by its serving table) and reads, aligns and diffs ``BENCH_*.json``
-trajectory documents; the port has neither reader yet, so this module is
-its mean/stdev section alone, stdlib only.
+The reference package's ``core/compare.py`` also aggregates percentiles
+per group (read by its serving table) and reads, aligns and diffs
+``BENCH_*.json`` trajectory documents; the port has neither reader yet,
+so this module is its mean/stdev and percentile sections alone, stdlib
+only.
 """
 
 from __future__ import annotations
 
 import statistics
 from dataclasses import dataclass
+
+#: Tail-latency quantiles shared with ``results.percentile_summary``.
+PERCENTILES = (50, 95, 99)
+
+
+def percentile(vals, q: float) -> float:
+    """q-th percentile (0..100), linear interpolation between closest
+    ranks: ``numpy.percentile``'s default method."""
+    if not vals:
+        raise ValueError("percentile of empty sequence")
+    s = sorted(vals)
+    if len(s) == 1:
+        return float(s[0])
+    pos = (len(s) - 1) * (q / 100.0)
+    lo = int(pos)
+    hi = min(lo + 1, len(s) - 1)
+    return float(s[lo] + (s[hi] - s[lo]) * (pos - lo))
+
 
 @dataclass(frozen=True)
 class AggStats:

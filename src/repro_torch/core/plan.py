@@ -63,6 +63,10 @@ class PlanCacheStats:
     misses: int = 0
     cold_ms: float = 0.0   # total time spent building on misses
 
+    def as_dict(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "cold_ms": self.cold_ms}
+
 
 class PlanCache:
     """Memoizes built plans (executables) and plan selections.
@@ -234,13 +238,16 @@ def _near_lookup(wisdom, problem: Problem, demoted: frozenset):
 
 def make_plan(problem: Problem, rigor: PlanRigor,
               build: Callable[[Candidate], Callable] | None = None,
-              wisdom=None, device=None) -> Plan | None:
+              wisdom=None, device=None, near: bool = True) -> Plan | None:
     """The planner.  Returns None for a WISDOM_ONLY miss (fftw's NULL
     plan).
 
     MEASURE/PATIENT consult wisdom first: a persisted selection for this
     (device, problem) skips the sweep, and on an exact miss the
     nearest-neighbor warm start does (plan source ``wisdom_near``).
+    ``near=False`` turns the nearest-neighbor path off, so that a
+    pregeneration run gives every swept shape a real sweep rather than
+    its neighbor's pick.
     Otherwise they time every candidate that ``build``
     makes on ``device`` (default ``cuda:0``) and record the winner in
     wisdom.  Without ``build`` they take ESTIMATE's pick untimed, which is
@@ -255,10 +262,11 @@ def make_plan(problem: Problem, rigor: PlanRigor,
         cand = wisdom.lookup(problem)
         if cand is not None:
             return Plan(problem, cand, rigor, ms(), source="wisdom")
-        cand = _near_lookup(wisdom, problem,
-                            _demoted_backends(wisdom, problem))
-        if cand is not None:
-            return Plan(problem, cand, rigor, ms(), source="wisdom_near")
+        if near:
+            cand = _near_lookup(wisdom, problem,
+                                _demoted_backends(wisdom, problem))
+            if cand is not None:
+                return Plan(problem, cand, rigor, ms(), source="wisdom_near")
         return None
 
     demoted = _demoted_backends(wisdom, problem)
@@ -266,7 +274,7 @@ def make_plan(problem: Problem, rigor: PlanRigor,
         cand = wisdom.lookup(problem)
         if cand is not None and cand.backend not in demoted:
             return Plan(problem, cand, rigor, ms(), source="wisdom")
-        if cand is None:
+        if cand is None and near:
             cand = _near_lookup(wisdom, problem, demoted)
             if cand is not None:
                 return Plan(problem, cand, rigor, ms(), source="wisdom_near")

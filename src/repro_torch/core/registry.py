@@ -35,3 +35,7 @@ def get_client(name: str) -> Type:
     except KeyError:
         known = ", ".join(sorted(_REGISTRY)) or "<none>"
         raise KeyError(f"unknown client {name!r}; registered: {known}") from None
+
+
+def client_names() -> list[str]:
+    return sorted(_REGISTRY)

@@ -9,11 +9,12 @@ The ``plan_cache`` column exists only when the plan cache is enabled.
 from __future__ import annotations
 
 import csv
+import io
 import json
 import os
 from dataclasses import dataclass
 
-from .compare import aggregate_result_rows
+from .compare import PERCENTILES, aggregate_result_rows, percentile
 
 COLUMNS = [
     "library", "device", "extents", "rank", "extent_class", "precision",
@@ -149,6 +150,31 @@ def open_sink(path: str, fmt: str | None = None,
     if fmt == "csv":
         return CsvSink(path, columns)
     raise ValueError(f"unknown sink format {fmt!r}")
+
+
+def rows_to_csv(rows, columns) -> str:
+    """Header + every row as one CSV string."""
+    buf = io.StringIO()
+    w = csv.writer(buf)
+    w.writerow(columns)
+    for r in rows:
+        w.writerow(r.as_list(columns))
+    return buf.getvalue()
+
+
+def save_csv(path: str, rows, columns) -> str:
+    """Write ``rows_to_csv`` to ``path``, creating parent dirs."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w", newline="") as f:
+        f.write(rows_to_csv(rows, columns))
+    return path
+
+
+def percentile_summary(vals, quantiles=PERCENTILES) -> dict:
+    """``{"p50": ..., "p95": ..., "p99": ...}`` over ``vals`` (ms)."""
+    return {f"p{q:g}": percentile(vals, q) for q in quantiles}
 
 
 def aggregate_rows(rows, op: str | None = None):

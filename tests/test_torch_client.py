@@ -335,6 +335,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax')\n"
         "       or k == 'repro' or k.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "need = ['repro_torch.core.cli'] + ['repro_torch.benchmarks.table_'\n"
+        "        + t for t in ('overhead', 'tts', 'plan_rigor', 'backends',\n"
+        "                      'radix', 'dtypes', 'kernels')]\n"
+        "assert all(n in sys.modules for n in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env,
