@@ -70,10 +70,21 @@
    as a program at one repetition (the same columns); then the
    paper's ``overhead``, ``tts``, ``plan_rigor`` and ``dtypes`` tables
    (Figs. 2, 3, 4-5 and 8) through ``Session.run`` (every node its client
-   supports validates; their rows emitted as CSV), and their entry point
-   ``python -m repro_torch.benchmarks.run overhead tts plan_rigor
+   supports validates; their rows emitted as CSV; ``plan_rigor`` with
+   its ``estimate_fitted`` rows, and ``TorchPlanned``'s pick at every
+   repetition logged, MEASURE's beside WISDOM_ONLY's), and their entry
+   point ``python -m repro_torch.benchmarks.run overhead tts plan_rigor
    dtypes``;
-11. holds the fused fftconv kernel against its plain version and the
+11. the perf-trajectory phase: the bench grid's smoke mode
+   (``repro_torch.benchmarks.bench_grid``) on the card, every row the
+   support rules admit ok and launching its backend's kernels and no
+   other, every other row the unsupported row; the committed
+   ``BENCH_h100.json``'s large rows no faster than 1.05 x one HBM read
+   and write, its rows over a roofline fraction of 1 printed; ESTIMATE
+   under the fitted ``costmodel_h100.json`` on P1-P14 beside the
+   hand-written and MEASURE's picks, every node whose fitted pick differs
+   through ``Session.run``, validated and launching its pick's kernels;
+12. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -82,7 +93,7 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-12. holds each kernel against its plain version at every shape the main
+13. holds each kernel against its plain version at every shape the main
    path (P1-P14), the backends nodes and the sweeps launched it with
    (radix 8 and the default tile, both directions; fftconv against its
    plain version and the float64 oracle), then times it at the main
@@ -93,7 +104,7 @@
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
    tile and the dft kernel's direct product at 512 MiB shapes
    (``EXTRA_TIMING``);
-13. prints the kernel summary and, as the last line,
+14. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -287,6 +298,13 @@ CLI_SELECT = (["-e", "1024", "-b", "64", "--kinds", "Outplace_Complex",
                "TorchFourStepPallas", "-r", "TorchFourStep*/*/*/Inplace_Real",
                "-o", os.path.join(CLI_DIR, "select.csv")],
               {"TorchFourStepPallas": ("fft4step",)})
+#: The trajectory phase's files, and the committed H100 baselines
+#: (``BENCH_h100.json``, ``wisdom_h100.json``, ``costmodel_h100.json``).
+TRAJECTORY_DIR = os.path.join(ROOT, "build", "trajectory")
+BASELINES = os.path.join(SRC, "repro_torch", "benchmarks", "baselines")
+#: A grid row at least this large each way cannot move its signal faster
+#: than one HBM read and write: the L2 (50 MB) holds none of it.
+LARGE_ROW_BYTES = 100 << 20
 #: The paper tables the CLI phase runs: Figs. 2, 3, 4-5 and 8.
 PAPER_TABLES = ("overhead", "tts", "plan_rigor", "dtypes")
 #: Each client's main path: (client, its problems, the kernel it runs).
@@ -1065,16 +1083,35 @@ def run_paper_tables(device) -> None:
     names = []
     t0 = time.perf_counter()
     _reset_counts()
-    for table in PAPER_TABLES:
-        mod = importlib.import_module(f"repro_torch.benchmarks.table_{table}")
-        buf = io.StringIO()
-        t1 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            mod.run(session=session)
-        lines = buf.getvalue().splitlines()
-        emit({"table": table, "csv": lines,
-              "table_s": time.perf_counter() - t1})
-        names += [line.split(",")[0] for line in lines]
+    hook = _PlanPicks()
+    try:
+        for table in PAPER_TABLES:
+            mod = importlib.import_module(
+                f"repro_torch.benchmarks.table_{table}")
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.run(session=session)
+            lines = buf.getvalue().splitlines()
+            emit({"table": table, "csv": lines,
+                  "table_s": time.perf_counter() - t1})
+            names += [line.split(",")[0] for line in lines]
+    finally:
+        hook.close()
+    # Figs. 4-5: TorchPlanned's pick at every init (each repetition
+    # re-plans), and whether MEASURE's and WISDOM_ONLY's are the same
+    picks = _rigor_picks(hook.picks)
+    for (rigor, problem), keys in sorted(picks.items()):
+        emit({"plan_rigor_picks": problem, "rigor": rigor, "picks": keys})
+    for problem in sorted({p for r, p in picks if r == "measure"}):
+        measure = sorted(set(picks[("measure", problem)]))
+        wisdom = sorted(set(picks.get(("wisdom_only", problem), [])))
+        emit({"measure_vs_wisdom_only": problem,
+              "same_pick": measure == wisdom, "measure": measure,
+              "wisdom_only": wisdom})
+    if not any(n.startswith("fft_time/estimate_fitted/") for n in names):
+        raise AssertionError("plan_rigor emitted no estimate_fitted rows, "
+                             "with the fitted H100 table committed")
     ran = 0
     for spec, rs in session.runs:
         for node in spec.build_nodes():
@@ -1105,6 +1142,213 @@ def run_paper_tables(device) -> None:
         raise AssertionError(f"run {' '.join(PAPER_TABLES)}: rc "
                              f"{out.returncode}, rows {sorted(rows)} against "
                              f"{sorted(names)}: {out.stderr[-2000:]}")
+
+
+class _PlanPicks:
+    """While installed, records each client's plan selection
+    (``TorchFFTClient._select``): one record per init of a client, so per
+    repetition where no plan cache holds the pick."""
+
+    def __init__(self):
+        from repro_torch.core.clients import torch_fft
+        self.cls = torch_fft.TorchFFTClient
+        self.real = self.cls._select
+        self.picks: list[dict] = []
+        real, picks = self.real, self.picks
+
+        def _select(client):
+            cand = real(client)
+            picks.append({"client": client.title,
+                          "rigor": client.rigor.value,
+                          "problem": client.problem.signature(),
+                          "pick": cand.key() if cand is not None else None,
+                          "source": client.plan_source})
+            return cand
+
+        self.cls._select = _select
+
+    def close(self) -> None:
+        self.cls._select = self.real
+
+
+def _rigor_picks(picks: list[dict]) -> dict:
+    """``TorchPlanned``'s pick keys per (rigor, problem), in order."""
+    out: dict = {}
+    for p in picks:
+        if p["client"] == "TorchPlanned":
+            out.setdefault((p["rigor"], p["problem"]), []).append(p["pick"])
+    return out
+
+
+def check_smoke_grid(device) -> None:
+    """The bench grid's smoke mode on the card (``SMOKE_EXTENTS`` x
+    ``DEFAULT_BACKENDS``, 1 repetition) into ``build/trajectory/``, read
+    back with the port's ``load_bench``: every row the support rules admit
+    is ok and launched its backend's kernels and no other (read per row by
+    wrapping ``bench_backend``), every other row is the reference's
+    unsupported row."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import bench_grid
+    from repro_torch.core.candidates import Candidate, backend_supports
+    from repro_torch.core.client import Problem
+    from repro_torch.core.compare import load_bench
+    from repro_torch.core.extents import parse_extents
+
+    os.makedirs(TRAJECTORY_DIR, exist_ok=True)
+    out = os.path.join(TRAJECTORY_DIR, "BENCH_smoke_cuda.json")
+    report = os.path.join(TRAJECTORY_DIR, "fig7_smoke_cuda.md")
+    real, launched = bench_grid.bench_backend, {}
+
+    def counted(backend, extents, *args, **kwargs):
+        _reset_counts()
+        rec = real(backend, extents, *args, **kwargs)
+        launched[(backend, rec["extent"])] = {
+            k: c for k, c in _counts().items() if c}
+        return rec
+
+    bench_grid.bench_backend = counted
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench_grid.main(["--smoke", "--device", str(device),
+                                  "--out", out, "--report", report])
+    finally:
+        bench_grid.bench_backend = real
+    doc = load_bench(out)
+    if rc != 0 or len(doc.rows) != len(bench_grid.SMOKE_EXTENTS) * len(
+            bench_grid.DEFAULT_BACKENDS):
+        raise AssertionError(f"smoke grid: rc {rc}, {len(doc.rows)} rows: "
+                             f"{buf.getvalue()[-2000:]}")
+    ran = 0
+    for row in doc.rows:
+        problem = Problem(parse_extents(row["extent"]), row["kind"],
+                          row["precision"], row["batch"])
+        key = (row["backend"], row["extent"])
+        if not backend_supports(row["backend"], problem):
+            if row["ok"] or row.get("error") != "unsupported extents/rank":
+                raise AssertionError(f"smoke grid {key}: should be the "
+                                     f"unsupported row: {row}")
+            continue
+        want = _kernels_of(Candidate(row["backend"]), problem)
+        if not row["ok"] or set(launched[key]) != want:
+            raise AssertionError(f"smoke grid {key}: ok {row['ok']} "
+                                 f"({row.get('error')}), launched "
+                                 f"{launched[key]}, its kernels {sorted(want)}")
+        ran += 1
+    emit({"smoke_grid": os.path.relpath(out, ROOT), "rows": len(doc.rows),
+          "ran": ran, "launches": {f"{b}/{e}": c for (b, e), c
+                                   in launched.items() if c},
+          "fig7": open(report).read().splitlines(),
+          "smoke_grid_s": time.perf_counter() - t0})
+
+
+def check_bench_h100() -> None:
+    """The committed H100 grid (``BENCH_h100.json``): no row of at least
+    ``LARGE_ROW_BYTES`` each way moves its signal faster than 1.05 x one
+    HBM read and write (a faster one is a timing fault); the rows whose
+    ``roofline_frac`` reads over 1 (where the hand-written model charges
+    more passes than the card makes) are printed."""
+    from repro_torch.core.compare import load_bench
+
+    doc = load_bench(os.path.join(BASELINES, "BENCH_h100.json"))
+    limit = 1.05 * HBM_BYTES_PER_S / 2**30
+    large = []
+    for row in doc.ok_rows():
+        n = row["batch"] * math.prod(int(v) for v in
+                                     row["extent"].split("x"))
+        if n * 8 >= LARGE_ROW_BYTES:
+            large.append(f"{row['backend']}/{row['extent']}")
+            if row["gib_per_s"] > limit:
+                raise AssertionError(
+                    f"BENCH_h100 {row['backend']}/{row['extent']}: "
+                    f"{row['gib_per_s']:.1f} GiB/s over 1.05 x HBM "
+                    f"({limit:.1f} GiB/s): a timing fault")
+    over = [{"row": f"{r['backend']}/{r['extent']}", "time_ms": r["time_ms"],
+             "model_bytes": r["model_bytes"],
+             "roofline_frac": r["roofline_frac"]}
+            for r in doc.ok_rows() if r["roofline_frac"] > 1.0]
+    emit({"bench_h100": doc.meta.get("device_kind"),
+          "power_limit": doc.meta.get("power_limit"),
+          "large_rows": large, "gib_per_s_limit": limit,
+          "roofline_frac_over_1": over})
+
+
+def check_fitted_estimate(device) -> None:
+    """ESTIMATE under the fitted H100 table (``costmodel_h100.json``,
+    installed through ``SuiteSpec.costmodel``) on P1-P14: each fitted pick
+    beside the hand-written one (``ESTIMATE_PICKS``) and MEASURE's (the
+    planner phase's wisdom); every node whose fitted pick differs runs
+    through ``Session.run``, validates, selects the fitted pick and
+    launches its kernels and no other."""
+    import torch
+
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.clients.torch_fft import TorchPlanned
+    from repro_torch.core.costmodel import (DEFAULT_MODEL, model_for_device,
+                                            use_model)
+    from repro_torch.core.plan import PlanRigor, make_plan
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.core.tree import BenchNode
+    from repro_torch.core.wisdom import Wisdom
+
+    table = os.path.join(BASELINES, "costmodel_h100.json")
+    kind = torch.cuda.get_device_name(0)
+    fitted = model_for_device(kind, table)
+    if fitted is DEFAULT_MODEL:
+        raise AssertionError(f"{table} has no table for {kind!r}")
+    measured = Wisdom(WISDOM_PATH, device_kind=kind)
+    changed = []
+    for pname, hand in ESTIMATE_PICKS.items():
+        problem = _problem(pname)
+        with use_model(fitted):
+            pick = make_plan(problem, PlanRigor.ESTIMATE).candidate.key()
+        m = measured.lookup(problem)
+        emit({"fitted_estimate": pname, "pick": pick, "hand_written": hand,
+              "measure": m.key() if m is not None else "not measured"})
+        if pick != hand:
+            changed.append((pname, pick))
+    session = Session(TorchContext(device))
+    hook = _PlanPicks()
+    try:
+        for pname, pick in changed:
+            problem = _problem(pname)
+            # no plan cache: every repetition plans under the fitted table
+            spec = SuiteSpec(rigor="estimate", costmodel=table, warmups=1,
+                             repetitions=2, plan_cache=False, output=None)
+            hook.picks.clear()
+            _reset_counts()
+            rs = session.run(spec, nodes=[BenchNode(TorchPlanned, problem)])
+            launches = {k: c for k, c in _counts().items() if c}
+            val = rs.query(op="validate")
+            picks = {p["pick"] for p in hook.picks}
+            want = _kernels_of(Candidate.from_key(pick), problem)
+            if len(val) != 1 or not val[0].success or picks != {pick} \
+                    or set(launches) != want:
+                raise AssertionError(
+                    f"fitted ESTIMATE {pname}: validate "
+                    f"{[(r.success, r.error) for r in val]}, selected "
+                    f"{picks} (fitted {pick}), launched {launches}, its "
+                    f"kernels {sorted(want)}")
+            emit({"fitted_node": pname, "pick": pick,
+                  "hand_written": ESTIMATE_PICKS[pname],
+                  "execute_forward_ms": statistics.median(
+                      r.time_ms for r in rs.query(op="execute_forward")
+                      if r.run >= 0),
+                  "launches": launches})
+    finally:
+        hook.close()
+
+
+def run_trajectory(device) -> None:
+    """The perf-trajectory phase: the smoke grid on the card, the
+    committed H100 grid's bounds, and ESTIMATE under the fitted table."""
+    check_smoke_grid(device)
+    check_bench_h100()
+    check_fitted_estimate(device)
 
 
 def _conv_inputs(device, gen, c, b, L, K):
@@ -2113,6 +2357,9 @@ def main() -> int:
     run_cli(device)
     run_paper_tables(device)
     emit({"cli_tables_phase_s": time.perf_counter() - t_cli})
+    t_traj = time.perf_counter()
+    run_trajectory(device)
+    emit({"trajectory_phase_s": time.perf_counter() - t_traj})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     t_conv = time.perf_counter()

@@ -111,9 +111,13 @@ class TorchContext:
     def create(self) -> None:  # timed once
         self.device_kind = self.discover_kind()
         if self.device.type == "cuda":
+            from concurrent.futures import ThreadPoolExecutor
+
             from ..kernels import _build
-            for name in _build.sources():
-                _build.library(name)
+            names = _build.sources()
+            # one nvcc per source, all started together
+            with ThreadPoolExecutor(max_workers=len(names)) as pool:
+                list(pool.map(_build.library, names))
 
     def destroy(self) -> None:
         pass

@@ -3,8 +3,11 @@
 The reference package's model with its coefficients unchanged: the
 :class:`CostCoefficients` defaults are the reference's, bit for bit, and a
 coefficient-table file (``load_tables``/``save_tables``) written by either
-package reads the same in the other.  No table has been fitted on the
-H100 yet, so ESTIMATE ranks by the hand-written pass counts.
+package reads the same in the other.  A table fitted on the card
+(``benchmarks/fit_costmodel.py``: one scale a backend, through
+:data:`BACKEND_COEFFS` and :meth:`CostModel.scaled`) is opt-in through
+``SuiteSpec.costmodel``; without one ESTIMATE ranks by the hand-written
+pass counts.
 
 Two things differ, both for Hopper:
 
@@ -30,6 +33,9 @@ A module-level *active* model (:func:`get_active_model`,
 :func:`set_active_model`, :func:`use_model`) is what ``hbm_passes``,
 ``estimate_bytes_moved`` and ``estimate_choice`` consult, so a Session that
 installs a table re-ranks ESTIMATE picks and per-axis pruning at once.
+An infeasible assignment gets a typed :class:`Infeasible` verdict from
+:meth:`CostModel.estimate` (its ``float()`` is ``inf``, which is what
+``estimate_bytes_moved`` returns).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from __future__ import annotations
 import json
 import warnings
 from contextlib import contextmanager
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 from ..fft.bluestein import PALLAS_SINGLE_MAX_M
@@ -50,6 +56,24 @@ from .extents import next_pow2 as _next_pow2, next_smooth
 
 #: Schema stamped into coefficient-table files; loaders reject others.
 COSTMODEL_SCHEMA_VERSION = 1
+
+
+@dataclass(frozen=True)
+class Infeasible:
+    """Typed infeasibility verdict from :meth:`CostModel.estimate`.
+
+    Falsy, and ``float()`` of it is ``inf``: numeric callers keep their
+    sentinel, while a report (the bench grid's roofline) can say why a row
+    had no modeled traffic.
+    """
+
+    reason: str = ""
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __float__(self) -> float:
+        return float("inf")
 
 
 @dataclass(frozen=True)
@@ -93,6 +117,22 @@ class CostCoefficients:
 
 DEFAULT_COEFFICIENTS = CostCoefficients()
 
+#: Which coefficients a measured row of each backend calibrates: the fitter
+#: scales them together, so the structure inside a backend (the chirp
+#: smooth against power-of-two overhead) is kept.  ``fft2_pallas`` has
+#: none (ESTIMATE prices it by its passes), and the dft pin is a rule.
+BACKEND_COEFFS = {
+    "xla": ("xla_smooth_passes", "xla_chirp_passes"),
+    "stockham": ("stockham_stage_passes",),
+    "fourstep": ("fourstep_level_passes",),
+    "dft": ("dft_passes",),
+    "fourstep_pallas": ("fourstep_pallas_passes",),
+    "stockham_pallas": ("stockham_pallas_passes",),
+    "sixstep": ("sixstep_passes",),
+    "chirpz_pallas": ("chirpz_smooth_passes", "chirpz_pow2_passes"),
+    "bluestein": ("bluestein_stage_passes", "bluestein_setup_passes"),
+}
+
 
 class CostModel:
     """Bytes-moved model over one :class:`CostCoefficients` table;
@@ -108,6 +148,18 @@ class CostModel:
 
     def __repr__(self) -> str:
         return f"CostModel({self.device_kind!r}, source={self.source!r})"
+
+    def scaled(self, backend_scales: dict[str, float],
+               device_kind: str = "", source: str = "") -> "CostModel":
+        """A new model with each backend's coefficients (see
+        :data:`BACKEND_COEFFS`) multiplied by its fitted scale."""
+        updates: dict[str, float] = {}
+        for backend, scale in backend_scales.items():
+            for name in BACKEND_COEFFS.get(backend, ()):
+                updates[name] = getattr(self.coeffs, name) * float(scale)
+        return CostModel(replace(self.coeffs, **updates),
+                         device_kind or self.device_kind,
+                         source or self.source)
 
     def hbm_passes(self, backend: str, n: int,
                    precision: str = "float") -> float:
@@ -159,17 +211,20 @@ class CostModel:
                     + c.bluestein_setup_passes) * (m / n)
         return float("inf")
 
-    def estimate(self, problem: Problem, cand: Candidate) -> float:
+    def estimate(self, problem: Problem,
+                 cand: Candidate) -> "float | Infeasible":
         """Modeled device-memory bytes for the full transform under
-        ``cand`` (``inf``: infeasible on Hopper).  Whole-transform
-        backends move the signal their passes with no transpose traffic;
+        ``cand``, or an :class:`Infeasible` verdict with the reason (the
+        assignment cannot run on Hopper).  Whole-transform backends move
+        the signal their passes with no transpose traffic;
         separable assignments pay, per axis, the engine's passes at its
         engine length plus two transpose passes for every non-innermost
         axis, each pass reading and writing the axis's live elements."""
         c = self.coeffs
         complex_itemsize = 16 if problem.precision == "double" else 8
         if cand.mesh:
-            return float("inf")   # the port has no distributed backends
+            return Infeasible(f"{cand.key()}: the port has no distributed "
+                              "backends")
         if cand.backend in FUSED_ND:
             elems = axis_elems(problem, problem.rank - 1)
             if cand.backend == "xla":
@@ -177,7 +232,8 @@ class CostModel:
                              for i in range(problem.rank))
             else:   # fft2_pallas: one read + one write of the tile a pass
                 if not fft2_feasible(problem):
-                    return float("inf")
+                    return Infeasible(f"fft2_pallas cannot take "
+                                      f"{problem.signature()}")
                 passes = float(fft2_passes(problem))
             return passes * 2.0 * elems * complex_itemsize
         total = 0.0
@@ -186,12 +242,19 @@ class CostModel:
             passes = self.hbm_passes(ax_cand.backend, n_eng,
                                      problem.precision)
             if passes == float("inf"):
-                return passes
+                return Infeasible(
+                    f"{ax_cand.backend} infeasible at engine length "
+                    f"{n_eng} (axis {axis} of {problem.signature()})")
             if axis != problem.rank - 1:
                 passes += c.transpose_passes
             total += (passes * 2.0 * axis_elems(problem, axis)
                       * complex_itemsize)
         return total
+
+    def estimate_bytes_moved(self, problem: Problem,
+                             cand: Candidate) -> float:
+        """Numeric view of :meth:`estimate`: infeasible is ``inf``."""
+        return float(self.estimate(problem, cand))
 
     def estimate_choice(self, problem: Problem) -> Candidate:
         """The ESTIMATE heuristic: tiny rank-1 problems go straight to the
@@ -206,7 +269,7 @@ class CostModel:
             return by_backend["dft"]
         best, best_cost = None, float("inf")
         for c in cands:
-            cost = self.estimate(problem, c)
+            cost = self.estimate_bytes_moved(problem, c)
             if cost < best_cost:
                 best, best_cost = c, cost
         if best is not None:
@@ -250,7 +313,7 @@ def hbm_passes(backend: str, n: int, precision: str = "float") -> float:
 
 
 def estimate_bytes_moved(problem: Problem, cand: Candidate) -> float:
-    return get_active_model().estimate(problem, cand)
+    return get_active_model().estimate_bytes_moved(problem, cand)
 
 
 def estimate_choice(problem: Problem) -> Candidate:
@@ -298,3 +361,38 @@ def model_for_device(device_kind: str,
         if k != "default" and (dk.startswith(k) or k.startswith(dk)):
             return model
     return tables.get("default", DEFAULT_MODEL)
+
+
+def spearman(xs, ys) -> float:
+    """Spearman rank correlation (ties get average ranks); nan for fewer
+    than 2 points or zero variance.  The fitter's quality measure:
+    ESTIMATE only ever orders candidates."""
+    n = len(xs)
+    if n != len(ys):
+        raise ValueError(f"length mismatch: {n} vs {len(ys)}")
+    if n < 2:
+        return float("nan")
+
+    def ranks(vals):
+        order = sorted(range(n), key=lambda i: vals[i])
+        r = [0.0] * n
+        i = 0
+        while i < n:
+            j = i
+            while j + 1 < n and vals[order[j + 1]] == vals[order[i]]:
+                j += 1
+            avg = (i + j) / 2.0 + 1.0
+            for k in range(i, j + 1):
+                r[order[k]] = avg
+            i = j + 1
+        return r
+
+    rx, ry = ranks(list(xs)), ranks(list(ys))
+    mx = sum(rx) / n
+    my = sum(ry) / n
+    cov = sum((a - mx) * (b - my) for a, b in zip(rx, ry))
+    vx = sum((a - mx) ** 2 for a in rx)
+    vy = sum((b - my) ** 2 for b in ry)
+    if vx == 0.0 or vy == 0.0:
+        return float("nan")
+    return cov / (vx * vy) ** 0.5

@@ -248,6 +248,27 @@ class Wisdom:
             table = self._store.get(_DEMOTED_KEY, {})
             return frozenset(table.get(self._demote_key(problem), ()))
 
+    def measurements(self) -> list[tuple[Problem, Candidate, float]]:
+        """Every v3 record of this store's device kind that carries a
+        measured time, parsed (scoped keys too): the cost-model fitter's
+        training rows."""
+        out = []
+        with self._lock:
+            items = list(self._store.items())
+        for key, rec in items:
+            if key == _DEMOTED_KEY or not isinstance(rec, dict):
+                continue
+            ms = rec.get("measured_ms")
+            if not isinstance(ms, (int, float)):
+                continue
+            problem = self._parse_key(key)
+            if problem is None and key.count("|") >= 2:
+                problem = self._parse_key(key[:key.rfind("|")])
+            if problem is None:
+                continue
+            out.append((problem, _candidate_from_record(rec), float(ms)))
+        return out
+
     def save(self) -> None:
         """Atomic, concurrent-tolerant write.  Entries another session
         persisted since our load are re-read and kept; a conflicting

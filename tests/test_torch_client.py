@@ -335,9 +335,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax')\n"
         "       or k == 'repro' or k.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "need = ['repro_torch.core.cli'] + ['repro_torch.benchmarks.table_'\n"
-        "        + t for t in ('overhead', 'tts', 'plan_rigor', 'backends',\n"
-        "                      'radix', 'dtypes', 'kernels')]\n"
+        "need = ['repro_torch.core.cli', 'repro_torch.roofline.analysis']\n"
+        "need += ['repro_torch.benchmarks.table_' + t for t in (\n"
+        "    'overhead', 'tts', 'plan_rigor', 'backends', 'radix', 'dtypes',\n"
+        "    'kernels')]\n"
+        "need += ['repro_torch.benchmarks.' + t for t in (\n"
+        "    'bench_grid', 'bench_diff', 'pregen_wisdom', 'fit_costmodel')]\n"
         "assert all(n in sys.modules for n in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=SRC)

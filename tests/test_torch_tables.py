@@ -8,8 +8,9 @@
 * on a CPU session (the kernels' plain versions) every node validates
   but the ones the support rules refuse (the Stockham kernel on 6859 =
   19^3, which is not 7-smooth), which are failed nodes with no row, as
-  in the reference; ``plan_rigor`` has no ``estimate_fitted`` rows while
-  the port has no fitted H100 cost table.
+  in the reference; ``plan_rigor`` has the reference's full row set, its
+  ``estimate_fitted`` rows included, both packages having a fitted table
+  (on a CPU session the H100 table falls back to the hand-written model).
 """
 
 import os
@@ -147,9 +148,9 @@ def _ref_names(table) -> list[str]:
         return (_names(REF_TTS, lambda t, p: f"tts/{t}/{_ext(p)}")
                 + _names(REF_TTS, lambda t, p: f"fft_only/{t}/{_ext(p)}"))
     if table == "plan_rigor":
-        # estimate_fitted only once a fitted H100 table exists
         return [f"{what}/{rigor}/{e}"
-                for rigor in ("estimate", "measure", "wisdom_only")
+                for rigor in ("estimate", "measure", "wisdom_only",
+                              "estimate_fitted")
                 for what in ("plan_time", "fft_time")
                 for e in ref_tp.EXTENTS]
     return [name for spec in ref_td.SPECS for name in _names(
@@ -162,6 +163,7 @@ def test_paper_tables_run_on_the_cpu(table, capsys):
     """Each table on a CPU session (reps 1) emits one row per reference
     row name, with a positive time."""
     module = {"overhead": to, "tts": tt, "plan_rigor": tp, "dtypes": td}[table]
-    assert not os.path.exists(tp.FITTED_TABLE)
+    assert os.path.exists(tp.FITTED_TABLE) and os.path.exists(
+        ref_tp.FITTED_TABLE)
     names = _run(module, capsys)
     assert sorted(names) == sorted(_ref_names(table))
