@@ -84,7 +84,33 @@
    under the fitted ``costmodel_h100.json`` on P1-P14 beside the
    hand-written and MEASURE's picks, every node whose fitted pick differs
    through ``Session.run``, validated and launching its pick's kernels;
-12. holds the fused fftconv kernel against its plain version and the
+12. drives the serving slice (``repro_torch.serve``) on ``cuda:0``: S1,
+   a Zipf mix at full width (``SERVE_S1``: 4096, 1024, 945, 128 and
+   64x64, both out-of-place kinds, 160 requests of 512 rows, closed loop;
+   one worker, two batches in flight, 4096-row coalesced batches) on a
+   fresh ``FFTService`` for each of ``SERVE_S1_RUNS`` (the planner under
+   ESTIMATE, ``xla``, ``stockham_pallas`` and ``fourstep_pallas`` over the
+   mix, ``fft2_pallas`` over its 64x64 entries); S2, the reference's
+   serve-table replay (``table_serve.REPLAY``: 96 requests open loop at
+   300 Hz, ``max_batch`` 16, prewarmed) on the planner; the coalesced
+   against serial burst at 4096; ``bench_grid --serve --chaos --smoke``
+   (its ``main``; both scenarios must grade as recovered);
+   ``TorchServeFFT`` through ``Session.run``; and the ``serve`` table
+   through ``benchmarks.run``'s ``main``.  Each replay: every request
+   completed, no error, timeout, demotion, worker error or quarantine;
+   every result against ``torch.fft`` of its payload (rel-L2 <= 1e-3);
+   one request per mix entry of a pinned kernel replay against the
+   kernel's plain version on its first ``SERVE_PLAIN_ROWS`` rows (<= 1e-5);
+   the launch counts set to 0 just before the traffic and read just after
+   (a pinned replay launches its kernels and no other, ``xla`` none, the
+   planner exactly its served picks' kernels); the same tape again under
+   ``torch.profiler``, whose device kernels must be the same kernels'
+   entry points (``KERNEL_SYMBOLS``), and cuFFT's only where the replay
+   is ``xla`` or a pick runs it; one line each with p50/p95/p99,
+   requests/s, GiB/s, the coalesce rate, batches, padded rows and the
+   picks.  Figs. 4-5's ``measure_vs_wisdom_only`` lines (step 10) carry
+   each rigor's median ``execute_forward``;
+13. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -93,8 +119,9 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-13. holds each kernel against its plain version at every shape the main
-   path (P1-P14), the backends nodes and the sweeps launched it with
+14. holds each kernel against its plain version at every shape the main
+   path (P1-P14), the backends nodes, the sweeps and the serving phase
+   launched it with
    (radix 8 and the default tile, both directions; fftconv against its
    plain version and the float64 oracle), then times it at the main
    path's shapes beside its plain version, the library call
@@ -104,7 +131,7 @@
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
    tile and the dft kernel's direct product at 512 MiB shapes
    (``EXTRA_TIMING``);
-14. prints the kernel summary and, as the last line,
+15. prints the kernel summary and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -116,6 +143,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -305,6 +333,48 @@ BASELINES = os.path.join(SRC, "repro_torch", "benchmarks", "baselines")
 #: A grid row at least this large each way cannot move its signal faster
 #: than one HBM read and write: the L2 (50 MB) holds none of it.
 LARGE_ROW_BYTES = 100 << 20
+#: The serving phase (``repro_torch.serve``): its files and fresh wisdom
+#: under ``build/serve/``.  S1: the full-size Zipf mix (512 rows a request,
+#: up to 16 MiB; a coalesced 4096-row batch of 4096-point complex64 is
+#: 128 MiB each way), closed loop, with its service config; its replays
+#: (backend, extents: None is the planner under ESTIMATE, and the whole
+#: mix); S2 runs ``table_serve.REPLAY`` at the serve table's config.
+SERVE_DIR = os.path.join(ROOT, "build", "serve")
+SERVE_S1 = dict(extents=("4096", "1024", "945", "128", "64x64"),
+                kinds=("Outplace_Complex", "Outplace_Real"),
+                precisions=("float",), batch=512, requests=160,
+                rate_hz=0.0, zipf_s=1.1, seed=2017)
+SERVE_S1_CONFIG = dict(coalesce_window_ms=2.0, max_batch=4096, inflight=2)
+SERVE_S1_RUNS = ((None, None), ("xla", None), ("stockham_pallas", None),
+                 ("fourstep_pallas", None), ("fft2_pallas", ("64x64",)))
+SERVE_S2_CONFIG = dict(coalesce_window_ms=2.0, max_batch=16)
+#: Requests of the coalesced against serial burst (the serve table's).
+SERVE_BURST = 128
+#: The hand-written kernels' entry points as the profiler names them, and
+#: the kernels each belongs to (``block_fft`` is the one-block body of the
+#: Stockham and fused rank-2 kernels, the column pass their passes' form).
+KERNEL_SYMBOLS = {
+    "block_fft": {"stockham_pallas", "fft2_pallas"},
+    "stockham_columns_kernel": {"stockham_pallas", "fft2_pallas"},
+    "fft4step_kernel": {"fft4step"},
+    "fft4step_columns_kernel": {"fft4step"},
+    "fft4step_rows_kernel": {"fft4step"},
+    "dft_fft_kernel": {"dft_matmul"},
+    "dft_kernel": {"dft_matmul"},
+    "fftconv_kernel": {"fftconv"},
+}
+#: Rows of one request per mix entry held against the pinned kernel's
+#: plain version (the wrappers' CPU path; rows are independent).
+SERVE_PLAIN_ROWS = 32
+#: Requests per mix entry of the burst with a payload of its own that
+#: follows each S1 replay: more than one ``max_batch`` of rows per plan,
+#: submitted round robin over the entries, so that batches of one plan
+#: follow each other through the worker's reused staging slots.
+SERVE_DISTINCT = 12
+#: Warmup runs of the planner phase's nodes, each then timed once (its
+#: depth, cut to make room for the serving phase): the same for every
+#: rigor, so that the four rigors' ``execute_forward`` times compare.
+PLANNER_WARMUPS = 1
 #: The paper tables the CLI phase runs: Figs. 2, 3, 4-5 and 8.
 PAPER_TABLES = ("overhead", "tts", "plan_rigor", "dtypes")
 #: Each client's main path: (client, its problems, the kernel it runs).
@@ -1103,12 +1173,20 @@ def run_paper_tables(device) -> None:
     picks = _rigor_picks(hook.picks)
     for (rigor, problem), keys in sorted(picks.items()):
         emit({"plan_rigor_picks": problem, "rigor": rigor, "picks": keys})
+    fwd: dict = {}
+    for spec, rs in session.runs:
+        for r in rs.query(op="execute_forward", library="TorchPlanned"):
+            fwd.setdefault((spec.rigor, r.extents), []).append(r.time_ms)
     for problem in sorted({p for r, p in picks if r == "measure"}):
         measure = sorted(set(picks[("measure", problem)]))
         wisdom = sorted(set(picks.get(("wisdom_only", problem), [])))
+        ext = problem.split("/")[0]
+        m_ms = statistics.median(fwd[("measure", ext)])
+        w_ms = statistics.median(fwd[("wisdom_only", ext)])
         emit({"measure_vs_wisdom_only": problem,
               "same_pick": measure == wisdom, "measure": measure,
-              "wisdom_only": wisdom})
+              "wisdom_only": wisdom, "measure_fwd_ms": m_ms,
+              "wisdom_only_fwd_ms": w_ms, "ratio": m_ms / w_ms})
     if not any(n.startswith("fft_time/estimate_fitted/") for n in names):
         raise AssertionError("plan_rigor emitted no estimate_fitted rows, "
                              "with the fitted H100 table committed")
@@ -1349,6 +1427,341 @@ def run_trajectory(device) -> None:
     check_smoke_grid(device)
     check_bench_h100()
     check_fitted_estimate(device)
+
+
+def _served_kernels(plans: dict) -> set:
+    """The kernels of the plans a service served with (``served_plans``:
+    problem signature to candidate key)."""
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.client import Problem
+    from repro_torch.core.extents import parse_extents
+    out = set()
+    for sig, key in plans.items():
+        ext, precision, kind, _ = sig.split("/")
+        out |= _kernels_of(Candidate.from_key(key),
+                           Problem(parse_extents(ext), kind, precision))
+    return out
+
+
+def _profiled_kernels(fn) -> tuple[set, set]:
+    """Run ``fn`` under ``torch.profiler`` and sort the device kernels it
+    launched: the hand-written entry points (``KERNEL_SYMBOLS``) seen, and
+    every other kernel that is not one of torch's own (copies, fills,
+    reductions): cuFFT's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    if not names:
+        raise AssertionError("torch.profiler saw no device kernel")
+    ours, library = set(), set()
+    for name in names:
+        hit = {s for s in KERNEL_SYMBOLS if re.search(rf"\b{s}\b", name)}
+        if hit:
+            ours |= hit
+        elif "at::native" not in name and not name.startswith(("Memcpy",
+                                                                "Memset")):
+            library.add(name[:120])
+    return ours, library
+
+
+def _check_profiled(label: str, want: set, picks: dict, backend,
+                    ours: set, library: set) -> None:
+    """The profiled pass launched each kernel of ``want`` and only those,
+    and cuFFT only where the replay is ``xla`` or a pick runs it."""
+    seen = set().union(*(KERNEL_SYMBOLS[s] for s in ours)) if ours else set()
+    stray = [s for s in ours if not KERNEL_SYMBOLS[s] & want]
+    missing = [k for k in want if not any(k in KERNEL_SYMBOLS[s]
+                                          for s in ours)]
+    cufft = backend == "xla" or (backend is None and any(
+        "xla" in key for key in picks.values()))
+    if stray or missing or bool(library) != cufft:
+        raise AssertionError(
+            f"serve replay {label} under torch.profiler: hand-written "
+            f"{sorted(ours)} (kernels {sorted(seen)}, want {sorted(want)}), "
+            f"other kernels {sorted(library)[:8]}, picks {picks}")
+
+
+def _serve_distinct(svc, spec, device) -> tuple[int, float]:
+    """``SERVE_DISTINCT`` requests per mix entry of ``spec``, each with its
+    own seeded payload (``_payloads`` gives every request of an entry the
+    same one), submitted one at a time round robin over the entries; each
+    delivered result against torch.fft of its own payload, so that rows
+    delivered to another request, or a slab refilled before its copy out,
+    show.  Returns the requests and the worst rel-L2."""
+    import torch
+    from repro_torch.core.client import Problem
+
+    gen = torch.Generator(device=device).manual_seed(spec.seed)
+    sent = []
+    for _ in range(SERVE_DISTINCT):
+        for ext, kind, prec in spec.mix():
+            problem = Problem(ext, kind, prec, batch=spec.batch)
+            shape = (spec.batch, *ext)
+            real = (torch.float64 if prec == "double" else torch.float32)
+            x = torch.randn(shape, dtype=real, device=device, generator=gen)
+            if problem.complex_input:
+                x = torch.complex(x, torch.randn(shape, dtype=real,
+                                                 device=device,
+                                                 generator=gen))
+            req = svc.submit(x.cpu().numpy(), kind=kind, precision=prec,
+                             rank=len(ext))
+            sent.append((req, x, ext, prec))
+    worst = 0.0
+    for req, x, ext, prec in sent:
+        dims = tuple(range(-len(ext), 0))
+        ref = (torch.fft.fftn(x, dim=dims) if x.is_complex()
+               else torch.fft.rfftn(x, dim=dims))
+        got = torch.from_numpy(req.result(timeout=60)).to(device)
+        e = rel_l2(got, ref)
+        tol = LIBRARY_TOL["complex128" if prec == "double" else "complex64"]
+        if not (got.shape == ref.shape and e <= tol):
+            raise AssertionError(f"serve burst of distinct payloads: request "
+                                 f"{req.rid} {req.plan_key}: rel_l2 "
+                                 f"{e:.3e} against torch.fft of its payload")
+        worst = max(worst, e)
+    return len(sent), worst
+
+
+def _serve_replay(device, label: str, spec, config: dict, backend,
+                  wisdom_path: str, distinct: bool = False) -> dict:
+    """One replay of ``spec`` on a fresh service pinned to ``backend``
+    (None: the planner) with its launch counts set to 0 just before the
+    traffic and read just after, then the same tape again under
+    ``torch.profiler`` on the warm service, and with ``distinct`` the
+    burst of distinct payloads (``_serve_distinct``); every check of the
+    serving phase, then the run's line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.client import Problem, TorchContext
+    from repro_torch.core.clients.torch_fft import _forward_fn
+    from repro_torch.core.suite import Session
+    from repro_torch.core.wisdom import Wisdom
+    from repro_torch.serve import FFTService, ServeConfig, replay
+    from repro_torch.serve.replay import _payloads
+
+    if os.path.exists(wisdom_path):
+        os.remove(wisdom_path)
+    wisdom = Wisdom(wisdom_path, device_kind=torch.cuda.get_device_name(0))
+    cfg = ServeConfig(backend=backend, **config)
+    t0 = time.perf_counter()
+    with FFTService(Session(TorchContext(device)), cfg,
+                    wisdom=wisdom) as svc:
+        for ext, kind, prec in spec.mix():
+            svc.prewarm(ext, kind, prec)
+        torch.cuda.synchronize(device)
+        prewarm_s = time.perf_counter() - t0
+        _reset_counts()
+        rep = replay(svc, spec, wait_timeout_s=300)
+        launches = _counts()
+        shapes = _launch_shapes()
+        ours, library = _profiled_kernels(
+            lambda: replay(svc, spec, wait_timeout_s=300))
+        n_distinct, worst_distinct = (_serve_distinct(svc, spec, device)
+                                      if distinct else (0, None))
+        _reset_counts()
+        again = svc.report()
+    s = rep.service
+    picks = svc.served_plans()
+    quarantined = {k: v for k, v in again["quarantine"].items()
+                   if v["state"] != "closed" or v["failures"]}
+    bad = {k: again[k] for k in ("errors", "timeouts", "demotions")
+           if again[k]}
+    if s["completed"] != spec.requests or bad or again["worker_errors"] \
+            or quarantined or len(rep.requests) != spec.requests \
+            or again["completed"] != 2 * spec.requests + n_distinct:
+        raise AssertionError(
+            f"serve replay {label}: completed {s['completed']}/"
+            f"{spec.requests} (with the profiled pass and {n_distinct} "
+            f"distinct payloads {again['completed']}), "
+            f"{bad}, worker errors {again['worker_errors']}, quarantine "
+            f"{quarantined}")
+    if backend is None:
+        want = _served_kernels(picks)
+    else:
+        want = set().union(*(_kernels_of(Candidate(backend),
+                                         Problem(ext, kind, prec))
+                             for ext, kind, prec in spec.mix()))
+    got = {k for k, c in launches.items() if c}
+    if got != want:
+        raise AssertionError(f"serve replay {label}: launched {launches}, "
+                             f"its kernels {sorted(want)} (picks {picks})")
+    _check_profiled(label, want, picks, backend, ours, library)
+    # every delivered result against torch.fft of its payload on the card;
+    # one request per mix entry of a pinned kernel replay against the
+    # kernel's plain version on the same rows
+    payloads = _payloads(spec)
+    worst_lib = worst_plain = 0.0
+    plain_checked = set()
+    for key, x in payloads.items():
+        ext, kind, prec = key
+        xd = torch.from_numpy(x).to(device)
+        dims = tuple(range(-len(ext), 0))
+        ref = (torch.fft.fftn(xd, dim=dims) if xd.is_complex()
+               else torch.fft.rfftn(xd, dim=dims))
+        tol = LIBRARY_TOL["complex128" if prec == "double" else "complex64"]
+        for req in rep.requests:
+            if req.plan_key != key:
+                continue
+            got_y = torch.from_numpy(req.result(timeout=60)).to(device)
+            e = rel_l2(got_y, ref)
+            if not (got_y.shape == ref.shape and e <= tol):
+                raise AssertionError(f"serve replay {label} request "
+                                     f"{req.rid} {key}: rel_l2 {e:.3e} "
+                                     "against torch.fft")
+            worst_lib = max(worst_lib, e)
+            if backend in (None, "xla") or key in plain_checked:
+                continue
+            rows = slice(0, SERVE_PLAIN_ROWS)
+            problem = Problem(ext, kind, prec, batch=SERVE_PLAIN_ROWS)
+            plain = _forward_fn(problem, Candidate(backend), "cpu")(
+                torch.from_numpy(np.ascontiguousarray(x[rows])))
+            e = rel_l2(got_y[rows].cpu(), plain)
+            if not e <= PLAIN_TOL["complex64"]:
+                raise AssertionError(f"serve replay {label} request "
+                                     f"{req.rid} {key}: rel_l2 {e:.3e} "
+                                     "against the plain version")
+            worst_plain = max(worst_plain, e)
+            plain_checked.add(key)
+        del xd, ref
+    served = {req.plan_key for req in rep.requests}
+    if backend not in (None, "xla") and plain_checked != served:
+        raise AssertionError(f"serve replay {label}: plain check ran on "
+                             f"{len(plain_checked)}/{len(served)} entries")
+    lat = s["latency_ms"]
+    row = {"serve": label, "backend": backend or "planned",
+           "extents": list(spec.to_dict()["extents"]),
+           "rate_hz": spec.rate_hz, "requests": spec.requests,
+           "rows": spec.batch, "max_batch": cfg.max_batch,
+           "completed": s["completed"], "p50_ms": lat["p50"],
+           "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+           "queue_p50_ms": s["queue_ms"]["p50"], "rps": s["rps"],
+           "gib_per_s": s["gib_per_s"], "coalesce_rate": s["coalesce_rate"],
+           "batches": s["batches"], "padded_rows": s["padded_rows"],
+           "picks": picks, "launches": launches,
+           "profiled_kernels": sorted(ours),
+           "profiled_library": len(library),
+           "rel_l2_torch_fft": worst_lib,
+           "rel_l2_plain": worst_plain if plain_checked else None,
+           "plain_rows": SERVE_PLAIN_ROWS if plain_checked else None,
+           "distinct_requests": n_distinct,
+           "rel_l2_distinct": worst_distinct,
+           "prewarm_s": prewarm_s, "wall_s": rep.wall_s,
+           "replay_s": time.perf_counter() - t0}
+    emit(row)
+    row["shapes"] = shapes
+    del rep, payloads
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_serve(device) -> dict:
+    """The serving slice's main path on the card (``repro_torch.serve``):
+    S1, the full-size Zipf mix closed loop on each of ``SERVE_S1_RUNS``;
+    S2, the reference's serve-table replay (``table_serve.REPLAY``: open
+    loop at 300 Hz, ``max_batch`` 16) on the planner; the coalesced
+    against serial burst at 4096; the chaos scenarios through
+    ``bench_grid --serve --chaos --smoke``; ``TorchServeFFT`` through
+    ``Session.run`` at P3's extent; and the ``serve`` table through
+    ``benchmarks.run`` (both entry points called in process).  Returns
+    the replays' kernel launches and launch shapes."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.benchmarks import bench_grid, table_serve
+    from repro_torch.core.client import Problem, TorchContext
+    from repro_torch.core.costmodel import estimate_choice
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.serve import TrafficSpec
+
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    wisdom = os.path.join(SERVE_DIR, "wisdom.json")
+    launches = {k: 0 for k, _, _ in KERNELS}
+    shapes: dict = {}
+
+    def add(row):
+        for k, c in row["launches"].items():
+            launches[k] += c
+        for k, sh in row["shapes"].items():
+            for key, c in sh.items():
+                shapes.setdefault(k, {}).setdefault(key, 0)
+                shapes[k][key] += c
+
+    for backend, extents in SERVE_S1_RUNS:
+        spec = TrafficSpec(**{**SERVE_S1, "extents": extents
+                              or SERVE_S1["extents"]})
+        add(_serve_replay(device, f"S1/{backend or 'planned'}", spec,
+                          SERVE_S1_CONFIG, backend, wisdom, distinct=True))
+    add(_serve_replay(device, "S2/planned", table_serve.REPLAY,
+                      SERVE_S2_CONFIG, None, wisdom))
+
+    _reset_counts()
+    rec = bench_grid.bench_serve_burst(SERVE_BURST, 4096, device)
+    rec["launches"] = {k: c for k, c in _counts().items() if c}
+    emit(rec)
+    if not rec["ok"] or rec["launches"]:
+        raise AssertionError(f"serve burst: {rec}")
+
+    out = os.path.join(SERVE_DIR, "chaos.json")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_grid.main(["--serve", "--chaos", "--smoke", "--device",
+                              str(device), "--out", out])
+    with open(out) as f:
+        chaos = json.load(f)["results"]
+    emit({"serve_chaos_rc": rc, "stdout": buf.getvalue().splitlines(),
+          "chaos_s": time.perf_counter() - t0})
+    if rc != 0 or len(chaos) != 2 or not all(r["ok"] for r in chaos):
+        raise AssertionError(f"bench_grid --serve --chaos: rc {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+
+    _reset_counts()
+    suite = SuiteSpec(clients=("TorchServeFFT",), extents=((4096,),),
+                      kinds=("Outplace_Complex",), precisions=("float",),
+                      batch=512, warmups=1, repetitions=3, output=None)
+    rs = Session(TorchContext(device, {"serve_burst": 8,
+                                       "serve_max_batch": 4096})).run(suite)
+    val = rs.query(op="validate")
+    suite_launches = {k: c for k, c in _counts().items() if c}
+    fwd = [r.time_ms for r in rs.query(op="execute_forward")]
+    emit({"serve_suite": "TorchServeFFT/4096/b512", "launches":
+          suite_launches, "execute_forward_ms": fwd,
+          "p50_ms": statistics.median(fwd)})
+    want = set().union(*(
+        _kernels_of(estimate_choice(Problem((4096,), "Outplace_Complex",
+                                            "float", batch=b)),
+                    Problem((4096,), "Outplace_Complex")) for b in (512, 4096)))
+    if rs.failures() or len(val) != 1 or not val[0].success \
+            or set(suite_launches) != want:
+        raise AssertionError(f"TorchServeFFT through Session.run: "
+                             f"{[(r.op, r.error) for r in rs.rows]}, "
+                             f"launches {suite_launches}")
+
+    from repro_torch.benchmarks import run as bench_run
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_run.main(["serve"])
+    lines = buf.getvalue().splitlines()
+    emit({"serve_table_rc": rc, "csv": lines,
+          "table_s": time.perf_counter() - t0})
+    names = [line.split(",")[0] for line in lines[1:]]
+    if rc != 0 or not {"serve_replay/p50", "serve_burst/serial",
+                       "serve_burst/coalesced"} <= set(names) \
+            or not any(n.startswith("serve_suite/") for n in names):
+        raise AssertionError(f"run serve: rc {rc}, rows {names}")
+    emit({"serve_launches": launches})
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": shapes}
 
 
 def _conv_inputs(device, gen, c, b, L, K):
@@ -1728,7 +2141,8 @@ def _planned_node(session, pname: str, rigor: str,
 
     cls = getattr(torch_fft, client)
     problem = _problem(pname)
-    spec = SuiteSpec(rigor=rigor, wisdom=wisdom, warmups=1, repetitions=3,
+    spec = SuiteSpec(rigor=rigor, wisdom=wisdom,
+                     warmups=PLANNER_WARMUPS, repetitions=1,
                      plan_cache=True, output=None)
     before = _counts()
     t0 = time.perf_counter()
@@ -2360,6 +2774,9 @@ def main() -> int:
     t_traj = time.perf_counter()
     run_trajectory(device)
     emit({"trajectory_phase_s": time.perf_counter() - t_traj})
+    t_serve = time.perf_counter()
+    serve = run_serve(device)
+    emit({"serve_phase_s": time.perf_counter() - t_serve})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     t_conv = time.perf_counter()
@@ -2368,9 +2785,12 @@ def main() -> int:
     emit({"fftconv_phases_s": time.perf_counter() - t_conv})
     main_path["launches"]["fftconv"] = conv["launches"]["fftconv"]
     main_path["shapes"]["fftconv"] = conv["shapes"]["fftconv"]
+    for kernel, n in serve["launches"].items():
+        main_path["launches"][kernel] += n
     checked = {k: dict(v) for k, v in main_path["shapes"].items()}
     others = {k: v for k, v in conv["shapes"].items() if k != "fftconv"}
-    for sweep in planner["sweep_shapes"] + [others, backends["shapes"]]:
+    for sweep in planner["sweep_shapes"] + [others, backends["shapes"],
+                                            serve["shapes"]]:
         for kernel, shapes in sweep.items():
             for key, n in shapes.items():
                 checked.setdefault(kernel, {}).setdefault(key, 0)

@@ -30,6 +30,22 @@ L2 (a small row read from a warm L2 would otherwise beat HBM).  On the
 CPU, where every kernel backend runs its plain version, the host clock
 times it.  ``--device`` defaults to ``cuda:0``; with no card the run
 raises, and it runs on the CPU only when asked with ``--device cpu``.
+
+With ``--serve`` the grid benches the FFT serving layer instead
+(``repro_torch.serve``): a seeded Zipf mixed-shape replay per backend of
+``SERVE_BACKENDS`` (p50/p95/p99 enqueue-to-complete latency, sustained
+GiB/s, coalesce and plan-cache counters) and the coalesced-against-serial
+same-shape burst, whose ``speedup`` is what coalescing buys; with
+``--serve --chaos``, the two seeded fault-injection scenarios
+(``chaos_fallback``, ``chaos_kill``), each graded by ``chaos_replay``:
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_grid --serve \
+        --out serve.json
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_grid --serve \
+        --chaos --smoke --out chaos.json
+
+Both write the same schema-2 document, whose rows carry the ``mode``
+values ``core/compare.py``'s ``METRICS`` names.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..core.candidates import Candidate, backend_supports
@@ -183,6 +200,245 @@ def bench_backend(backend: str, extents: tuple[int, ...], x: torch.Tensor,
     return rec
 
 
+#: Backends the serving replay is pinned to, plus the planner (backend
+#: None: per-request plan selection through the shared cache).
+SERVE_BACKENDS = (None, "xla", "stockham_pallas")
+
+
+def _service(config, device):
+    from ..core.suite import Session
+    from ..serve import FFTService
+    return FFTService(Session(TorchContext(device)), config=config)
+
+
+def bench_serve_replay(backend, requests: int, smoke: bool,
+                       device="cuda:0") -> dict:
+    """One seeded Zipf mixed-shape replay against a fresh service pinned to
+    ``backend`` (None = planner-selected); records tail latency, sustained
+    GiB/s, and the coalescing/cache counters."""
+    from ..serve import ServeConfig, TrafficSpec, replay
+
+    spec = TrafficSpec(
+        extents=(("256", "1024", "16x16") if smoke
+                 else ("1024", "4096", "256", "64x64")),
+        kinds=("Outplace_Complex",) if smoke
+        else ("Outplace_Complex", "Outplace_Real"),
+        precisions=("float",), requests=requests, rate_hz=0.0,
+        zipf_s=1.1, seed=2017)
+    rec = {"mode": "serve_replay", "backend": backend or "planned",
+           "traffic": spec.to_dict()}
+    try:
+        cfg = ServeConfig(coalesce_window_ms=2.0, max_batch=16,
+                          backend=backend)
+        with _service(cfg, device) as svc:
+            for ext, kind, prec in spec.mix():   # steady state, not builds
+                svc.prewarm(ext, kind, prec)
+            rep = replay(svc, spec)
+        s = rep.service
+        lat = s.get("latency_ms", {})
+        rec.update(ok=True, requests=s["requests"], completed=s["completed"],
+                   errors=s["errors"], timeouts=s["timeouts"],
+                   batches=s["batches"],
+                   batched_requests=s["batched_requests"],
+                   coalesce_rate=s["coalesce_rate"], rps=s["rps"],
+                   gib_per_s=s["gib_per_s"], wall_s=rep.wall_s,
+                   mean_ms=lat.get("mean"), p50_ms=lat.get("p50"),
+                   p95_ms=lat.get("p95"), p99_ms=lat.get("p99"),
+                   plan_cache=s.get("plan_cache"))
+    except Exception as e:
+        rec.update(ok=False, error=f"{type(e).__name__}: {e}")
+    return rec
+
+
+def bench_serve_burst(n_requests: int, ext: int = 4096, device="cuda:0",
+                      backend: str = "xla", rows: int = 1,
+                      per_batch: int = 32) -> dict:
+    """Coalesced against serial-FIFO throughput on a same-shape
+    closed-loop burst of ``n_requests`` requests of ``rows`` rows each.
+    Serial is one request per launch, one launch at a time (window 0,
+    inflight 1); coalesced stacks up to ``per_batch`` requests per launch.
+    Both sides use the batch intake (``submit_many``) and a prewarmed
+    bucket ladder, so the ratio isolates dispatch coalescing."""
+    from ..serve import ServeConfig
+
+    x = ((np.arange(rows * ext) % 512) / 512.0).astype(
+        np.complex64).reshape((rows, ext) if rows > 1 else (ext,))
+
+    def run(cfg):
+        with _service(cfg, device) as svc:
+            svc.prewarm((ext,))                 # builds outside the timing
+            t0 = time.perf_counter()
+            reqs = svc.submit_many([x] * n_requests, rank=1)
+            for r in reqs:
+                r.result(timeout=600)
+            wall = time.perf_counter() - t0
+        return n_requests / wall, svc.report()["batches"]
+
+    rec = {"mode": "serve_burst", "extent": str(ext), "requests": n_requests}
+    if backend != "xla" or rows != 1:
+        rec.update(backend=backend, rows=rows)
+    try:
+        serial_rps, _ = run(ServeConfig(coalesce_window_ms=0.0,
+                                        max_batch=rows, inflight=1,
+                                        backend=backend))
+        coalesced_rps, batches = run(ServeConfig(
+            coalesce_window_ms=5.0, max_batch=per_batch * rows,
+            backend=backend))
+        rec.update(ok=True, serial_rps=serial_rps,
+                   coalesced_rps=coalesced_rps, coalesced_batches=batches,
+                   speedup=coalesced_rps / serial_rps)
+    except Exception as e:
+        rec.update(ok=False, error=f"{type(e).__name__}: {e}")
+    return rec
+
+
+def bench_chaos_fallback(requests: int, device="cuda:0") -> dict:
+    """Chaos scenario 1: the top-ranked backend for the hot shape fails at
+    every build (an injected compile error), plus one transient execute
+    fault.  Serial FIFO (window 0, max_batch 1) keeps the recovery path
+    deterministic: every request must still be delivered, through the
+    fallback chain or a backoff retry, with the demotion recorded."""
+    from ..core.plan import fallback_chain
+    from ..serve import ServeConfig, TrafficSpec, chaos_replay
+
+    hot = Problem((256,), "Outplace_Complex", "float")
+    top = fallback_chain(hot)[0].backend
+    spec = TrafficSpec(extents=("256", "64"), kinds=("Outplace_Complex",),
+                       precisions=("float",), requests=requests, rate_hz=0.0,
+                       zipf_s=1.1, seed=2017,
+                       faults=({"fault": "compile_error", "backend": top},
+                               {"fault": "execute_error", "times": 1}))
+    rec = {"mode": "chaos_fallback", "top_backend": top,
+           "traffic": spec.to_dict()}
+    try:
+        cfg = ServeConfig(coalesce_window_ms=0.0, max_batch=1,
+                          breaker_threshold=1, max_retries=2)
+        with _service(cfg, device) as svc:
+            rep = chaos_replay(svc, spec)
+        s = rep.replay.service
+        rec.update(ok=rep.ok and s["demotions"] >= 1
+                   and s["retry_successes"] >= 1,
+                   clean_success_rate=rep.clean_success_rate,
+                   poisoned=rep.poisoned, violations=rep.violations,
+                   demotions=s["demotions"], retries=s["retries"],
+                   retry_successes=s["retry_successes"],
+                   faults_injected=s["faults_injected"],
+                   quarantined=[k for k, v in s["quarantine"].items()
+                                if v["state"] != "closed"],
+                   wedged=s["wedged"], completed=s["completed"])
+    except Exception as e:
+        rec.update(ok=False, error=f"{type(e).__name__}: {e}")
+    return rec
+
+
+def bench_chaos_kill(requests: int, device="cuda:0") -> dict:
+    """Chaos scenario 2: a worker thread is killed mid-dispatch.  The
+    watchdog must fail the in-flight requests cleanly, restart the worker
+    (with a new stream and new buffers), and the service must finish the
+    rest of the tape: no wedge, at most the orphaned requests lost."""
+    from ..serve import ServeConfig, TrafficSpec, chaos_replay
+
+    spec = TrafficSpec(extents=("256",), kinds=("Outplace_Complex",),
+                       precisions=("float",), requests=requests, rate_hz=0.0,
+                       seed=2017,
+                       faults=({"fault": "kill_worker", "after": 2,
+                                "times": 1},))
+    rec = {"mode": "chaos_kill", "traffic": spec.to_dict()}
+    try:
+        cfg = ServeConfig(coalesce_window_ms=0.0, max_batch=1,
+                          watchdog_interval_s=0.05)
+        with _service(cfg, device) as svc:
+            # the dying worker can hold its current batch plus up to
+            # `inflight` pending batches, so the gate tolerates that loss
+            lost = 1 + cfg.inflight
+            rep = chaos_replay(svc, spec,
+                               min_clean_success=1.0 - (lost + 1) / requests)
+        s = rep.replay.service
+        rec.update(ok=rep.ok and s["worker_restarts"] >= 1
+                   and s["wedged"] == 0,
+                   clean_success_rate=rep.clean_success_rate,
+                   violations=rep.violations, completed=s["completed"],
+                   failed_in_flight=s["errors"],
+                   worker_restarts=s["worker_restarts"], wedged=s["wedged"],
+                   worker_errors=s["worker_errors"],
+                   faults_injected=s["faults_injected"])
+    except Exception as e:
+        rec.update(ok=False, error=f"{type(e).__name__}: {e}")
+    return rec
+
+
+def _serve_meta(context: TorchContext, note: str) -> dict:
+    gpu = context.device.type == "cuda"
+    meta = dict(device_kind=context.device_kind,
+                platform="gpu" if gpu else "cpu",
+                devices=torch.cuda.device_count() if gpu else 1,
+                interpret_kernels=not gpu, python=platform.python_version(),
+                torch=torch.__version__, note=note)
+    if gpu:
+        meta["power_limit"] = power_limit()
+    return make_meta(**meta)
+
+
+def _write(doc: dict, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print(f"wrote {len(doc['results'])} records to {path}")
+
+
+def _run_chaos(args, context: TorchContext) -> int:
+    """The --serve --chaos grid: seeded fault-injection replays of the
+    recovery machinery; exit 1 unless both scenarios are ok."""
+    requests = 16 if args.smoke else 48
+    doc = {"meta": _serve_meta(
+        context, "chaos replay: seeded FaultPlan against the Zipf tape; "
+                 "clean_success_rate counts non-poisoned requests only"),
+        "results": []}
+    ok = True
+    for rec in (bench_chaos_fallback(requests, args.device),
+                bench_chaos_kill(max(8, requests // 2), args.device)):
+        doc["results"].append(rec)
+        ok = ok and rec["ok"]
+        status = ("clean_success={:.3f} violations={}".format(
+                      rec["clean_success_rate"], rec["violations"])
+                  if "clean_success_rate" in rec
+                  else f"failed: {rec.get('error')}")
+        print(f"{rec['mode']:16s} ok={rec['ok']} {status}")
+    _write(doc, args.out)
+    return 0 if ok else 1
+
+
+def _run_serve(args, context: TorchContext) -> int:
+    """The --serve grid: per-backend Zipf replays and the burst speedup."""
+    requests = 24 if args.smoke else 96
+    # a multiple of max_batch=32 (partly filled batches linger for the
+    # whole coalesce window), and large enough that per-burst fixed costs
+    # do not swamp the per-launch overhead the coalescer amortizes
+    burst = 128
+    doc = {"meta": _serve_meta(
+        context, "FFT serving layer: seeded Zipf mixed-shape replay per "
+                 "backend (p50/p95/p99 enqueue-to-complete) + coalesced "
+                 "vs serial same-shape burst"),
+        "results": []}
+    for backend in SERVE_BACKENDS:
+        rec = bench_serve_replay(backend, requests, args.smoke, args.device)
+        doc["results"].append(rec)
+        status = (f"p50={rec['p50_ms']:8.1f} ms  p99={rec['p99_ms']:8.1f} ms "
+                  f"{rec['rps']:6.1f} rps  coalesce={rec['coalesce_rate']:.2f}"
+                  if rec["ok"] else f"failed: {rec['error']}")
+        print(f"serve_replay {rec['backend']:16s} {status}")
+    rec = bench_serve_burst(burst, device=args.device)
+    doc["results"].append(rec)
+    if rec["ok"]:
+        print(f"serve_burst  {'coalesced/serial':16s} "
+              f"{rec['serial_rps']:6.1f} -> {rec['coalesced_rps']:6.1f} rps "
+              f"({rec['speedup']:.1f}x)")
+    else:
+        print(f"serve_burst  failed: {rec['error']}")
+    _write(doc, args.out)
+    return 0
+
+
 def grid_input(extents: tuple[int, ...], batch: int,
                device: torch.device) -> torch.Tensor:
     """The grid's seeded complex64 batch, made on the device."""
@@ -211,7 +467,20 @@ def main(argv=None) -> int:
                    help="also write the gearshifft Fig. 7 markdown "
                         "(backend x extent class x achieved roofline "
                         "fraction) rendered from the written document")
+    p.add_argument("--serve", action="store_true",
+                   help="bench the FFT serving layer (per-backend Zipf "
+                        "replays + the coalesced/serial burst) instead of "
+                        "the transform grid")
+    p.add_argument("--chaos", action="store_true",
+                   help="with --serve: the seeded fault-injection replays "
+                        "(exit 1 unless both scenarios recover)")
     args = p.parse_args(argv)
+    if args.chaos and not args.serve:
+        p.error("--chaos needs --serve")
+    if args.serve:
+        context = TorchContext(args.device)
+        context.create()         # raises without the device; builds kernels
+        return (_run_chaos if args.chaos else _run_serve)(args, context)
 
     if args.smoke:
         extents, reps, warmups = args.extents or SMOKE_EXTENTS, 1, 0

@@ -43,7 +43,7 @@ from .client import KINDS, PRECISIONS
 from .plan import PlanRigor
 from .registry import client_names
 from .suite import Session, SuiteSpec
-from .clients import torch_fft  # noqa: F401  (fills the registry)
+from .clients import serve_fft, torch_fft  # noqa: F401  (fills the registry)
 
 
 def build_parser() -> argparse.ArgumentParser:

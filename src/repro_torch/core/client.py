@@ -84,10 +84,14 @@ class TorchContext:
     ``device=None`` means ``cuda:0``; the CPU runs only when asked for by
     name.  ``create`` raises when the device is missing and, on the card,
     builds and loads the kernel library, so the build is part of the timed
-    context create (like FFTW's library init).
+    context create (like FFTW's library init).  ``options`` is the
+    reference ``Context``'s mapping of client options (the service
+    client's ``serve_burst``, ``serve_window_ms``, ...).
     """
 
-    def __init__(self, device: str | torch.device | None = None):
+    def __init__(self, device: str | torch.device | None = None,
+                 options: dict | None = None):
+        self.options = dict(options or {})
         self.device = torch.device("cuda:0" if device is None else device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", 0)

@@ -81,8 +81,8 @@ from ...kernels.stockham_pallas import ops as sp_ops
 from ..candidates import (CHIRPZ_PALLAS_MAX_N, Candidate, axis_engine_n,
                           candidates)
 from ..client import FFTClient, Problem, TorchContext
-from ..plan import (Plan, PlanCache, PlanRigor, cached_build, make_plan,
-                    measure_plan)
+from ..plan import (Plan, PlanCache, PlanRigor, cached_build,
+                    executable_bytes, make_plan, measure_plan)
 from ..registry import register_client
 from ..wisdom import Wisdom
 
@@ -481,12 +481,12 @@ class TorchFFTClient(FFTClient):
         if cand is None:
             raise RuntimeError("NULL plan (wisdom miss)")  # fftw semantics
         self._fwd = self._build("init_forward", "forward", cand, _forward_fn)
-        self._plan_bytes = self._fwd.plan_bytes
+        self._plan_bytes = executable_bytes(self._fwd)
 
     def init_inverse(self) -> None:
         cand = self.plan.candidate
         self._inv = self._build("init_inverse", "inverse", cand, _inverse_fn)
-        self._plan_bytes += self._inv.plan_bytes
+        self._plan_bytes += executable_bytes(self._inv)
 
     # --- execution --------------------------------------------------------
     def execute_forward(self) -> None:

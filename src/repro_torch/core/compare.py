@@ -21,8 +21,8 @@ either package writes loads, aligns and reports the same in the other:
   :func:`markdown_report` / :func:`fig7_report` render the delta report
   and the gearshifft Fig. 7 table.
 
-The serve and chaos entries of :data:`METRICS` are kept so a reference
-document with such rows loads; the port writes grid rows only.
+The serve and chaos entries of :data:`METRICS` compare the rows of the
+grid's serve and chaos modes (``bench_grid --serve [--chaos]``).
 
 At the bottom, the mean/stdev core behind ``results.aggregate_rows``,
 ``ResultSet.aggregate_named`` and the benchmark tables, and the
@@ -534,23 +534,27 @@ def percentile(vals, q: float) -> float:
 
 @dataclass(frozen=True)
 class AggStats:
-    """mean/sd/n of one measurement group."""
+    """mean/sd/n (and, when asked for, p50/p95/p99) of one measurement
+    group."""
 
     mean: float
     sd: float
     n: int
+    percentiles: tuple[float, ...] = ()
 
     @classmethod
-    def of(cls, vals) -> "AggStats":
+    def of(cls, vals, with_percentiles: bool = False) -> "AggStats":
         return cls(mean=statistics.fmean(vals),
                    sd=statistics.stdev(vals) if len(vals) > 1 else 0.0,
-                   n=len(vals))
+                   n=len(vals),
+                   percentiles=(tuple(percentile(vals, q) for q in PERCENTILES)
+                                if with_percentiles else ()))
 
 
 @dataclass(frozen=True)
 class AggRow:
     """One aggregated suite-result group with named fields (``a.library``,
-    ``a.mean``, ...)."""
+    ``a.mean``, ``a.p99``, ...)."""
 
     library: str
     extents: str
@@ -572,13 +576,28 @@ class AggRow:
     def n(self) -> int:
         return self.stats.n
 
+    @property
+    def p50(self) -> float:
+        return self.stats.percentiles[0]
+
+    @property
+    def p95(self) -> float:
+        return self.stats.percentiles[1]
+
+    @property
+    def p99(self) -> float:
+        return self.stats.percentiles[2]
+
     def as_tuple(self) -> tuple:
-        """The positional layout of ``results.aggregate_rows``."""
-        return (self.library, self.extents, self.precision, self.kind,
-                self.rigor, self.op, self.mean, self.sd, self.n)
+        """The positional layout of ``results.aggregate_rows``: p50/p95/p99
+        between sd and n when the group carries them."""
+        key = (self.library, self.extents, self.precision, self.kind,
+               self.rigor, self.op)
+        return (*key, self.mean, self.sd, *self.stats.percentiles, self.n)
 
 
-def aggregate_result_rows(rows, op: str | None = None) -> list[AggRow]:
+def aggregate_result_rows(rows, op: str | None = None,
+                          percentiles: bool = False) -> list[AggRow]:
     """Group successful suite-result rows by (library, extents, precision,
     kind, rigor, op) into :class:`AggStats`, sorted by key."""
     groups: dict[tuple, list[float]] = {}
@@ -587,5 +606,5 @@ def aggregate_result_rows(rows, op: str | None = None) -> list[AggRow]:
             continue
         key = (r.library, r.extents, r.precision, r.kind, r.rigor, r.op)
         groups.setdefault(key, []).append(r.time_ms)
-    return [AggRow(*key, AggStats.of(vals))
+    return [AggRow(*key, AggStats.of(vals, with_percentiles=percentiles))
             for key, vals in sorted(groups.items())]

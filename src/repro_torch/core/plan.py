@@ -12,10 +12,13 @@ fftw's planner concept (paper §2.1) as the reference package maps it:
   FFTW_WISDOM_ONLY = a persisted choice (:mod:`.wisdom`), or no plan
 
 Planning time is a measurement of its own (paper Figs. 4-5): every plan
-carries ``plan_time_ms``.  The reference's fault-tolerant planning (the
-circuit breaker walking the fallback chain) comes with the serving slice;
-wisdom's demotion records already steer ESTIMATE away from a known-bad
-pick here.
+carries ``plan_time_ms``.
+
+Fault tolerance: with a ``build`` and a :class:`CircuitBreaker`,
+:func:`make_plan` walks :func:`fallback_chain`, building each candidate
+before it returns it (:func:`walk_fallback_chain`, the serve engine's walk
+too; on a card only an injected fault demotes, :func:`is_kernel_fault`);
+wisdom's demotion records steer every rigor away from a known-bad pick.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .breaker import (CircuitBreaker, breaker_key,  # noqa: F401  (re-exported)
+                      problem_class)
 from .candidates import Candidate, candidates
 from .client import Problem
 from .costmodel import estimate_bytes_moved, estimate_choice
@@ -50,8 +55,11 @@ class Plan:
     measured_ms: dict[str, float] = field(default_factory=dict)  # per candidate
     #: Where the selection came from: 'estimate' | 'measure' | 'patient' |
     #: 'wisdom' (exact persisted hit) | 'wisdom_near' (nearest-neighbor
-    #: warm start).  Result rows carry it as ``plan_source``.
+    #: warm start) | 'fallback' (the fault-tolerant walk demoted past a
+    #: candidate).  Result rows carry it as ``plan_source``.
     source: str = ""
+    #: Candidate keys the fault-tolerant walk skipped or saw fail.
+    fallbacks: tuple[str, ...] = ()
 
 
 @dataclass
@@ -142,6 +150,10 @@ class PlanCache:
                                              count_stats=False)
         return plan, event
 
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._execs)
+
 
 def cached_build(plan_cache: PlanCache | None, events: dict, op_name: str,
                  key: str, build: Callable[[], Any]):
@@ -154,18 +166,49 @@ def cached_build(plan_cache: PlanCache | None, events: dict, op_name: str,
     return built
 
 
+def executable_bytes(built) -> int:
+    """Bytes attributable to a built transform (the plan-size analogue):
+    the device tables its plan holds, ``Transform.plan_bytes``."""
+    return int(getattr(built, "plan_bytes", 0))
+
+
 def fallback_chain(problem: Problem, patient: bool = False) -> list[Candidate]:
     """The ordered degradation path: ESTIMATE's pick first (its dft pin
     included), then every other feasible candidate by ascending modeled
-    cost.  ``xla`` is always among them: it is feasible for every
-    problem."""
+    cost under the active cost model, with a plain ``xla`` candidate
+    guaranteed present: the always-feasible terminal fallback.  The
+    walkers (:func:`make_plan`'s fault-tolerant mode, the serve engine)
+    apply wisdom demotions and the circuit breaker at try time."""
     cands = candidates(problem, patient=patient)
     scored = [(estimate_bytes_moved(problem, c), i, c)
               for i, c in enumerate(cands)]
     ranked = [c for cost, _, c in sorted(scored, key=lambda t: t[:2])
               if cost != float("inf")]
     top = estimate_choice(problem)
-    return [top] + [c for c in ranked if c.key() != top.key()]
+    chain = [top] + [c for c in ranked if c.key() != top.key()]
+    if not any(c.backend == "xla" and not c.axes for c in chain):
+        chain.append(Candidate("xla"))
+    return chain
+
+
+def probe_finite(fn: Callable, problem: Problem, device="cpu") -> None:
+    """Cheap output-finiteness probe: push one all-ones batch through a
+    freshly built transform on ``device`` and reject it on any non-finite
+    output: the 'builds fine, computes garbage' failure a build error
+    misses."""
+    x = torch.ones((problem.batch, *problem.extents),
+                   dtype=torch.float64 if problem.precision == "double"
+                   else torch.float32, device=device)
+    if problem.complex_input:
+        x = x.to(torch.complex128 if problem.precision == "double"
+                 else torch.complex64)
+    out = fn(x)
+    if not torch.is_tensor(out):
+        out = torch.as_tensor(np.asarray(out))
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError(
+            f"finiteness probe failed for {problem.signature()}: "
+            f"the transform produced non-finite output")
 
 
 def measure_input(problem: Problem, device) -> torch.Tensor:
@@ -236,9 +279,120 @@ def _near_lookup(wisdom, problem: Problem, demoted: frozenset):
     return cand
 
 
+def is_kernel_fault(err: BaseException, on_card: bool) -> bool:
+    """Whether a candidate's failure is a hand-written kernel's own, which
+    no walk demotes past: on a card, every failure but an injected one
+    (``FaultInjected``), so that a kernel that does not build or launch
+    fails and names itself rather than being served by torch.fft.  On the
+    CPU, where every candidate runs its plain version, any failure demotes,
+    as in the reference."""
+    if not on_card:
+        return False
+    from ..serve.faults import FaultInjected
+    return not isinstance(err, FaultInjected)
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, launch or pass the
+    finiteness probe on the card: the fault-tolerant walk raises it rather
+    than demoting past the kernel."""
+
+    def __init__(self, cand: Candidate, problem: Problem, err: BaseException):
+        super().__init__(
+            f"kernel {cand.backend} ({cand.key()}) failed for "
+            f"{problem.signature()}: {type(err).__name__}: {err}")
+
+
+def walk_fallback_chain(
+        problem: Problem, chain: Sequence[Candidate],
+        build: Callable[[Candidate], Any], breaker: CircuitBreaker, *,
+        demoted: frozenset = frozenset(),
+        kernel_error: Callable[[Candidate, Exception], Exception | None]
+        = lambda cand, err: None,
+        on_failure: Callable[[Candidate, bool], None] = lambda c, o: None,
+        record_success: bool = True) -> tuple[Candidate, Any, tuple]:
+    """The fault-tolerant walk of ``chain`` (:func:`fallback_chain`) that
+    both :func:`make_plan` and the serve engine take: skip a wisdom-demoted
+    or quarantined candidate without building it, build the others in
+    order and return the first that builds, as ``(candidate, built,
+    skipped or failed keys)``.  The terminal candidate (a plain ``xla`` is
+    always in the chain) is tried whatever its quarantine state.
+
+    A failure for which ``kernel_error(cand, err)`` returns an exception
+    is a kernel's own (:func:`is_kernel_fault`): that exception is raised
+    and nothing is booked.  Any other failure is recorded against the
+    breaker and reported as ``on_failure(cand, opened)``, ``opened`` true
+    where it opened the breaker of a candidate other than a plain ``xla``
+    (a demotion to persist), and the walk moves on."""
+    fallbacks: list[str] = []
+    last_err: Exception | None = None
+    for i, cand in enumerate(chain):
+        terminal = i == len(chain) - 1
+        is_xla = cand.backend == "xla" and not cand.axes
+        bkey = breaker_key(cand.backend, problem)
+        if not terminal and not is_xla \
+                and (cand.backend in demoted or not breaker.allows(bkey)):
+            fallbacks.append(cand.key())
+            continue
+        try:
+            built = build(cand)
+        except Exception as e:
+            fault = kernel_error(cand, e)
+            if fault is not None:
+                raise fault from e
+            last_err = e
+            opened = breaker.record_failure(bkey) == CircuitBreaker.OPEN
+            on_failure(cand, opened and not is_xla)
+            fallbacks.append(cand.key())
+            continue
+        if record_success:
+            breaker.record_success(bkey)
+        return cand, built, tuple(fallbacks)
+    raise RuntimeError(
+        f"no feasible plan for {problem.signature()}: all {len(chain)} "
+        f"candidates failed (last: {type(last_err).__name__}: {last_err})"
+    ) from last_err
+
+
+def _fallback_plan(problem: Problem, rigor: PlanRigor,
+                   build: Callable[[Candidate], Callable], wisdom,
+                   breaker: CircuitBreaker, probe: bool, device, t0: float,
+                   demoted: frozenset) -> Plan:
+    """Fault-tolerant planning: :func:`walk_fallback_chain` over the
+    cost-ordered chain, each candidate built and (with ``probe``) probed
+    for finite output on ``device``; a demotion that opens the breaker is
+    persisted to wisdom.  On a card a kernel's own failure raises
+    :class:`KernelError`."""
+    on_card = torch.device(device).type == "cuda"
+
+    def built(cand: Candidate) -> Callable:
+        fn = build(cand)
+        if probe:
+            probe_finite(fn, problem, device)
+        return fn
+
+    def kernel_error(cand: Candidate, err: Exception):
+        return (KernelError(cand, problem, err)
+                if is_kernel_fault(err, on_card) else None)
+
+    def on_failure(cand: Candidate, opened: bool) -> None:
+        if opened and wisdom is not None:
+            wisdom.record_demotion(problem, cand.backend)
+
+    cand, _, fallbacks = walk_fallback_chain(
+        problem, fallback_chain(problem, patient=(rigor is PlanRigor.PATIENT)),
+        built, breaker, demoted=demoted, kernel_error=kernel_error,
+        on_failure=on_failure)
+    return Plan(problem, cand, rigor, (time.perf_counter() - t0) * 1e3,
+                fallbacks=fallbacks,
+                source="fallback" if fallbacks else "estimate")
+
+
 def make_plan(problem: Problem, rigor: PlanRigor,
               build: Callable[[Candidate], Callable] | None = None,
-              wisdom=None, device=None, near: bool = True) -> Plan | None:
+              wisdom=None, device=None, near: bool = True,
+              breaker: CircuitBreaker | None = None,
+              probe: bool = False) -> Plan | None:
     """The planner.  Returns None for a WISDOM_ONLY miss (fftw's NULL
     plan).
 
@@ -253,6 +407,14 @@ def make_plan(problem: Problem, rigor: PlanRigor,
     wisdom.  Without ``build`` they take ESTIMATE's pick untimed, which is
     never recorded.  A wisdom-demoted ESTIMATE pick gives way to the next
     candidate of :func:`fallback_chain`.
+
+    Fault tolerance: with both ``build`` and ``breaker``, planning walks
+    :func:`fallback_chain` instead (:func:`_fallback_plan`): each
+    candidate is built (and, with ``probe=True``, probed for finite output
+    on ``device``) before it is returned, and a failure demotes to the
+    next candidate by modeled cost.  On a card (``device`` defaults to
+    ``cuda:0``) only an injected fault demotes: a hand-written kernel's
+    own failure raises :class:`KernelError`, naming the kernel.
     """
     t0 = time.perf_counter()
     ms = lambda: (time.perf_counter() - t0) * 1e3
@@ -278,6 +440,11 @@ def make_plan(problem: Problem, rigor: PlanRigor,
             cand = _near_lookup(wisdom, problem, demoted)
             if cand is not None:
                 return Plan(problem, cand, rigor, ms(), source="wisdom_near")
+
+    if build is not None and breaker is not None:
+        return _fallback_plan(problem, rigor, build, wisdom, breaker, probe,
+                              torch.device("cuda", 0) if device is None
+                              else device, t0, demoted)
 
     if rigor is PlanRigor.ESTIMATE or build is None:
         cand, timings = estimate_choice(problem), {}

@@ -177,8 +177,11 @@ def percentile_summary(vals, quantiles=PERCENTILES) -> dict:
     return {f"p{q:g}": percentile(vals, q) for q in quantiles}
 
 
-def aggregate_rows(rows, op: str | None = None):
+def aggregate_rows(rows, op: str | None = None, percentiles: bool = False):
     """``(library, extents, precision, kind, rigor, op, mean, sd, n)`` per
     group of successful rows, sorted by key: the reference package's
-    aggregation layout."""
-    return [a.as_tuple() for a in aggregate_result_rows(rows, op)]
+    aggregation layout.  ``percentiles=True`` puts p50/p95/p99 between sd
+    and n (``(*key, mean, sd, p50, p95, p99, n)``): the tail-latency view
+    the serving reports read."""
+    return [a.as_tuple()
+            for a in aggregate_result_rows(rows, op, percentiles=percentiles)]

@@ -186,7 +186,7 @@ class SuiteSpec:
     def build_nodes(self) -> list[BenchNode]:
         """Materialize the benchmark tree this spec describes, filtered by
         its ``select`` pattern."""
-        from .clients import torch_fft  # noqa: F401  (registers the clients)
+        from .clients import serve_fft, torch_fft  # noqa: F401  (registers)
         self.load_modules()
         exts = self.resolved_extents()
         if not exts:
@@ -340,21 +340,23 @@ class ResultSet:
     def failures(self) -> list[Row]:
         return [r for r in self.rows if not r.success]
 
-    def aggregate(self, op: Optional[str] = None):
-        """mean/stdev per (library, extents, precision, kind, rigor, op)."""
-        return aggregate_rows(self.rows, op)
+    def aggregate(self, op: Optional[str] = None, percentiles: bool = False):
+        """mean/stdev per (library, extents, precision, kind, rigor, op);
+        ``percentiles=True`` adds p50/p95/p99 columns."""
+        return aggregate_rows(self.rows, op, percentiles=percentiles)
 
-    def aggregate_named(self, op: Optional[str] = None) -> list[AggRow]:
+    def aggregate_named(self, op: Optional[str] = None,
+                        percentiles: bool = False) -> list[AggRow]:
         """The same grouping with named fields (``a.library``, ``a.mean``,
-        ...): what the benchmark tables consume."""
-        return aggregate_result_rows(self.rows, op)
+        ``a.p99``, ...): what the benchmark tables consume."""
+        return aggregate_result_rows(self.rows, op, percentiles=percentiles)
 
     def summary(self, latency_op: str = "execute_forward") -> dict:
         """Planner-cost overview (paper Figs. 4-5): row/failure counts,
         aggregate planning time (the init ops), its cold share, and the
         plan-cache hit/miss totals, per-row markers plus the session-level
         stats.  When successful ``latency_op`` rows exist, also their
-        mean and p50/p95/p99."""
+        mean and p50/p95/p99 (``"serve_request"`` for a service's rows)."""
         init_ops = ("init_forward", "init_inverse")
         plan_rows = [r for r in self.rows if r.op in init_ops]
         events = [r.plan_cache for r in plan_rows if r.plan_cache]

@@ -326,6 +326,28 @@ def test_timer_waits_for_the_result():
     assert t.time_ms >= 0.0
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((1,), np.float32), ((7,), np.complex64), ((3, 5, 4), np.float64),
+    (((1 << 20) * 2 + 3,), np.complex128)])
+def test_roundtrip_error_is_the_reference(shape, dtype):
+    """The chunked two-pass sample deviation equals the reference's
+    whole-array formula (1e-12 relative), across a chunk boundary too;
+    equal inputs give 0, and a constant offset what the reference gives
+    (about 0 beyond one element, whose error is the offset itself)."""
+    from repro.core.benchmark import roundtrip_error as ref_roundtrip
+    from repro_torch.core.benchmark import roundtrip_error
+
+    rng = np.random.default_rng(len(shape))
+    x = rng.standard_normal(shape).astype(dtype)
+    y = (x + 1e-6 * rng.standard_normal(shape)).astype(dtype)
+    assert roundtrip_error(x, y) == pytest.approx(ref_roundtrip(x, y),
+                                                  rel=1e-12)
+    assert roundtrip_error(x, x) == 0.0
+    offset = x + dtype(1e-3)
+    assert roundtrip_error(x, offset) == pytest.approx(
+        ref_roundtrip(x, offset), rel=1e-9, abs=1e-12)
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -341,6 +363,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    'kernels')]\n"
         "need += ['repro_torch.benchmarks.' + t for t in (\n"
         "    'bench_grid', 'bench_diff', 'pregen_wisdom', 'fit_costmodel')]\n"
+        "need += ['repro_torch.serve.' + m for m in (\n"
+        "    'request', 'queue', 'coalescer', 'metrics', 'faults', 'engine',\n"
+        "    'replay')]\n"
+        "need += ['repro_torch.serve', 'repro_torch.core.clients.serve_fft',\n"
+        "         'repro_torch.benchmarks.table_serve']\n"
+        "from repro_torch.benchmarks import bench_grid\n"
+        "assert callable(bench_grid._run_serve) and callable(bench_grid._run_chaos)\n"
         "assert all(n in sys.modules for n in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -592,3 +592,89 @@ def test_new_clients_validate_on_the_card(cuda_device):
                 launched = [a - b for a, b in zip(_launches(), before)]
                 assert (sum(launched) == 0) == (cls is TorchBluestein), \
                     (cls.title, ext, kind, precision, launched)
+
+
+def _serve_payloads(extents, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shape = (n, *extents)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return [r.astype(dtype) for r in x]
+
+
+@pytest.mark.cuda
+def test_serve_pinned_stockham_burst(cuda_device):
+    """A coalesced burst on the pinned Stockham kernel: every result
+    agrees with torch.fft on the card, and the kernel launched."""
+    from repro_torch.serve import FFTService, ServeConfig
+
+    xs = _serve_payloads((4096,), 64, np.complex64, 5)
+    cfg = ServeConfig(coalesce_window_ms=2.0, max_batch=16,
+                      backend="stockham_pallas")
+    with FFTService(Session(TorchContext(cuda_device)), cfg) as svc:
+        svc.prewarm((4096,))
+        before = ops.LAUNCHES
+        reqs = svc.submit_many(xs)
+        outs = [r.result(timeout=300) for r in reqs]
+        launched = ops.LAUNCHES - before
+    rep = svc.report()
+    assert rep["completed"] == 64 and rep["errors"] == 0
+    assert rep["batches"] < 64 and launched >= rep["batches"]
+    assert not rep["worker_errors"] and rep["demotions"] == 0
+    for x, y in zip(xs, outs):
+        want = torch.fft.fft(torch.from_numpy(x).to(cuda_device))
+        assert rel_l2(torch.from_numpy(y[0]).to(cuda_device), want) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_serve_two_worker_replay(cuda_device):
+    """Two workers, each on its own stream, three batches in flight each:
+    every request of a mixed replay is delivered and agrees with
+    torch.fft of its payload on the card."""
+    from repro_torch.serve import (FFTService, ServeConfig, TrafficSpec,
+                                   replay)
+    from repro_torch.serve.replay import _payloads
+
+    spec = TrafficSpec(extents=("1024", "945", "64x64"),
+                       kinds=("Outplace_Complex", "Outplace_Real"),
+                       requests=64, batch=8, seed=3)
+    cfg = ServeConfig(coalesce_window_ms=1.0, max_batch=64, workers=2,
+                      inflight=3)
+    with FFTService(Session(TorchContext(cuda_device)), cfg) as svc:
+        for ext, kind, prec in spec.mix():
+            svc.prewarm(ext, kind, prec)
+        rep = replay(svc, spec)
+    assert rep.service["completed"] == 64 and rep.service["errors"] == 0
+    assert not rep.service["worker_errors"]
+    payloads = _payloads(spec)
+    for req in rep.requests:
+        x = torch.from_numpy(payloads[req.plan_key]).to(cuda_device)
+        dims = tuple(range(-len(req.extents), 0))
+        want = (torch.fft.fftn(x, dim=dims) if x.is_complex()
+                else torch.fft.rfftn(x, dim=dims))
+        got = torch.from_numpy(req.result(timeout=60)).to(cuda_device)
+        assert rel_l2(got, want) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_serve_probe_fails_a_non_finite_request_alone(cuda_device):
+    """The finiteness probe on the card (a flag per row, computed on the
+    worker's stream): a request whose transform is not finite fails, its
+    batchmates are delivered and agree with torch.fft."""
+    from repro_torch.serve import FFTService, ServeConfig, ServeError
+
+    xs = _serve_payloads((4096,), 8, np.complex64, 7)
+    xs[3][17] = np.inf
+    cfg = ServeConfig(coalesce_window_ms=2.0, max_batch=16,
+                      backend="stockham_pallas")
+    with FFTService(Session(TorchContext(cuda_device)), cfg) as svc:
+        svc.prewarm((4096,))
+        reqs = svc.submit_many(xs)
+        with pytest.raises(ServeError, match="non-finite output"):
+            reqs[3].result(timeout=300)
+        outs = {i: r.result(timeout=300) for i, r in enumerate(reqs)
+                if i != 3}
+    rep = svc.report()
+    assert rep["completed"] == 7 and rep["errors"] == 1
+    for i, y in outs.items():
+        want = torch.fft.fft(torch.from_numpy(xs[i]).to(cuda_device))
+        assert rel_l2(torch.from_numpy(y[0]).to(cuda_device), want) <= 1e-3

@@ -13,6 +13,7 @@
   (on a CPU session the H100 table falls back to the hand-written model).
 """
 
+import math
 import os
 import sys
 
@@ -50,7 +51,7 @@ TITLES = {"XlaFFT": "TorchFFT", "Stockham": "TorchStockham",
           "FourStepPallas": "TorchFourStepPallas",
           "StockhamPallas": "TorchStockhamPallas", "SixStep": "TorchSixStep",
           "Fft2Pallas": "TorchFft2Pallas", "ChirpZPallas": "TorchChirpZPallas",
-          "Planned": "TorchPlanned"}
+          "Planned": "TorchPlanned", "ServeFFT": "TorchServeFFT"}
 FIELDS = ("extents", "kinds", "precisions", "batch", "warmups", "plan_cache",
           "rigor")
 
@@ -167,3 +168,33 @@ def test_paper_tables_run_on_the_cpu(table, capsys):
         ref_tp.FITTED_TABLE)
     names = _run(module, capsys)
     assert sorted(names) == sorted(_ref_names(table))
+
+
+def test_serve_table_spec_is_the_reference():
+    """The ``serve`` table's Zipf replay is the reference's, key for key,
+    and its tape the same."""
+    from benchmarks import table_serve as ref_ts  # noqa: E402
+    from repro_torch.benchmarks import table_serve as ts
+
+    assert ts.REPLAY.to_dict() == ref_ts.REPLAY.to_dict()
+    assert list(ts.REPLAY.schedule()) == list(ref_ts.REPLAY.schedule())
+    assert "serve" in prun.TABLES
+
+
+def test_serve_table_runs_on_the_cpu(capsys):
+    """The three sections on a CPU session: the replay's aggregate and
+    per-entry rows (the entries its tape reaches), the burst's two rows
+    and the suite row of ``TorchServeFFT``."""
+    from repro_torch.benchmarks import table_serve as ts
+
+    ts.run(requests=24, burst=32, session=Session(TorchContext("cpu")))
+    lines = capsys.readouterr().out.strip().splitlines()
+    names = [line.split(",")[0] for line in lines]
+    spec = replace(ts.REPLAY, requests=24)
+    mix = [f"serve_replay/{'x'.join(map(str, e))}/{k}" for e, k, _ in
+           spec.mix() if any((e, k) == (t[1], t[2])
+                             for t in spec.schedule())]
+    assert names == ["serve_replay/p50", "serve_replay/rps", *mix,
+                     "serve_burst/serial", "serve_burst/coalesced",
+                     "serve_suite/TorchServeFFT/1024"]
+    assert all(math.isfinite(float(line.split(",")[1])) for line in lines)
