@@ -110,7 +110,22 @@
    requests/s, GiB/s, the coalesce rate, batches, padded rows and the
    picks.  Figs. 4-5's ``measure_vs_wisdom_only`` lines (step 10) carry
    each rigor's median ``execute_forward``;
-13. holds the fused fftconv kernel against its plain version and the
+13. drives the distributed slice at one rank: a one-rank ``nccl`` group
+   through a ``FileStore`` under ``build/dist/``, ``flat_mesh()`` over it,
+   and ``Session.run`` of ``TorchDistFFT1D`` on D1 (2^26 complex64, split
+   8192 x 8192) and on D1 with ``dist_natural``, and of ``TorchDistFFTND``
+   on D2 (512 x 512 x 256 complex64, ``slab[1]``) and D3 (128^3 x 16
+   complex128, ``slab[1]``), each validated with the launch and collective
+   counts set to 0 just before it and read just after: the four-step
+   kernel alone (D1, D2) or the dft kernel alone (D3), and the
+   reference's all_to_alls per direction (2, 3 with natural order, 1 for
+   a slab); each node's forward against ``torch.fft`` (in the transposed
+   order where the layout is), its all_to_all bytes, the collective's
+   CUDA-event time and ``torch.profiler``'s split into the kernels, the
+   collective and the torch passes; then ``bench_grid --devices 1
+   --smoke`` (its ``main``): every ``dist1d``, ``slab`` and
+   ``pencil[1x1]`` row the support rules admit is ok;
+14. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -119,9 +134,9 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-14. holds each kernel against its plain version at every shape the main
-   path (P1-P14), the backends nodes, the sweeps and the serving phase
-   launched it with
+15. holds each kernel against its plain version at every shape the main
+   path (P1-P14), the backends nodes, the sweeps, the serving phase and
+   the distributed phase launched it with
    (radix 8 and the default tile, both directions; fftconv against its
    plain version and the float64 oracle), then times it at the main
    path's shapes beside its plain version, the library call
@@ -131,7 +146,8 @@
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
    tile and the dft kernel's direct product at 512 MiB shapes
    (``EXTRA_TIMING``);
-15. prints the kernel summary and, as the last line,
+16. prints the kernel summary (the distributed nodes' launches counted
+   in) and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero.  It needs a CUDA
@@ -384,6 +400,29 @@ PATHS = (
     ("TorchFourStepPallas", ALL, "fft4step"),
     ("TorchFft2Pallas", ("P6", "P7"), "fft2_pallas"),
 )
+#: The distributed phase's nodes at full width on one rank: (name, client,
+#: extents, kind, precision, batch, dist_natural, the one kernel its local
+#: engines launch, all_to_alls per direction: the reference's
+#: DIST_A2A_COUNT plus DIST_NATURAL_EXTRA).  D1 splits 8192 x 8192 (the
+#: four-step kernel on both sides), D2 runs slab[1] with the four-step
+#: kernel at 512, 512 and 256, D3 slab[1] with the dft kernel at 128 in
+#: complex128; each is 512 MiB each way.
+DIST_NODES = (
+    ("D1", "TorchDistFFT1D", (1 << 26,), "Outplace_Complex", "float", 1,
+     False, "fft4step", 2),
+    ("D1 natural", "TorchDistFFT1D", (1 << 26,), "Outplace_Complex",
+     "float", 1, True, "fft4step", 3),
+    ("D2", "TorchDistFFTND", (512, 512, 256), "Outplace_Complex", "float", 1,
+     False, "fft4step", 1),
+    ("D3", "TorchDistFFTND", (128, 128, 128), "Inplace_Complex", "double",
+     16, False, "dft_matmul", 1),
+)
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+#: The distributed nodes' Session.run: the warm-up builds, the repetitions
+#: reuse the cached plans.
+DIST_WARMUPS, DIST_REPS = 1, 1
+#: Forwards under ``torch.profiler`` for a node's split (averaged).
+DIST_PROFILED = 3
 #: The ported kernels: (name, CUDA source, the TPU kernel it replaces).
 KERNELS = (
     ("stockham_pallas", "src/repro_torch/csrc/stockham.cu",
@@ -2725,6 +2764,256 @@ def time_extra(device) -> list[dict]:
     return rows
 
 
+def _dist_spectrum(cls, problem, natural: bool, kernel: str, device,
+                   gen) -> dict:
+    """One node's forward on a fresh client, driven op by op: the
+    spectrum against torch.fft of the same input (put in the transposed
+    order where the layout is transposed), the all_to_alls and bytes one
+    forward sends, and its device time split two ways into the local
+    engines (``kernel``'s wrapper), the collective and the torch passes
+    (transposes, the twiddle, copies): by CUDA events around the forward,
+    each all_to_all and each engine call, and by ``torch.profiler``'s
+    device events (NCCL's copy shows as ``Memcpy DtoD``), with their
+    counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.client import TorchContext
+    from repro_torch.fft import distributed as dfft
+
+    ctx = TorchContext(device, {"dist_natural": natural})
+    ctx.create()
+    client = cls(problem, ctx)
+    client.allocate()
+    client.init_forward()
+    shape = (problem.batch, *problem.extents)
+    dtype = (torch.complex128 if problem.precision == "double"
+             else torch.complex64)
+    x = torch.randn(shape, dtype=dtype, device=device, generator=gen)
+    client.upload(x.cpu().numpy())
+    client.execute_forward()
+    calls, sent = dfft.A2A_CALLS, dfft.A2A_BYTES
+    client.execute_forward()
+    out = {"a2a_per_forward": dfft.A2A_CALLS - calls,
+           "a2a_bytes_per_forward": dfft.A2A_BYTES - sent}
+    # the split by CUDA events: around the whole forward, each
+    # all_to_all and each call of the local engines' wrapper
+    ops, _ = kernel_ops(kernel)
+    entry = "dft" if kernel == "dft_matmul" else "fft"
+    real_a2a, real_eng = dfft.all_to_all, getattr(ops, entry)
+    marks: dict = {"a2a": [], "engine": []}
+
+    def timed(fn, what):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = fn(*args, **kwargs)
+            stop.record()
+            marks[what].append((start, stop))
+            return y
+        return call
+
+    dfft.all_to_all = timed(real_a2a, "a2a")
+    setattr(ops, entry, timed(real_eng, "engine"))
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        client.execute_forward()
+        stop.record()
+        stop.synchronize()
+    finally:
+        dfft.all_to_all = real_a2a
+        setattr(ops, entry, real_eng)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    total = start.elapsed_time(stop)
+    out["event_split"] = {"forward_ms": total, "engines_ms": ms["engine"],
+                          "collective_ms": ms["a2a"],
+                          "torch_ms": total - ms["engine"] - ms["a2a"]}
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DIST_PROFILED):
+            client.execute_forward()
+        torch.cuda.synchronize(device)
+    split = {"kernels_ms": 0.0, "collective_ms": 0.0, "torch_ms": 0.0}
+    counts = {"kernels": 0, "collective": 0, "torch": 0}
+    events: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        # these repeat the time of the device work under them
+        if e.key == "Activity Buffer Request" or e.key.startswith("nccl:"):
+            continue
+        ms_e = e.self_device_time_total / 1e3
+        name = e.key[:80]
+        events[name] = events.get(name, 0.0) + ms_e
+        if any(re.search(rf"\b{k}\b", e.key) for k in KERNEL_SYMBOLS):
+            what = "kernels"
+        elif "nccl" in e.key.lower() or e.key.startswith(("Memcpy DtoD",
+                                                           "Memcpy PtoP")):
+            what = "collective"
+        else:
+            what = "torch"
+        split[f"{what}_ms"] += ms_e / DIST_PROFILED
+        counts[what] += e.count / DIST_PROFILED
+    out["device_events"] = {k: v / DIST_PROFILED for k, v in sorted(
+        events.items(), key=lambda kv: -kv[1])[:8]}
+    out["profile_counts"] = counts   # device events a forward
+    if not split["kernels_ms"] or not ms["a2a"]:
+        raise AssertionError(f"{problem.signature()}: the forward shows "
+                             f"no kernel or no collective: {split}, {out}")
+    out["profile_split"] = split
+    y = client._spec.reshape(shape)
+    dims = tuple(range(1, len(shape)))
+    want = torch.fft.fftn(x, dim=dims)
+    if problem.rank == 1 and not natural:
+        n1, n2 = dfft._choose_1d_factors(problem.extents[0], 1)
+        want = want.reshape(n2, n1).T.reshape(shape)
+    out["forward_rel_l2"] = rel_l2(y, want)
+    tol = LIBRARY_TOL["complex128" if problem.precision == "double"
+                      else "complex64"]
+    if not out["forward_rel_l2"] <= tol:
+        raise AssertionError(f"{problem.signature()}: the forward disagrees "
+                             f"with torch.fft: rel_l2 "
+                             f"{out['forward_rel_l2']:.3e} > {tol}")
+    client.destroy()
+    return out
+
+
+def run_distributed(device) -> dict:
+    """The distributed slice at one rank: a one-rank ``nccl`` group
+    through a ``FileStore`` under ``build/``, ``flat_mesh()`` over it,
+    then each of ``DIST_NODES`` through ``Session.run`` at ESTIMATE,
+    validated, with the launch and collective counts set to 0 just before
+    it and read just after (only its local engines' kernel launched; the
+    reference's all_to_alls per direction); each node's forward against
+    torch.fft, its all_to_all traffic and, for D1, the profiler's split;
+    then ``bench_grid --devices 1 --smoke`` (its ``main``): every
+    ``dist1d``, ``slab`` and ``pencil[1x1]`` row the support rules admit
+    is ok.  Returns the launches and launch shapes of the nodes."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import bench_grid
+    from repro_torch.core.client import Problem, TorchContext
+    from repro_torch.core.clients import dist_fft
+    from repro_torch.core.suite import Session, SuiteSpec
+    from repro_torch.core.tree import BenchNode
+    from repro_torch.fft import distributed as dfft
+    from repro_torch.launch.mesh import flat_mesh
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    store = os.path.join(DIST_DIR, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1, device_id=device)
+    mesh = flat_mesh()
+    if dist.get_backend() != "nccl" or mesh.size != 1:
+        raise AssertionError(f"one-rank group: backend "
+                             f"{dist.get_backend()}, {mesh.size} ranks")
+    launches = {k: 0 for k, _, _ in KERNELS}
+    shapes: dict = {}
+    gen = torch.Generator(device=device).manual_seed(11)
+    spec = SuiteSpec(warmups=DIST_WARMUPS, repetitions=DIST_REPS,
+                     plan_cache=True, output=None)
+    runs = DIST_WARMUPS + DIST_REPS
+    for (name, client, ext, kind, prec, batch, natural, kernel,
+         a2a) in DIST_NODES:
+        cls = getattr(dist_fft, client)
+        problem = Problem(ext, kind, prec, batch)
+        session = Session(TorchContext(device, {"dist_natural": natural}))
+        t0 = time.perf_counter()
+        _reset_counts()
+        dfft.reset_collective_counts()
+        rs = session.run(spec, nodes=[BenchNode(cls, problem)])
+        counts = _read_counts()
+        calls, sent = dfft.A2A_CALLS, dfft.A2A_BYTES
+        val = rs.query(op="validate")
+        if rs.failures() or len(val) != 1 or not val[0].success:
+            raise AssertionError(f"{name} failed: "
+                                 f"{[r.error for r in rs.failures()]}")
+        launched = {k: c for k, (c, _) in counts.items() if c}
+        if set(launched) != {kernel}:
+            raise AssertionError(f"{name} should launch {kernel} and no "
+                                 f"other, launched {launched}")
+        if calls != runs * 2 * a2a:
+            raise AssertionError(f"{name}: {calls} all_to_alls in {runs} "
+                                 f"round trips, want {a2a} a direction")
+        launches[kernel] += counts[kernel][0]
+        for key, c in counts[kernel][1].items():
+            shapes.setdefault(kernel, {}).setdefault(key, 0)
+            shapes[kernel][key] += c
+        med = lambda op: statistics.median(
+            r.time_ms for r in rs.query(op=op) if r.run >= 0)
+        node = {"dist_node": name, "client": client,
+                "extents": "x".join(map(str, ext)), "kind": kind,
+                "precision": prec, "batch": batch, "natural": natural,
+                "backend": dist.get_backend(), "ranks": mesh.size,
+                "execute_forward_ms": med("execute_forward"),
+                "execute_inverse_ms": med("execute_inverse"),
+                "a2a_calls": calls, "a2a_bytes": sent,
+                "launches": launched}
+        node["run_s"] = time.perf_counter() - t0
+        del rs, session
+        gc.collect()
+        torch.cuda.empty_cache()
+        node.update(_dist_spectrum(cls, problem, natural, kernel, device,
+                                   gen))
+        if node["a2a_per_forward"] != a2a:
+            raise AssertionError(f"{name}: {node['a2a_per_forward']} "
+                                 f"all_to_alls a forward, want {a2a}")
+        node["node_s"] = time.perf_counter() - t0
+        emit(node)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = os.path.join(DIST_DIR, "BENCH_devices1_cuda.json")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_grid.main(["--devices", "1", "--smoke", "--device",
+                              str(device), "--out", out])
+    with open(out) as f:
+        doc = json.load(f)
+    if rc != 0 or doc["meta"]["device_counts"] != [1]:
+        raise AssertionError(f"bench_grid --devices 1: rc {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    rows = []
+    for r in doc["results"]:
+        if r["backend"] not in bench_grid.DIST_BACKENDS:
+            if not r["ok"]:
+                raise AssertionError(f"bench_grid --devices 1: {r}")
+            continue
+        e = tuple(int(v) for v in r["extent"].split("x"))
+        admitted = (
+            (r["backend"] == "dist1d" and len(e) == 1
+             and dfft.can_shard_1d(e[0], 1))
+            or (r["backend"] == "slab" and len(e) in (2, 3)
+                and dfft.slab_divisible(e, 1))
+            or (r["backend"] == "pencil" and len(e) == 3
+                and dfft.pencil_divisible(e, 1, 1)))
+        if r["ok"] != admitted:
+            raise AssertionError(f"bench_grid --devices 1: {r}")
+        if r["ok"]:
+            rows.append(f"{r['backend']}[{r['mesh']}]/{r['extent']} "
+                        f"{r['time_ms']:.3f} ms, {r['collective_calls']} "
+                        f"a2a, {r['collective_bytes']} B")
+    emit({"bench_grid_devices_1": os.path.relpath(out, ROOT),
+          "rows": len(doc["results"]), "dist_rows_ok": rows,
+          "bench_grid_devices_s": time.perf_counter() - t0})
+    emit({"main_path": "distributed transforms D1-D3 on one nccl rank",
+          "launches": launches})
+    dist.destroy_process_group()
+    return {"launches": launches, "shapes": shapes}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2777,8 +3066,14 @@ def main() -> int:
     t_serve = time.perf_counter()
     serve = run_serve(device)
     emit({"serve_phase_s": time.perf_counter() - t_serve})
+    t_dist = time.perf_counter()
+    dist_path = run_distributed(device)
+    emit({"dist_phase_s": time.perf_counter() - t_dist})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
+    for kernel, n in dist_path["launches"].items():
+        main_path["launches"][kernel] = main_path["launches"].get(kernel,
+                                                                  0) + n
     t_conv = time.perf_counter()
     checks[("fftconv", "float32")] = check_fftconv(device)
     conv = run_fftconv_path(device)
@@ -2790,7 +3085,8 @@ def main() -> int:
     checked = {k: dict(v) for k, v in main_path["shapes"].items()}
     others = {k: v for k, v in conv["shapes"].items() if k != "fftconv"}
     for sweep in planner["sweep_shapes"] + [others, backends["shapes"],
-                                            serve["shapes"]]:
+                                            serve["shapes"],
+                                            dist_path["shapes"]]:
         for kernel, shapes in sweep.items():
             for key, n in shapes.items():
                 checked.setdefault(kernel, {}).setdefault(key, 0)

@@ -46,15 +46,34 @@ same-shape burst, whose ``speedup`` is what coalescing buys; with
 
 Both write the same schema-2 document, whose rows carry the ``mode``
 values ``core/compare.py``'s ``METRICS`` names.
+
+With ``--devices 1 2 4`` the grid is the scaling mode of the
+distributed decompositions: one group of N ranks per count (``nccl``, one
+rank per card, on the card; ``gloo`` ranks with ``--device cpu``), each
+benching ``xla`` and the decompositions (``dist1d``, ``slab``, ``pencil``
+in the transposed layout, with the planner's local engines) over one
+extent per paper class, merged into one document whose ``meta`` holds the
+``device_counts`` and each count's worker meta.  A dist row carries
+``devices``, ``mesh`` and the all_to_all traffic one forward sends from a
+rank (``collective_calls``, ``collective_bytes``, counted at the call
+site).  A count over the visible cards raises; it never runs on the CPU
+instead:
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_grid \
+        --devices 1 --smoke --out dist.json
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import platform
+import shutil
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +93,14 @@ DEFAULT_EXTENTS = ("1024", "4096", "16384", "65536",        # 1D powerof2
                    "64x64", "256x256",                      # 2D (fft2 range)
                    "32x32x32")                              # 3D
 SMOKE_EXTENTS = ("256", "1024", "12", "19", "16x16", "8x8x8")
+
+#: One extent per paper class for the --devices scaling grid (all
+#: shardable over 8 ranks): 1D/3D powerof2, 3D radix357, 1D oddshape
+#: (438976 = 2^6 * 19^3 factors as 152 x 2888, both divisible by 8).
+SCALING_EXTENTS = ("4096", "64x64x64", "48x48x48", "438976")
+SMOKE_SCALING_EXTENTS = ("1024", "8x8x8", "12x12x12", "304")
+
+DIST_BACKENDS = ("dist1d", "slab", "pencil")
 
 DEFAULT_BACKENDS = ("xla", "stockham", "fourstep", "fourstep_pallas",
                     "stockham_pallas", "sixstep", "fft2_pallas",
@@ -198,6 +225,205 @@ def bench_backend(backend: str, extents: tuple[int, ...], x: torch.Tensor,
     except Exception as e:  # infeasible extent for this backend: record it
         rec.update(ok=False, error=f"{type(e).__name__}: {e}")
     return rec
+
+
+def bench_dist_backend(backend: str, extents: tuple[int, ...], batch: int,
+                       reps: int, warmups: int, timer: RepTimer,
+                       device_kind: str) -> dict:
+    """One scaling row: a decomposition over every rank of the default
+    group, in the TRANSPOSED-output layout with the planner's local
+    engines, timed on this rank (every rank runs it: the collectives keep
+    them in step).  An unsupported or failing row is recorded."""
+    from ..core.candidates import _pencil_mesh_shapes
+    from ..core.clients.dist_fft import dist_engines
+    from ..fft import distributed as dfft
+    from ..launch.mesh import flat_mesh, reshaped_mesh
+
+    p_dev = torch.distributed.get_world_size()
+    b = 1 if backend == "dist1d" else batch  # dist1d takes the whole axis
+    problem = Problem(extents, "Outplace_Complex", "float", batch=b)
+    rec = {"backend": backend, "extent": "x".join(map(str, extents)),
+           "rank": len(extents), "batch": b,
+           "kind": problem.kind, "precision": problem.precision,
+           "class": classify(extents), "devices": p_dev}
+    if backend == "pencil":
+        shapes = _pencil_mesh_shapes(p_dev)
+        if not shapes and p_dev == 1:
+            shapes = [(1, 1)]   # the degenerate one-rank point
+        mesh_shape = shapes[0] if shapes else None
+    else:
+        mesh_shape = (p_dev,)
+    rank = len(extents)
+    feasible = mesh_shape is not None and (
+        (backend == "dist1d" and rank == 1
+         and dfft.can_shard_1d(extents[0], p_dev))
+        or (backend == "slab" and rank in (2, 3)
+            and dfft.slab_divisible(extents, p_dev))
+        or (backend == "pencil" and rank == 3
+            and dfft.pencil_divisible(extents, *mesh_shape)))
+    if not feasible:
+        rec.update(ok=False, error="unsupported extents/rank/device count")
+        return rec
+    rec["mesh"] = "x".join(map(str, mesh_shape))
+    try:
+        device = timer.device
+        base = flat_mesh(device=device)
+        cand = Candidate(backend, mesh=mesh_shape)
+        engines, _ = dist_engines(problem, cand, False, device)
+        x = grid_input(extents, b, device)
+        if backend == "dist1d":
+            mesh = reshaped_mesh(base, mesh_shape, names=("data",))
+            fn, _ = dfft.make_fft1d(mesh, "data", extents[0],
+                                    engines=engines, device=device)
+            x, in_spec = x.reshape(-1), ("data",)
+        else:
+            mesh = reshaped_mesh(base, mesh_shape)
+            make = (dfft.make_slab_fftnd if backend == "slab"
+                    else dfft.make_pencil_fftnd)
+            axes = ("d0",) if backend == "slab" else ("d0", "d1")
+            fn, in_spec, _ = make(mesh, *axes, extents, engines=engines)
+        xb = dfft.shard(x, mesh, in_spec).contiguous()
+        calls, sent = dfft.A2A_CALLS, dfft.A2A_BYTES
+        t0 = time.perf_counter()
+        fn(xb)
+        timer.sync()
+        rec["compile_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["collective_calls"] = dfft.A2A_CALLS - calls
+        rec["collective_bytes"] = dfft.A2A_BYTES - sent
+        for _ in range(warmups):
+            fn(xb)
+        timer.sync()
+        best = _record_times(rec, [timer(fn, xb) for _ in range(reps)])
+        moved = 2 * x.numel() * x.element_size()   # one read + one write
+        rec["gib_per_s"] = moved / best / 2**30
+        _annotate_roofline(rec, problem, cand, best, device_kind)
+        rec["ok"] = True
+    except Exception as e:
+        rec.update(ok=False, error=f"{type(e).__name__}: {e}")
+    return rec
+
+
+def _scaling_rank(args) -> int:
+    """One rank of a --devices group (the hidden ``--_rank`` form): join
+    the group, run the scaling grid (``xla`` and the decompositions), and
+    on rank 0 write the document."""
+    import torch.distributed as dist
+
+    rank, world = args._rank, args._world
+    gpu = torch.device(args.device).type == "cuda"
+    device = torch.device("cuda", rank) if gpu else torch.device("cpu")
+    if not gpu:
+        torch.set_num_threads(1)
+    kw = {"device_id": device} if gpu else {}
+    dist.init_process_group("nccl" if gpu else "gloo",
+                            store=dist.FileStore(args._store, world),
+                            rank=rank, world_size=world, **kw)
+    try:
+        context = TorchContext(device)
+        context.create()         # raises without the device; builds kernels
+        timer = RepTimer(device)
+        meta = dict(_grid_meta(context, args.batch, args.reps),
+                    devices=world, backend=dist.get_backend())
+        doc = {"meta": make_meta(**meta), "results": []}
+        for ext in [parse_extents(str(e)) for e in args.extents]:
+            x = grid_input(ext, args.batch, device)
+            for backend in args.backends:
+                if backend in DIST_BACKENDS:
+                    rec = bench_dist_backend(backend, ext, args.batch,
+                                             args.reps, args.warmups, timer,
+                                             context.device_kind)
+                else:
+                    rec = bench_backend(backend, ext, x, args.reps,
+                                        args.warmups, timer,
+                                        context.device_kind)
+                    rec["devices"] = world
+                doc["results"].append(rec)
+                if rank == 0:
+                    print(f"{rec['extent']:>12s} {backend:16s} "
+                          f"{_status(rec)}", flush=True)
+            del x
+        if rank == 0:
+            with open(args.out, "w") as f:
+                json.dump(doc, f, indent=1)
+                f.write("\n")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_group(argv: list[str], world: int) -> None:
+    """Start ``world`` ranks of this module (``--_rank``) and wait for all;
+    when one fails, stop the others (they would wait in a collective) and
+    raise with every rank's exit code."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    procs = [subprocess.Popen([sys.executable, "-m", __spec__.name, *argv,
+                               "--_rank", str(r), "--_world", str(world)],
+                              env=env) for r in range(world)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"--devices {world}: ranks exited with {codes}")
+
+
+def _fan_out_devices(args, device_counts: list[int]) -> int:
+    """The scaling grid: one group of N ranks per count, merged into one
+    document.  A count over the visible cards raises."""
+    if torch.device(args.device).type == "cuda":
+        visible = torch.cuda.device_count()
+        for n in device_counts:
+            if n > visible:
+                raise ValueError(f"--devices {n} needs {n} cards, one rank "
+                                 f"each; {visible} visible")
+    if args.smoke:
+        extents, reps, warmups = (args.extents or SMOKE_SCALING_EXTENTS,
+                                  1, 0)
+    else:
+        extents = args.extents or SCALING_EXTENTS
+        reps, warmups = args.reps, args.warmups
+    backends = args.backends or ("xla", *DIST_BACKENDS)
+    merged = {"meta": None, "results": []}
+    for n in device_counts:
+        print(f"--- devices={n} ---", flush=True)
+        tmp = tempfile.mkdtemp(prefix=f"bench_grid_dev{n}_")
+        try:
+            out = os.path.join(tmp, "doc.json")
+            _run_group(["--device", args.device, "--batch", str(args.batch),
+                        "--reps", str(reps), "--warmups", str(warmups),
+                        "--extents", *map(str, extents),
+                        "--backends", *backends, "--out", out,
+                        "--_store", os.path.join(tmp, "store")], n)
+            with open(out) as f:
+                doc = json.load(f)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if merged["meta"] is None:
+            merged["meta"] = dict(doc["meta"])
+            merged["meta"]["device_counts"] = []
+            merged["meta"]["workers"] = []
+        merged["meta"]["device_counts"].append(n)
+        merged["meta"]["workers"].append({"devices": n, **doc["meta"]})
+        merged["results"].extend(doc["results"])
+    with open(args.out, "w") as f:
+        json.dump(merged, f, indent=1)
+        f.write("\n")
+    _maybe_report(args)
+    print(f"wrote {len(merged['results'])} records "
+          f"({len(device_counts)}-point device axis) to {args.out}")
+    return 0
 
 
 #: Backends the serving replay is pinned to, plus the planner (backend
@@ -467,6 +693,10 @@ def main(argv=None) -> int:
                    help="also write the gearshifft Fig. 7 markdown "
                         "(backend x extent class x achieved roofline "
                         "fraction) rendered from the written document")
+    p.add_argument("--devices", nargs="+", type=int, default=None,
+                   help="device-count scaling axis, e.g. --devices 1 2 4 "
+                        "(one group of ranks per count; benches xla and "
+                        "the distributed decompositions)")
     p.add_argument("--serve", action="store_true",
                    help="bench the FFT serving layer (per-backend Zipf "
                         "replays + the coalesced/serial burst) instead of "
@@ -474,13 +704,21 @@ def main(argv=None) -> int:
     p.add_argument("--chaos", action="store_true",
                    help="with --serve: the seeded fault-injection replays "
                         "(exit 1 unless both scenarios recover)")
+    p.add_argument("--_rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--_world", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--_store", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args._rank is not None:
+        from ..launch.mesh import exit_rank
+        exit_rank(_scaling_rank(args))
     if args.chaos and not args.serve:
         p.error("--chaos needs --serve")
     if args.serve:
         context = TorchContext(args.device)
         context.create()         # raises without the device; builds kernels
         return (_run_chaos if args.chaos else _run_serve)(args, context)
+    if args.devices:
+        return _fan_out_devices(args, args.devices)
 
     if args.smoke:
         extents, reps, warmups = args.extents or SMOKE_EXTENTS, 1, 0
@@ -493,30 +731,16 @@ def main(argv=None) -> int:
     context = TorchContext(args.device)
     context.create()             # raises without the device; builds kernels
     device, kind = context.device, context.device_kind
-    gpu = device.type == "cuda"
     timer = RepTimer(device)
-    meta = dict(
-        device_kind=kind, platform="gpu" if gpu else "cpu",
-        devices=torch.cuda.device_count() if gpu else 1,
-        interpret_kernels=not gpu, python=platform.python_version(),
-        torch=torch.__version__, batch=args.batch, reps=reps,
-        note="forward c64 transform, min-of-reps (mean/sd/n per row); "
-             "CUDA events after an L2 flush on the card; gib_per_s "
-             "assumes the one-read+one-write algorithmic minimum; "
-             "roofline_frac is the achieved fraction of the modeled device "
-             "roofline (5*N*log2(N) flops, planner bytes-moved model)")
-    if gpu:
-        meta["power_limit"] = power_limit()
-    doc = {"meta": make_meta(**meta), "results": []}
+    doc = {"meta": make_meta(**_grid_meta(context, args.batch, reps)),
+           "results": []}
     for ext in grid:
         x = grid_input(ext, args.batch, device)
         for backend in backends:
             rec = bench_backend(backend, ext, x, reps, warmups, timer, kind)
             rec["devices"] = 1
             doc["results"].append(rec)
-            status = (f"{rec['time_ms']:9.3f} ms  {rec['gib_per_s']:7.2f} GiB/s"
-                      if rec["ok"] else f"infeasible: {rec['error']}")
-            print(f"{rec['extent']:>12s} {backend:16s} {status}")
+            print(f"{rec['extent']:>12s} {backend:16s} {_status(rec)}")
         del x
     fallbacks = [r for r in doc["results"] if "roofline_fallback" in r]
     if fallbacks:
@@ -528,12 +752,39 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump(doc, f, indent=1)
         f.write("\n")
+    _maybe_report(args)
+    print(f"wrote {len(doc['results'])} records to {args.out}")
+    return 0
+
+
+def _grid_meta(context: TorchContext, batch: int, reps: int) -> dict:
+    gpu = context.device.type == "cuda"
+    meta = dict(
+        device_kind=context.device_kind, platform="gpu" if gpu else "cpu",
+        devices=torch.cuda.device_count() if gpu else 1,
+        interpret_kernels=not gpu, python=platform.python_version(),
+        torch=torch.__version__, batch=batch, reps=reps,
+        note="forward c64 transform, min-of-reps (mean/sd/n per row); "
+             "CUDA events after an L2 flush on the card; gib_per_s "
+             "assumes the one-read+one-write algorithmic minimum; "
+             "roofline_frac is the achieved fraction of the modeled device "
+             "roofline (5*N*log2(N) flops, planner bytes-moved model)")
+    if gpu:
+        meta["power_limit"] = power_limit()
+    return meta
+
+
+def _status(rec: dict) -> str:
+    return (f"{rec['time_ms']:9.3f} ms  {rec['gib_per_s']:7.2f} GiB/s"
+            if rec["ok"] else f"infeasible: {rec['error']}")
+
+
+def _maybe_report(args) -> None:
+    """The gearshifft Fig. 7 table of the document just written."""
     if args.report:
         with open(args.report, "w") as f:
             f.write(fig7_report(load_bench(args.out)))
         print(f"wrote Fig. 7 report to {args.report}")
-    print(f"wrote {len(doc['results'])} records to {args.out}")
-    return 0
 
 
 if __name__ == "__main__":

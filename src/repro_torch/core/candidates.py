@@ -13,7 +13,10 @@ hold the signal (:func:`kernel_passes`); the six-step composition takes
 powers of two 4 ... 2^24 and the chirp-Z path any n <= 2^23.  The PATIENT
 grid offers only the knobs a kernel honors at the problem's shape.
 Enumeration prunes per-axis assignments by the active cost model
-(:mod:`.costmodel`), imported lazily as in the reference.
+(:mod:`.costmodel`), imported lazily as in the reference.  The
+distributed decompositions (:data:`DIST_BACKENDS`: ``dist1d``, ``slab``,
+``pencil``, over ``fft/distributed.py``) are offered only over a mesh:
+the caller's, or the active one (``launch.mesh.set_active_mesh``).
 """
 
 from __future__ import annotations
@@ -21,23 +24,33 @@ from __future__ import annotations
 import itertools
 import re
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Sequence
 
 from .client import Problem
 from .extents import _factors_only, next_pow2 as _next_pow2, next_smooth
 
-_KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)(?:\((.*)\))?$")
+_KEY = re.compile(
+    r"^([A-Za-z_][A-Za-z0-9_]*)(?:\[(\d+(?:x\d+)*)\])?(?:\((.*)\))?$")
 
 #: Whole-transform backends: one engine call covers every axis, so the
 #: separable path's transpose traffic never happens.
 FUSED_ND = ("xla", "fft2_pallas")
 
 #: Every backend the port's planner knows, in the reference's enumeration
-#: (preference-tie) order.  The reference's distributed decompositions
-#: wait for the distributed slice.
+#: (preference-tie) order.
 BACKENDS = ("xla", "stockham", "fourstep", "dft", "fourstep_pallas",
             "stockham_pallas", "sixstep", "fft2_pallas", "chirpz_pallas",
             "bluestein")
+
+#: Mesh-sharded decompositions (``fft/distributed.py``), enumerated only
+#: over a mesh and kept out of :data:`BACKENDS`, so single-device planning
+#: and the support matrix are the same without one.
+DIST_BACKENDS = ("dist1d", "slab", "pencil")
+
+#: all_to_alls per decomposition in the default TRANSPOSED-output layout.
+DIST_A2A_COUNT = {"dist1d": 2, "slab": 1, "pencil": 2}
+#: Extra all_to_alls for natural-order output.
+DIST_NATURAL_EXTRA = {"dist1d": 1, "slab": 1, "pencil": 2}
 
 #: The six-step composition's lengths (``fft/sixstep.py``: n1 <= 2^10
 #: over the four-step kernel's n2 <= 2^14).
@@ -53,9 +66,9 @@ class Candidate:
     (``options``, in key order) applied to every axis, or -- when ``axes``
     is non-empty -- a per-axis assignment with the placeholder backend
     ``'nd'``: ``axes[i]`` transforms ``extents[i]``, outermost first.
-    ``mesh`` is a distributed selection's device-mesh shape, carried so
-    wisdom records of the reference's distributed plans read back whole;
-    the port runs none."""
+    ``mesh`` is a distributed candidate's mesh shape (``slab[4]``,
+    ``pencil[2x4]``): a selection tuned for one device count means nothing
+    for another, in plan-cache keys and in wisdom alike."""
 
     backend: str
     options: tuple[tuple[str, Any], ...] = ()
@@ -87,26 +100,30 @@ class Candidate:
 
     @classmethod
     def from_key(cls, key: str) -> "Candidate":
-        """Parse a plan key such as ``stockham_pallas(radix=4,tile_b=16)``
-        or ``nd[dft;fourstep_pallas(tile_b=8)]``.  Integer knob values come
-        back as ints.  Mesh keys (``slab[4]``) belong to the distributed
-        slice and raise."""
+        """Parse a plan key such as ``stockham_pallas(radix=4,tile_b=16)``,
+        ``nd[dft;fourstep_pallas(tile_b=8)]`` or
+        ``pencil[2x4](local=dft)``.  Integer knob values come back as
+        ints."""
         key = key.strip()
         if key.startswith("nd[") and key.endswith("]"):
-            return cls("nd", axes=tuple(cls.from_key(k)
-                                        for k in key[3:-1].split(";")))
+            axes = tuple(cls.from_key(k) for k in key[3:-1].split(";"))
+            if any(a.mesh for a in axes):
+                raise ValueError(f"a per-axis plan of single-device axes "
+                                 f"only, got {key!r}")
+            return cls("nd", axes=axes)
         m = _KEY.match(key)
         if m is None:
             raise ValueError(f"unsupported plan key {key!r} ('backend(k=v,"
-                             "...)' and 'nd[...]' keys only)")
-        backend, body = m.group(1), m.group(2)
+                             "...)', 'backend[PxQ]' and 'nd[...]' keys only)")
+        backend, mesh, body = m.groups()
         options = []
         for item in filter(None, (body or "").split(",")):
             k, sep, v = item.partition("=")
             if not sep or not k:
                 raise ValueError(f"bad knob {item!r} in plan key {key!r}")
             options.append((k, int(v) if re.fullmatch(r"-?\d+", v) else v))
-        return cls(backend, tuple(options))
+        return cls(backend, tuple(options),
+                   mesh=tuple(int(s) for s in mesh.split("x")) if mesh else ())
 
 
 def _pow2(n: int) -> bool:
@@ -318,19 +335,131 @@ def knobs_fit(problem: Problem, cand: Candidate) -> bool:
     return True
 
 
-def candidates(problem: Problem, patient: bool = False) -> list[Candidate]:
+# ---------------------------------------------------------------------------
+# distributed candidates: dist1d / slab / pencil over a mesh
+# ---------------------------------------------------------------------------
+def _mesh_devices(mesh) -> int:
+    """Rank count of a mesh (or of a stand-in with ``.size``)."""
+    return int(mesh.size)
+
+
+def dist_supports(backend: str, problem: Problem,
+                  mesh_shape: Sequence[int]) -> bool:
+    """Can ``backend`` decompose ``problem`` over a mesh of
+    ``mesh_shape``?  Complex kinds only (the packed real half-spectrum
+    breaks the all_to_all divisibility), at least two ranks (one is pure
+    overhead), and ``dist1d`` at batch 1 (its matrix view takes the whole
+    axis)."""
+    if not problem.complex_input:
+        return False
+    from ..fft import distributed as dist
+
+    shape = tuple(int(s) for s in mesh_shape)
+    p = 1
+    for s in shape:
+        p *= s
+    if p < 2:
+        return False
+    if backend == "dist1d":
+        return (problem.rank == 1 and problem.batch == 1
+                and dist.can_shard_1d(problem.extents[0], p))
+    if backend == "slab":
+        return (len(shape) == 1 and problem.rank in (2, 3)
+                and dist.slab_divisible(problem.extents, p))
+    if backend == "pencil":
+        return (len(shape) == 2 and problem.rank == 3
+                and dist.pencil_divisible(problem.extents, *shape))
+    return False
+
+
+def _pencil_mesh_shapes(p: int, patient: bool = False
+                        ) -> list[tuple[int, int]]:
+    """(Pr, Pc) factorizations of ``p`` with both >= 2: the most balanced
+    one, widened to at most four under PATIENT."""
+    shapes = [(pr, p // pr) for pr in range(2, int(p ** 0.5) + 1)
+              if p % pr == 0]
+    shapes.sort(key=lambda s: s[1] - s[0])
+    if not patient:
+        return shapes[:1]
+    out = list(shapes)
+    out += [(pc, pr) for pr, pc in shapes if pr != pc]
+    return out[:4]
+
+
+def dist_local_lengths(problem: Problem, cand: Candidate
+                       ) -> list[tuple[int, float]]:
+    """The local transform lengths a distributed candidate runs on each
+    rank, each with the transpose passes its position costs (2 where the
+    axis is not innermost in the local block, 0 where it is)."""
+    p = 1
+    for s in cand.mesh:
+        p *= s
+    if cand.backend == "dist1d":
+        from ..fft.distributed import _choose_1d_factors
+
+        n1, n2 = _choose_1d_factors(problem.extents[0], p)
+        return [(n1, 2.0), (n2, 0.0)]
+    return [(n, 0.0 if i == problem.rank - 1 else 2.0)
+            for i, n in enumerate(problem.extents)]
+
+
+def _dist_candidates(problem: Problem, mesh, patient: bool
+                     ) -> list[Candidate]:
+    """The decompositions of ``problem`` over ``mesh``; PATIENT adds the
+    other pencil factorizations and, for each decomposition, the two
+    local engines with the fewest modeled passes besides the default (the
+    ``local`` knob)."""
+    from .costmodel import dist_local_engine, hbm_passes
+
+    p = _mesh_devices(mesh)
+    if p < 2:
+        return []
+    out: list[Candidate] = []
+    if dist_supports("dist1d", problem, (p,)):
+        out.append(Candidate("dist1d", mesh=(p,)))
+    if dist_supports("slab", problem, (p,)):
+        out.append(Candidate("slab", mesh=(p,)))
+    for shape in _pencil_mesh_shapes(p, patient):
+        if dist_supports("pencil", problem, shape):
+            out.append(Candidate("pencil", mesh=shape))
+    if patient:
+        extra = []
+        for c in out:
+            lengths = [n for n, _ in dist_local_lengths(problem, c)]
+            default = {dist_local_engine(n) for n in lengths}
+            locals_ = [b for b in BACKENDS
+                       if b not in FUSED_ND and b not in default
+                       and all(axis_feasible(b, n) for n in lengths)
+                       and all(hbm_passes(b, n) != float("inf")
+                               for n in lengths)]
+            locals_.sort(key=lambda b: sum(hbm_passes(b, n) for n in lengths))
+            extra += [Candidate(c.backend, (("local", b),), mesh=c.mesh)
+                      for b in locals_[:2]]
+        out += extra
+    return out
+
+
+def candidates(problem: Problem, patient: bool = False,
+               mesh=None) -> list[Candidate]:
     """Enumerate feasible (backend, knob) combinations for a problem: the
     vendor path, every homogeneous backend that supports the problem, the
     per-axis assignments for rank >= 2 (pruned by the bytes-moved model),
-    and under ``patient`` the kernels' knobs (batch tiles, radix
-    schedules, the six-step split, the chirp-Z engine) -- those that fit
-    a block at this problem's shape."""
+    the decompositions over ``mesh`` (``None``: the active mesh, itself
+    None unless a launcher installed one), and under ``patient`` the
+    kernels' knobs (batch tiles, radix schedules, the six-step split, the
+    chirp-Z engine) -- those that fit a block at this problem's shape."""
     out: list[Candidate] = [Candidate("xla")]
     for b in BACKENDS[1:]:
         if backend_supports(b, problem):
             out.append(Candidate(b))
     if problem.rank >= 2:
         out += _mixed_candidates(problem, limit=12 if patient else 6)
+    if mesh is None:
+        from ..launch.mesh import get_active_mesh
+
+        mesh = get_active_mesh()
+    if mesh is not None:
+        out += _dist_candidates(problem, mesh, patient)
     if patient:
         extra = []
         for c in out:

@@ -24,7 +24,8 @@ itself:
   any CLI run can be saved, replayed with ``--config``, and diffed.
 
 Clients come from the registry (filled by
-``repro_torch.core.clients.torch_fft`` at import; extra modules can be
+``repro_torch.core.clients.torch_fft``, ``dist_fft`` and ``serve_fft`` at
+import; extra modules can be
 pulled in with ``--load pkg.mod`` or the spec's ``load`` list), results
 stream through a CSV or JSONL sink (chosen by ``--format`` or the output
 extension), and the plan cache is on by default: ``--no-plan-cache``
@@ -43,7 +44,8 @@ from .client import KINDS, PRECISIONS
 from .plan import PlanRigor
 from .registry import client_names
 from .suite import Session, SuiteSpec
-from .clients import serve_fft, torch_fft  # noqa: F401  (fills the registry)
+from .clients import (dist_fft, serve_fft,  # noqa: F401  (fills the registry)
+                      torch_fft)
 
 
 def build_parser() -> argparse.ArgumentParser:

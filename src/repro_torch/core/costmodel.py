@@ -25,9 +25,12 @@ Two things differ, both for Hopper:
   pass counts: the passes of the kernels under them (a padded chirp
   length over one block, the four-step kernel's two complex128 launches
   at n2 = 16384) are not priced, so their ESTIMATE picks are the
-  reference's;
-* the distributed branch is left out (the port has no distributed
-  backends).
+  reference's.
+
+Distributed candidates (``dist1d``, ``slab``, ``pencil``) are priced per
+rank, as in the reference: the local engines' passes on the 1/P block,
+plus each all_to_all's block at ``dist_link_cost`` bytes per byte and a
+fixed ``dist_a2a_latency_bytes``.
 
 A module-level *active* model (:func:`get_active_model`,
 :func:`set_active_model`, :func:`use_model`) is what ``hbm_passes``,
@@ -47,9 +50,11 @@ from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 from ..fft.bluestein import PALLAS_SINGLE_MAX_M
-from .candidates import (FUSED_ND, SIXSTEP_MIN_N, Candidate, _smooth7,
-                         axis_elems, axis_engine_n, axis_feasible,
-                         candidates, fft2_feasible, fft2_passes,
+from .candidates import (BACKENDS, DIST_A2A_COUNT, DIST_BACKENDS,
+                         DIST_NATURAL_EXTRA, FUSED_ND, SIXSTEP_MIN_N,
+                         Candidate, _smooth7, axis_elems, axis_engine_n,
+                         axis_feasible, candidates, dist_local_lengths,
+                         dist_supports, fft2_feasible, fft2_passes,
                          kernel_passes)
 from .client import Problem
 from .extents import next_pow2 as _next_pow2, next_smooth
@@ -222,9 +227,8 @@ class CostModel:
         axis, each pass reading and writing the axis's live elements."""
         c = self.coeffs
         complex_itemsize = 16 if problem.precision == "double" else 8
-        if cand.mesh:
-            return Infeasible(f"{cand.key()}: the port has no distributed "
-                              "backends")
+        if cand.backend in DIST_BACKENDS:
+            return self._dist_estimate(problem, cand, complex_itemsize)
         if cand.backend in FUSED_ND:
             elems = axis_elems(problem, problem.rank - 1)
             if cand.backend == "xla":
@@ -251,10 +255,55 @@ class CostModel:
                       * complex_itemsize)
         return total
 
+    def _dist_estimate(self, problem: Problem, cand: Candidate,
+                       complex_itemsize: int) -> "float | Infeasible":
+        """Per-rank bytes of a distributed candidate: the local engines'
+        passes (and their transposes) on the rank's 1/P block, the
+        dist1d twiddle, and each all_to_all's block at the link cost plus
+        its fixed latency."""
+        c = self.coeffs
+        if not dist_supports(cand.backend, problem, cand.mesh):
+            return Infeasible(f"{cand.key()} cannot decompose "
+                              f"{problem.signature()} over mesh {cand.mesh}")
+        p = 1
+        for s in cand.mesh:
+            p *= s
+        opts = cand.opts()
+        forced = opts.get("local")
+        passes = 0.0
+        for n_g, swaps in dist_local_lengths(problem, cand):
+            b = forced or self.dist_local_engine(n_g)
+            hp = self.hbm_passes(b, n_g)
+            if hp == float("inf"):
+                return Infeasible(f"local engine {b} infeasible at n={n_g}")
+            passes += hp + swaps
+        if cand.backend == "dist1d":
+            passes += c.dist1d_twiddle_passes
+        dev_bytes = (problem.n_elems / p) * complex_itemsize
+        n_a2a = DIST_A2A_COUNT[cand.backend]
+        if opts.get("natural"):
+            n_a2a += DIST_NATURAL_EXTRA[cand.backend]
+        return (passes * 2.0 * dev_bytes
+                + n_a2a * (dev_bytes * c.dist_link_cost
+                           + c.dist_a2a_latency_bytes))
+
     def estimate_bytes_moved(self, problem: Problem,
                              cand: Candidate) -> float:
         """Numeric view of :meth:`estimate`: infeasible is ``inf``."""
         return float(self.estimate(problem, cand))
+
+    def dist_local_engine(self, n: int) -> str:
+        """The separable backend a distributed plan runs locally at length
+        ``n`` when no ``local`` knob forces one: the fewest modeled
+        passes, ties to the earlier :data:`BACKENDS` entry."""
+        best, best_p = "fourstep", float("inf")
+        for b in BACKENDS:
+            if b in FUSED_ND:
+                continue
+            passes = self.hbm_passes(b, n)
+            if passes < best_p:
+                best, best_p = b, passes
+        return best
 
     def estimate_choice(self, problem: Problem) -> Candidate:
         """The ESTIMATE heuristic: tiny rank-1 problems go straight to the
@@ -318,6 +367,10 @@ def estimate_bytes_moved(problem: Problem, cand: Candidate) -> float:
 
 def estimate_choice(problem: Problem) -> Candidate:
     return get_active_model().estimate_choice(problem)
+
+
+def dist_local_engine(n: int) -> str:
+    return get_active_model().dist_local_engine(n)
 
 
 def load_tables(path: str) -> dict[str, CostModel]:

@@ -35,7 +35,11 @@ import torch
 from .breaker import (CircuitBreaker, breaker_key,  # noqa: F401  (re-exported)
                       problem_class)
 from .candidates import Candidate, candidates
+from .candidates import (  # noqa: F401  (re-exported, as the reference's)
+    DIST_A2A_COUNT, DIST_BACKENDS, DIST_NATURAL_EXTRA, _dist_candidates,
+    _mesh_devices, _pencil_mesh_shapes, dist_local_lengths, dist_supports)
 from .client import Problem
+from .costmodel import dist_local_engine  # noqa: F401  (re-exported)
 from .costmodel import estimate_bytes_moved, estimate_choice
 
 

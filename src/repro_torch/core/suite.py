@@ -36,6 +36,8 @@ from contextlib import nullcontext
 from dataclasses import dataclass, fields
 from typing import Any, Iterable, Iterator, Optional, Sequence
 
+import torch.distributed as dist
+
 from .benchmark import BenchmarkConfig, run_nodes
 from .compare import AggRow, aggregate_result_rows
 from .client import KINDS, PRECISIONS, TorchContext
@@ -116,9 +118,10 @@ class SuiteSpec:
 
     :meth:`to_toml` / :meth:`from_toml` (and the JSON twins) round-trip to
     an equal spec, so ``--dump-config`` -> ``--config`` replays any CLI
-    invocation exactly.  The fields and their order are the reference's,
-    less its multi-device ``device_counts`` axis, which a spec file here
-    may not name.
+    invocation exactly.  The fields and their order are the reference's.
+    ``device_counts`` is the multi-device scaling axis that the grid's
+    ``--devices`` mode (``benchmarks/bench_grid.py``) fans out over, one
+    group of ranks per count.
     """
 
     clients: tuple[str, ...] = ("TorchFFT",)
@@ -128,6 +131,7 @@ class SuiteSpec:
     kinds: tuple[str, ...] = KINDS
     precisions: tuple[str, ...] = ("float",)
     batch: int = 1
+    device_counts: tuple[int, ...] = ()         # multi-device scaling axis
     select: Optional[str] = None                # '-r' wildcard pattern
     rigor: str = "estimate"
     warmups: int = 1
@@ -151,6 +155,10 @@ class SuiteSpec:
             for s in self.sweeps))
         norm(self, "kinds", tuple(self.kinds))
         norm(self, "precisions", tuple(self.precisions))
+        norm(self, "device_counts", tuple(int(n) for n in self.device_counts))
+        if any(n < 1 for n in self.device_counts):
+            raise ValueError(f"device_counts must be >= 1, "
+                             f"got {self.device_counts}")
         if isinstance(self.rigor, PlanRigor):
             norm(self, "rigor", self.rigor.value)
         bad = set(self.kinds) - set(KINDS)
@@ -186,7 +194,8 @@ class SuiteSpec:
     def build_nodes(self) -> list[BenchNode]:
         """Materialize the benchmark tree this spec describes, filtered by
         its ``select`` pattern."""
-        from .clients import serve_fft, torch_fft  # noqa: F401  (registers)
+        from .clients import (dist_fft, serve_fft,  # noqa: F401  (registers)
+                              torch_fft)
         self.load_modules()
         exts = self.resolved_extents()
         if not exts:
@@ -223,6 +232,8 @@ class SuiteSpec:
         }
         if self.load:
             d["load"] = list(self.load)
+        if self.device_counts:   # omitted when empty, as in the reference
+            d["device_counts"] = list(self.device_counts)
         for k in ("select", "wisdom", "costmodel", "output", "format"):
             v = getattr(self, k)
             if v is not None:
@@ -510,8 +521,11 @@ class Session:
                           verbose=spec.verbose)
         finally:
             writer.save()
+        # in a group of ranks (the distributed clients' SPMD runs) every
+        # rank holds the same selections, and rank 0 writes them
         if wisdom is not None and spec.rigor in (PlanRigor.MEASURE.value,
-                                                 PlanRigor.PATIENT.value):
+                                                 PlanRigor.PATIENT.value) \
+                and not (dist.is_initialized() and dist.get_rank() != 0):
             wisdom.save()
         return ResultSet(collector.rows, columns,
                          path=spec.output if spec.output else None,
@@ -557,5 +571,36 @@ def support_matrix(kinds: Sequence[str] = KINDS,
     return rows
 
 
+def dist_support_matrix(device_counts: Sequence[int] = (2, 4, 8),
+                        kinds: Sequence[str] = KINDS,
+                        probes: Optional[dict] = None) -> list[dict]:
+    """The decomposition x kind x rank x device-count table: ``dist1d`` and
+    ``slab`` over the P ranks flat, ``pencil`` over the most balanced
+    (Pr, Pc) factorization, as the planner enumerates them."""
+    from .candidates import DIST_BACKENDS, _pencil_mesh_shapes, dist_supports
+    from .client import Problem
+
+    probes = dict(SUPPORT_PROBE_EXTENTS if probes is None else probes)
+    rows = []
+    for backend in DIST_BACKENDS:
+        for devices in device_counts:
+            for rank, extents in sorted(probes.items()):
+                for kind in kinds:
+                    if backend == "pencil":
+                        shapes = _pencil_mesh_shapes(devices) or [(devices,)]
+                        mesh_shape = shapes[0]
+                    else:
+                        mesh_shape = (devices,)
+                    problem = Problem(tuple(extents), kind, "float")
+                    rows.append({
+                        "backend": backend, "kind": kind, "rank": rank,
+                        "devices": devices, "extents": tuple(extents),
+                        "supported": dist_supports(backend, problem,
+                                                   mesh_shape),
+                    })
+    return rows
+
+
 __all__ = ["SweepSpec", "SuiteSpec", "ResultSet", "Session", "run_suite",
-           "SWEEP_CLASSES", "SUPPORT_PROBE_EXTENTS", "support_matrix"]
+           "SWEEP_CLASSES", "SUPPORT_PROBE_EXTENTS", "support_matrix",
+           "dist_support_matrix"]

@@ -178,25 +178,34 @@ def test_alloc_size_matches_reference(kind):
             assert port.get_transfer_size() == ref.get_transfer_size()
 
 
+class _FakeMesh:
+    """Enough mesh for the planner's enumeration: ``.size``."""
+    size = 8
+
+
 def test_candidate_from_key_round_trips_reference_keys():
     keys = set()
     for ext, kind in (((4096,), "Outplace_Complex"), ((64, 48), "Outplace_Real"),
-                      ((945,), "Inplace_Real"), ((256, 256, 256), "Outplace_Real")):
-        for c in ref_candidates.candidates(RefProblem(ext, kind), patient=True):
-            if not c.mesh:
-                keys.add((c.key(), c))
+                      ((945,), "Inplace_Real"), ((256, 256, 256), "Outplace_Real"),
+                      ((64, 64, 64), "Outplace_Complex")):
+        for c in ref_candidates.candidates(RefProblem(ext, kind), patient=True,
+                                           mesh=_FakeMesh()):
+            keys.add((c.key(), c))
     all_keys = {k for k, _ in keys}
     assert "stockham_pallas(radix=4,tile_b=16)" in all_keys
     assert "nd[fourstep_pallas;stockham_pallas;dft]" in all_keys
+    # the distributed slice's mesh keys read too
+    assert {"dist1d[8]", "pencil[2x4]", "pencil[4x2]"} <= all_keys
     for key, ref in keys:
         cand = Candidate.from_key(key)
         assert cand.key() == key
         assert cand.backend == ref.backend and cand.opts() == ref.opts()
+        assert cand.mesh == ref.mesh
         assert [(a.backend, a.opts()) for a in cand.axes] == \
             [(a.backend, a.opts()) for a in ref.axes]
     knobbed = Candidate.from_key("nd[dft;stockham_pallas(radix=4,tile_b=16)]")
     assert knobbed.per_axis(2)[1].opts() == {"radix": 4, "tile_b": 16}
-    for bad in ("slab[4]", "x(radix)", "nd[]", "nd[dft;slab[4]]"):
+    for bad in ("x(radix)", "nd[]", "nd[dft;slab[4]]", "slab[4x]"):
         with pytest.raises(ValueError):
             Candidate.from_key(bad)
 
@@ -368,6 +377,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    'replay')]\n"
         "need += ['repro_torch.serve', 'repro_torch.core.clients.serve_fft',\n"
         "         'repro_torch.benchmarks.table_serve']\n"
+        "need += ['repro_torch.launch.mesh', 'repro_torch.fft.distributed',\n"
+        "         'repro_torch.core.clients.dist_fft']\n"
         "from repro_torch.benchmarks import bench_grid\n"
         "assert callable(bench_grid._run_serve) and callable(bench_grid._run_chaos)\n"
         "assert all(n in sys.modules for n in need), need\n"

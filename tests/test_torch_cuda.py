@@ -678,3 +678,61 @@ def test_serve_probe_fails_a_non_finite_request_alone(cuda_device):
     for i, y in outs.items():
         want = torch.fft.fft(torch.from_numpy(xs[i]).to(cuda_device))
         assert rel_l2(torch.from_numpy(y[0]).to(cuda_device), want) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("natural", [False, True])
+def test_dist_transforms_on_a_one_rank_nccl_group(cuda_device, natural):
+    """dist1d and slab on the one-rank ``nccl`` group a CUDA client starts
+    (``flat_mesh``): the collective runs at P = 1, the local engines are
+    the kernels (``dft`` up to 128 points, the four-step kernel above),
+    the spectra agree with torch.fft and the inverses round-trip."""
+    import torch.distributed as dist
+
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.clients.dist_fft import dist_engines
+    from repro_torch.fft import distributed as dfft
+    from repro_torch.launch.mesh import flat_mesh
+
+    mesh = flat_mesh(device=cuda_device)
+    assert dist.get_backend() == "nccl" and mesh.size == 1
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n = 1 << 16                                  # 256 x 256
+    x = torch.randn(n, dtype=torch.complex64, generator=gen,
+                    device=cuda_device)
+    problem = Problem((n,), "Outplace_Complex")
+    fwd_eng, _ = dist_engines(problem, Candidate("dist1d", mesh=(1,)),
+                              False, cuda_device)
+    inv_eng, _ = dist_engines(problem, Candidate("dist1d", mesh=(1,)),
+                              True, cuda_device)
+    fn, (n1, n2) = dfft.make_fft1d(mesh, "data", n, natural=natural,
+                                   engines=fwd_eng, device=cuda_device)
+    inv, _ = dfft.make_ifft1d(mesh, "data", n, natural=natural,
+                              engines=inv_eng, device=cuda_device)
+    calls, before = dfft.A2A_CALLS, fs_ops.LAUNCHES
+    y = fn(x)
+    assert dfft.A2A_CALLS - calls == (3 if natural else 2)
+    assert fs_ops.LAUNCHES > before
+    want = torch.fft.fft(x)
+    if not natural:
+        want = want.reshape(n2, n1).T.reshape(-1)
+    assert rel_l2(y, want) <= LIBRARY_TOL[torch.complex64]
+    assert rel_l2(inv(y), x) <= LIBRARY_TOL[torch.complex64]
+
+    shape = (64, 32, 16)
+    xs = torch.randn((2, *shape), dtype=torch.complex128, generator=gen,
+                     device=cuda_device)
+    problem = Problem(shape, "Outplace_Complex", "double", 2)
+    cand = Candidate("slab", mesh=(1,))
+    fn, ins, outs = dfft.make_slab_fftnd(
+        mesh, "data", shape, natural=natural,
+        engines=dist_engines(problem, cand, False, cuda_device)[0])
+    inv, _, _ = dfft.make_slab_fftnd(
+        mesh, "data", shape, natural=natural, inverse=True,
+        engines=dist_engines(problem, cand, True, cuda_device)[0])
+    before = dft_ops.LAUNCHES
+    ys = fn(xs)
+    assert dft_ops.LAUNCHES > before
+    assert rel_l2(ys, torch.fft.fftn(xs, dim=(1, 2, 3))) \
+        <= LIBRARY_TOL[torch.complex128]
+    assert rel_l2(inv(ys), xs) <= LIBRARY_TOL[torch.complex128]

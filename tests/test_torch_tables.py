@@ -51,7 +51,8 @@ TITLES = {"XlaFFT": "TorchFFT", "Stockham": "TorchStockham",
           "FourStepPallas": "TorchFourStepPallas",
           "StockhamPallas": "TorchStockhamPallas", "SixStep": "TorchSixStep",
           "Fft2Pallas": "TorchFft2Pallas", "ChirpZPallas": "TorchChirpZPallas",
-          "Planned": "TorchPlanned", "ServeFFT": "TorchServeFFT"}
+          "Planned": "TorchPlanned", "ServeFFT": "TorchServeFFT",
+          "DistFFT1D": "TorchDistFFT1D", "DistFFTND": "TorchDistFFTND"}
 FIELDS = ("extents", "kinds", "precisions", "batch", "warmups", "plan_cache",
           "rigor")
 
