@@ -125,7 +125,21 @@
    collective and the torch passes; then ``bench_grid --devices 1
    --smoke`` (its ``main``): every ``dist1d``, ``slab`` and
    ``pencil[1x1]`` row the support rules admit is ok;
-14. holds the fused fftconv kernel against its plain version and the
+14. serves the LM path (``repro_torch.launch.serve``) at full width in
+   bf16 on ``cuda:0`` (``LM_CELLS``): L1, qwen3-1.7b, 16 requests of 512
+   tokens through ``ServeEngine``'s 8 slots (two waves: the refill), 64
+   new tokens each; L2, granite-moe-1b-a400m, 8 requests, 16 new; the
+   weights float32 from a seeded generator on the card, cast once to
+   bf16.  Every request done with its tokens, every logit finite; the
+   float32 model decodes token 512 after a 512-token prefill within
+   1e-4 of the float32 forward's column; the bf16 decode correlates
+   above 0.999 with the bf16 forward's column (an MoE whose bf16
+   routing parts from the forward's: no further from the float32
+   column than 2x the bf16 forward's); prefill and decode-step ms
+   (CUDA events), tokens/s and their bounds, a ``torch.profiler`` split
+   of one decode step and one prefill; the launch counts stay 0 (no FFT
+   kernel on the path);
+15. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -134,7 +148,7 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-15. holds each kernel against its plain version at every shape the main
+16. holds each kernel against its plain version at every shape the main
    path (P1-P14), the backends nodes, the sweeps, the serving phase and
    the distributed phase launched it with
    (radix 8 and the default tile, both directions; fftconv against its
@@ -146,7 +160,7 @@
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
    tile and the dft kernel's direct product at 512 MiB shapes
    (``EXTRA_TIMING``);
-16. prints the kernel summary (the distributed nodes' launches counted
+17. prints the kernel summary (the distributed nodes' launches counted
    in) and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -424,6 +438,24 @@ DIST_WARMUPS, DIST_REPS = 1, 1
 #: Forwards under ``torch.profiler`` for a node's split (averaged).
 DIST_PROFILED = 3
 #: The ported kernels: (name, CUDA source, the TPU kernel it replaces).
+#: The LM serving phase: (label, architecture, slots, max_len, requests,
+#: prompt tokens, new tokens), each at the config's full width in its
+#: compute dtype.  L1 serves two waves through 8 slots (the refill path);
+#: L2 puts the MoE layer at its published width on the card.
+LM_CELLS = (("L1", "qwen3-1.7b", 8, 1024, 16, 512, 64),
+            ("L2", "granite-moe-1b-a400m", 8, 1024, 8, 512, 16))
+#: float32 decode after a prefill against the float32 forward's column
+LM_F32_TOL = 1e-4
+#: bf16 decode logits against the bf16 forward's column (the reference's
+#: ``tests/test_arch_smoke.py`` bar)
+LM_BF16_CORR = 0.999
+#: an MoE decode whose bf16 routing differs from the forward's: its
+#: distance from the float32 column over the bf16 forward's, at most
+LM_MOE_BF16_RATIO = 2.0
+#: decode steps and prefills profiled per cell
+LM_PROFILED = 3
+#: H100 SXM dense bf16 tensor-core peak, the prefill bound's rate
+BF16_FLOPS = 989e12
 KERNELS = (
     ("stockham_pallas", "src/repro_torch/csrc/stockham.cu",
      "src/repro/kernels/stockham_pallas/stockham_pallas.py:177"),
@@ -3014,6 +3046,301 @@ def run_distributed(device) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+def _lm_events(fn):
+    """Call ``fn`` between two recorded CUDA events; returns its result
+    and the (start, stop) pair, read after the run."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    return out, (start, stop)
+
+
+def _lm_watch(model, finite: list) -> None:
+    """Record, on the device, whether every logit of each prefill and
+    decode step the engine runs is finite (read after the run)."""
+    import torch
+
+    def watch(fn):
+        def wrapped(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return wrapped
+    model.prefill = watch(model.prefill)
+    model.decode_step = watch(model.decode_step)
+
+
+class _LastRoutes:
+    """While open, records each MoE layer's routing of the last token of
+    its input: the set of its top-k experts."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.rows = moe, moe._route, []
+        moe._route = self._route
+
+    def _route(self, router_w, x, top_k):
+        out = self.real(router_w, x, top_k)
+        self.rows.append(set(out[0][-1].tolist()))
+        return out
+
+    def close(self) -> list:
+        self.moe._route = self.real
+        return self.rows
+
+
+def _lm_checks(device, label, cfg, params32, params16, prompt,
+               token) -> tuple[dict, list]:
+    """The float32 model (the engine's weights before the cast) decodes
+    token ``len(prompt)`` after a prefill of ``prompt``, against column
+    ``len(prompt)`` of the float32 forward (``LM_F32_TOL``, the same
+    routing in every MoE layer); the bf16 forward against the float32 one
+    (rel-L2, the share of positions whose argmax agrees); the bf16 decode
+    against the bf16 forward's column, whose correlation must exceed
+    ``LM_BF16_CORR``.  An MoE config runs with its capacity raised to
+    n_experts / top_k, where no pass drops a token.  Its top-k routing is
+    discontinuous, so where the bf16 decode routes the token to other
+    experts than the bf16 forward in some layer, the bar is instead that
+    the bf16 decode be no further from the float32 column than
+    ``LM_MOE_BF16_RATIO`` times the bf16 forward's column is.  Returns
+    the numbers and the failed checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import Model
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+    s = prompt.shape[0]
+    seq = torch.from_numpy(np.append(prompt, token).astype(np.int32))
+    seq = seq[None].to(device)
+    out, fwd, dec, differ = {}, {}, {}, {}
+    for name, dtype, params in (("f32", torch.float32, params32),
+                                ("bf16", torch.bfloat16, params16)):
+        model = Model(dataclasses.replace(cfg, dtype=dtype), device=device)
+        with torch.inference_mode():
+            routes = _LastRoutes()
+            try:
+                full, _, _ = model.forward(params, seq)
+            finally:
+                full_routes = routes.close()
+            cache = model.init_cache(1, s + 8)
+            _, cache = model.prefill(params, seq[:, :s], cache)
+            routes = _LastRoutes()
+            try:
+                step, _ = model.decode_step(params, seq[:, s:], cache, s)
+            finally:
+                dec_routes = routes.close()
+        if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
+            raise AssertionError(f"{label} {name}: non-finite logits")
+        fwd[name], dec[name] = full[0].float(), step[0, 0].float()
+        differ[name] = [i for i, (a, b) in
+                        enumerate(zip(full_routes, dec_routes)) if a != b]
+        out[f"{name}_route_layers_differ"] = differ[name]
+    col32, col16 = fwd["f32"][s], fwd["bf16"][s]
+    out["f32_decode_vs_forward_rel_l2"] = rel_l2(dec["f32"], col32)
+    out["bf16_decode_vs_forward_corr"] = float(np.corrcoef(
+        dec["bf16"].cpu().numpy(), col16.cpu().numpy())[0, 1])
+    out["bf16_decode_vs_f32_column_rel_l2"] = rel_l2(dec["bf16"], col32)
+    out["bf16_forward_vs_f32_column_rel_l2"] = rel_l2(col16, col32)
+    out["bf16_vs_f32_forward_rel_l2"] = rel_l2(fwd["bf16"], fwd["f32"])
+    out["bf16_vs_f32_argmax_agree"] = float(
+        (fwd["bf16"].argmax(-1) == fwd["f32"].argmax(-1)).float().mean())
+    failed = []
+    if differ["f32"]:
+        failed.append(f"float32 decode routes apart from the forward in "
+                      f"layers {differ['f32']}")
+    if not out["f32_decode_vs_forward_rel_l2"] <= LM_F32_TOL:
+        failed.append(f"float32 decode against forward "
+                      f"{out['f32_decode_vs_forward_rel_l2']:.3e} > "
+                      f"{LM_F32_TOL}")
+    if differ["bf16"]:
+        if not out["bf16_decode_vs_f32_column_rel_l2"] <= LM_MOE_BF16_RATIO \
+                * out["bf16_forward_vs_f32_column_rel_l2"]:
+            failed.append(f"bf16 decode {out['bf16_decode_vs_f32_column_rel_l2']:.3e}"
+                          f" from the float32 column, over "
+                          f"{LM_MOE_BF16_RATIO} x the bf16 forward's "
+                          f"{out['bf16_forward_vs_f32_column_rel_l2']:.3e}")
+    elif not out["bf16_decode_vs_forward_corr"] > LM_BF16_CORR:
+        failed.append(f"bf16 decode against forward correlation "
+                      f"{out['bf16_decode_vs_forward_corr']} <= "
+                      f"{LM_BF16_CORR}")
+    return out, failed
+
+
+def _lm_profile(fn, reps: int) -> dict:
+    """``fn`` run ``reps`` times under ``torch.profiler`` (CPU and CUDA
+    activity): per call, the wall ms (host clock to a synchronize), the
+    device ms (the CUDA events' self time), the device events and the
+    heaviest five."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy, count, top = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA \
+                or e.key == "Activity Buffer Request":
+            continue
+        busy += e.self_device_time_total / 1e3 / reps
+        count += e.count
+        top[e.key[:60]] = e.self_device_time_total / 1e3 / reps
+    if not busy:
+        raise AssertionError("torch.profiler saw no device time")
+    return {"wall_ms": wall, "device_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "device_events": count / reps,
+            "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:5])}
+
+
+def _lm_cell(device, label, arch, slots, max_len, n_requests, prompt_len,
+             max_new) -> dict:
+    """One architecture at full width: float32 weights from a seeded
+    generator on the card, ``ServeEngine`` (weights cast once to bf16)
+    over ``main``'s prompts (``rng.integers``, seed 0), ``main``'s loop;
+    each prefill and decode step timed by CUDA events; then the checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+    from repro_torch.roofline.analysis import active_params
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model32 = Model(dataclasses.replace(cfg, dtype=torch.float32),
+                    device=device)
+    params32 = model32.init_params(torch.Generator(device).manual_seed(0))
+    model = Model(cfg, device=device)
+    engine = ServeEngine(model, params32, slots, max_len)
+    finite: list = []
+    _lm_watch(model, finite)
+    n_params = sum(p.numel() for p in params32.parameters())
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    queue = [Request(i, rng.integers(0, cfg.vocab_size,
+                                     (prompt_len,)).astype(np.int32),
+                     max_new) for i in range(n_requests)]
+    prefills, decodes = [], []
+    pending = list(queue)
+    steps = 0
+    torch.cuda.synchronize(device)
+    t_serve = time.perf_counter()
+    while pending or any(r is not None for r in engine.active):
+        while pending and None in engine.active:
+            ok, ev = _lm_events(lambda: engine.submit(pending[0]))
+            if not ok:
+                raise AssertionError(f"{label}: a free slot refused")
+            prefills.append(ev)
+            pending.pop(0)
+        _, ev = _lm_events(engine.step)
+        decodes.append(ev)
+        steps += 1
+        if steps > 10_000:
+            raise AssertionError(f"{label}: the engine does not finish")
+    torch.cuda.synchronize(device)
+    serve_s = time.perf_counter() - t_serve
+    if not all(r.done and len(r.out) == max_new for r in queue):
+        raise AssertionError(f"{label}: requests not done with {max_new} "
+                             f"tokens: {[len(r.out) for r in queue]}")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{label}: a non-finite logit while serving")
+    del model.prefill, model.decode_step       # the watch's wrappers
+    tokens = torch.from_numpy(engine.next_tok).to(device)
+    prompt = torch.from_numpy(queue[0].prompt)[None].to(device)
+    with torch.inference_mode():
+        profiled = {
+            "decode": _lm_profile(lambda: model.decode_step(
+                engine.params, tokens, engine.cache, prompt_len + max_new),
+                LM_PROFILED),
+            "prefill": _lm_profile(lambda: engine._prefill_one(prompt, 0),
+                                   LM_PROFILED)}
+    prefill_ms = statistics.median(a.elapsed_time(b) for a, b in prefills)
+    decode_ms = statistics.median(a.elapsed_time(b) for a, b in decodes)
+    n_tokens = sum(len(r.out) for r in queue)
+
+    total, active = active_params(cfg)
+    tables = cfg.vocab_size * cfg.d_model * max(cfg.n_codebooks, 1)
+    cache_bytes = sum(c.numel() * c.element_size()
+                      for c in engine.cache.values())
+    bpe = torch.finfo(cfg.dtype).bits // 8
+    # decode: the bf16 weights a token uses (the unembedding's table
+    # once) and the whole cache, which the dense decode reads
+    decode_bound_ms = ((active + tables) * bpe + cache_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    decode_bound_all_ms = ((total + tables) * bpe + cache_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    # prefill: 2 N_active flops a token and the last token's unembedding
+    prefill_bound_ms = (2 * active * prompt_len + 2 * tables) \
+        / BF16_FLOPS * 1e3
+    row = {"lm_serve": label, "arch": arch, "dtype": str(cfg.dtype),
+           "params": n_params, "active_params": active,
+           "f32_weight_gb": n_params * 4 / 1e9,
+           "bf16_weight_gb": n_params * bpe / 1e9,
+           "cache_gb": cache_bytes / 1e9, "slots": slots,
+           "max_len": max_len, "requests": n_requests,
+           "prompt_len": prompt_len, "max_new": max_new,
+           "engine_steps": steps, "tokens": n_tokens,
+           "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound_ms,
+           "prefill_over_bound": prefill_ms / prefill_bound_ms,
+           "decode_step_ms": decode_ms, "decode_bound_ms": decode_bound_ms,
+           "decode_over_bound": decode_ms / decode_bound_ms,
+           "decode_bound_all_experts_ms": decode_bound_all_ms,
+           "tokens_per_s": n_tokens / serve_s, "serve_s": serve_s,
+           "setup_s": setup_s, "profiled": profiled, **card_info()}
+    t_checks = time.perf_counter()
+    checks, failed = _lm_checks(device, label, cfg, params32, engine.params,
+                                queue[0].prompt, int(queue[0].out[0]))
+    row.update(checks)
+    row["checks_s"] = time.perf_counter() - t_checks
+    emit(row)
+    if failed:
+        raise AssertionError(f"{label}: {'; '.join(failed)}")
+    return row
+
+
+def run_lm_serve(device) -> dict:
+    """The LM serving slice on the card: each of ``LM_CELLS`` at full
+    width (``_lm_cell``), with the launch counts set to 0 just before and
+    read just after (the LM path launches no FFT kernel).  TF32 must be
+    off, as torch's default is, for the float32 checks."""
+    import gc
+
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks "
+                             "need full float32 products")
+    _reset_counts()
+    rows = {}
+    for label, arch, slots, max_len, n, prompt_len, max_new in LM_CELLS:
+        rows[label] = _lm_cell(device, label, arch, slots, max_len, n,
+                               prompt_len, max_new)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = {k: c for k, (c, _) in _read_counts().items() if c}
+    if launched:
+        raise AssertionError(f"the LM path launched FFT kernels: {launched}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3069,6 +3396,9 @@ def main() -> int:
     t_dist = time.perf_counter()
     dist_path = run_distributed(device)
     emit({"dist_phase_s": time.perf_counter() - t_dist})
+    t_lm = time.perf_counter()
+    run_lm_serve(device)
+    emit({"lm_serve_phase_s": time.perf_counter() - t_lm})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     for kernel, n in dist_path["launches"].items():

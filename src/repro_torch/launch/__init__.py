@@ -1,1 +1,2 @@
-"""Launch-side helpers: the rank meshes distributed transforms run on."""
+"""Launch-side entry points: the rank meshes distributed transforms run
+on, and the LM serving engine."""

@@ -1,1 +1,2 @@
-"""Roofline models of the port: the FFT envelope of each device."""
+"""Roofline models of the port: the FFT envelope of each device and the
+LM formulas."""

@@ -1,16 +1,22 @@
-"""The FFT roofline: modeled flops, per-device peaks and the achieved
-fraction of whichever wall binds.
+"""Roofline models: the FFT's modeled flops, per-device peaks and the
+achieved fraction of whichever wall binds; the LM workloads' parameter
+and flop counts.
 
 The reference package's ``roofline/analysis.py`` FFT part, with the
-H100's envelope in place of the TPUs' (its LM formulas are not ported).
-The H100 entry is the SXM data sheet's dense float32 rate outside the
-tensor cores and its HBM3 rate, the same peaks ``chip_smoke.py`` bounds
-every kernel by.
+H100's envelope in place of the TPUs'.  The H100 entry is the SXM data
+sheet's dense float32 rate outside the tensor cores and its HBM3 rate, the
+same peaks ``chip_smoke.py`` bounds every kernel by.
+
+Also the reference's LM formulas: ``active_params`` (parameters a token
+uses, embeddings excluded) and ``model_flops`` (6·N·D for a training
+step, 2·N·D for inference), for every block kind.
 """
 
 from __future__ import annotations
 
 import math
+
+from repro_torch.configs.base import SHAPES, get_config
 
 #: Per-device (peak FLOP/s, HBM bytes/s) envelopes for the FFT roofline,
 #: keyed by a lowercase prefix of the device kind
@@ -61,3 +67,75 @@ def fft_roofline_frac(time_ms: float, flops: float, bytes_moved: float,
     if bytes_moved and bytes_moved > 0 and bytes_moved != float("inf"):
         terms.append(bytes_moved / hbm_bw)
     return max(terms) / (time_ms * 1e-3)
+
+
+def active_params(cfg) -> tuple[float, float]:
+    """(total_params, active_params) excluding embeddings (6ND convention)."""
+    d = cfg.d_model
+    kind = cfg.block_kind
+
+    def attn_p():
+        if cfg.kv_lora_rank:
+            hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+            return (d * cfg.n_heads * hd + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                    + cfg.kv_lora_rank * cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)
+                    + cfg.n_heads * cfg.v_head_dim * d)
+        return (d * cfg.n_heads * cfg.head_dim + 2 * d * cfg.n_kv_heads * cfg.head_dim
+                + cfg.n_heads * cfg.head_dim * d)
+
+    def mlp_p(dff):
+        return (3 if cfg.mlp_gated else 2) * d * dff
+
+    total = active = 0.0
+    if kind in ("gqa", "gemma", "musicgen"):
+        per = attn_p() + mlp_p(cfg.d_ff)
+        total = active = cfg.n_layers * per
+    elif kind == "gqa_moe":
+        ex = 3 * d * cfg.d_ff_expert
+        per_t = attn_p() + cfg.n_experts * ex
+        per_a = attn_p() + cfg.top_k * ex
+        total, active = cfg.n_layers * per_t, cfg.n_layers * per_a
+    elif kind == "mla_moe":
+        ex = 3 * d * cfg.d_ff_expert
+        shared = 3 * d * cfg.d_ff_expert * max(cfg.n_shared_experts, 1)
+        nd_ = cfg.first_dense_layers
+        nm = cfg.n_layers - nd_
+        total = nd_ * (attn_p() + mlp_p(cfg.d_ff_dense)) + \
+            nm * (attn_p() + cfg.n_experts * ex + shared)
+        active = nd_ * (attn_p() + mlp_p(cfg.d_ff_dense)) + \
+            nm * (attn_p() + cfg.top_k * ex + shared)
+    elif kind == "vlm":
+        def cross_attn_p():
+            # q/out over d, k/v from image embeds of width d
+            return (d * cfg.n_heads * cfg.head_dim
+                    + 2 * d * cfg.n_kv_heads * cfg.head_dim
+                    + cfg.n_heads * cfg.head_dim * d)
+        # every cross_every-th decoder layer is cross-attention
+        n_cross = cfg.n_layers // cfg.cross_every if cfg.cross_every else 0
+        n_self = cfg.n_layers - n_cross
+        per_self = attn_p() + mlp_p(cfg.d_ff)
+        per_cross = cross_attn_p() + mlp_p(cfg.d_ff)
+        total = active = n_self * per_self + n_cross * per_cross
+    elif kind == "xlstm":
+        di = 2 * d
+        per_m = 2 * d * di + 3 * di * di + di * d + 2 * di
+        per_s = 4 * d * d + 4 * d * (d // cfg.n_heads) + 2 * d * int(d * 4 / 3)
+        total = active = (cfg.n_layers // 2) * (per_m + per_s)
+    elif kind == "hymba":
+        di = cfg.d_inner
+        mamba = 2 * d * di + di * (2 * cfg.ssm_state) + di * max(1, d // 16) * 2 + di * d
+        per = attn_p() + mamba + mlp_p(cfg.d_ff)
+        total = active = cfg.n_layers * per
+    return total, active
+
+
+def model_flops(arch: str, shape: str) -> float:
+    """6*N_active*D for train (fwd+bwd); 2*N_active*D for inference steps."""
+    cfg = get_config(arch)
+    sp = SHAPES[shape]
+    _, act = active_params(cfg)
+    if sp.mode == "train":
+        return 6.0 * act * sp.global_batch * sp.seq_len
+    if sp.mode == "prefill":
+        return 2.0 * act * sp.global_batch * sp.seq_len
+    return 2.0 * act * sp.global_batch  # one new token per sequence

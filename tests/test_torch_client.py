@@ -379,6 +379,17 @@ def test_port_imports_neither_jax_nor_the_reference():
         "         'repro_torch.benchmarks.table_serve']\n"
         "need += ['repro_torch.launch.mesh', 'repro_torch.fft.distributed',\n"
         "         'repro_torch.core.clients.dist_fft']\n"
+        "need += ['repro_torch.configs.base', 'repro_torch.data.pipeline',\n"
+        "         'repro_torch.launch.serve']\n"
+        "need += ['repro_torch.configs.' + c for c in (\n"
+        "    'granite_moe_1b_a400m', 'deepseek_v2_lite_16b', 'gemma3_27b',\n"
+        "    'starcoder2_7b', 'qwen3_1_7b', 'internlm2_20b',\n"
+        "    'llama_3_2_vision_90b', 'xlstm_350m', 'hymba_1_5b',\n"
+        "    'musicgen_medium')]\n"
+        "need += ['repro_torch.models.' + m for m in (\n"
+        "    'layers', 'attention', 'moe', 'model', 'convert')]\n"
+        "from repro_torch.roofline import analysis\n"
+        "assert callable(analysis.active_params) and callable(analysis.model_flops)\n"
         "from repro_torch.benchmarks import bench_grid\n"
         "assert callable(bench_grid._run_serve) and callable(bench_grid._run_chaos)\n"
         "assert all(n in sys.modules for n in need), need\n"

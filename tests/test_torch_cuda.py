@@ -736,3 +736,83 @@ def test_dist_transforms_on_a_one_rank_nccl_group(cuda_device, natural):
     assert rel_l2(ys, torch.fft.fftn(xs, dim=(1, 2, 3))) \
         <= LIBRARY_TOL[torch.complex128]
     assert rel_l2(inv(ys), xs) <= LIBRARY_TOL[torch.complex128]
+
+
+def _lm_pair(arch, device):
+    """A reduced float32 model on the CPU and a copy of its weights on the
+    card."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(arch).reduced(n_layers=2),
+                              dtype=torch.float32)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator("cpu").manual_seed(0))
+    return cpu, params, Model(cfg, device=device), \
+        copy.deepcopy(params).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_lm_decoder_on_card_is_the_cpu(cuda_device, arch):
+    """forward, prefill and two decode steps on ``cuda:0`` against the same
+    float32 model on the CPU (rel-L2 <= 1e-5; TF32 stays off)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu, params, card, on_card = _lm_pair(arch, cuda_device)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cpu.cfg.vocab_size, (2, 20)).astype(np.int32))
+    want, _, _ = cpu.forward(params, tok)
+    got, _, _ = card.forward(on_card, tok.to(cuda_device))
+    assert got.device == cuda_device and rel_l2(got.cpu(), want) <= 1e-5
+    c_cpu, c_card = cpu.init_cache(2, 32), card.init_cache(2, 32)
+    assert c_card["k"].device == cuda_device
+    want, c_cpu = cpu.prefill(params, tok[:, :18], c_cpu)
+    got, c_card = card.prefill(on_card, tok[:, :18].to(cuda_device), c_card)
+    assert rel_l2(got.cpu(), want) <= 1e-5
+    for t in (18, 19):
+        want, c_cpu = cpu.decode_step(params, tok[:, t:t + 1], c_cpu, t)
+        got, c_card = card.decode_step(on_card,
+                                       tok[:, t:t + 1].to(cuda_device),
+                                       c_card, t)
+        assert rel_l2(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lm_serve_engine_on_card(cuda_device):
+    """``ServeEngine`` on the card (bf16 weights cast once, the cache on
+    the card) completes every request; in float32 its greedy streams are
+    the CPU engine's."""
+    import dataclasses
+
+    from repro_torch.launch.serve import Request, ServeEngine
+
+    cpu, params, card, on_card = _lm_pair("qwen3-1.7b", cuda_device)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (5, 9, 3, 7, 4)]
+    streams = []
+    for model, p in ((cpu, params), (card, on_card)):
+        engine = ServeEngine(model, p, batch_slots=2, max_len=32)
+        assert engine.cache["k"].device == model.device
+        reqs = [Request(i, q, 4) for i, q in enumerate(prompts)]
+        pending = list(reqs)
+        for _ in range(100):
+            while pending and engine.submit(pending[0]):
+                pending.pop(0)
+            if engine.step() == 0 and not pending:
+                break
+        assert all(r.done and len(r.out) == 4 for r in reqs)
+        streams.append([[int(t) for t in r.out] for r in reqs])
+    assert streams[0] == streams[1]
+    bf16 = dataclasses.replace(card.cfg, dtype=torch.bfloat16)
+    engine = ServeEngine(type(card)(bf16, device=cuda_device), on_card,
+                         batch_slots=2, max_len=32)
+    assert engine.params.layers[0].attn.wq.w.dtype == torch.bfloat16
+    req = Request(0, prompts[0], 6)
+    assert engine.submit(req)
+    while engine.step():
+        pass
+    assert req.done and len(req.out) == 6
