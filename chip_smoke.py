@@ -128,17 +128,29 @@
 14. serves the LM path (``repro_torch.launch.serve``) at full width in
    bf16 on ``cuda:0`` (``LM_CELLS``): L1, qwen3-1.7b, 16 requests of 512
    tokens through ``ServeEngine``'s 8 slots (two waves: the refill), 64
-   new tokens each; L2, granite-moe-1b-a400m, 8 requests, 16 new; the
-   weights float32 from a seeded generator on the card, cast once to
-   bf16.  Every request done with its tokens, every logit finite; the
-   float32 model decodes token 512 after a 512-token prefill within
-   1e-4 of the float32 forward's column; the bf16 decode correlates
-   above 0.999 with the bf16 forward's column (an MoE whose bf16
-   routing parts from the forward's: no further from the float32
-   column than 2x the bf16 forward's); prefill and decode-step ms
-   (CUDA events), tokens/s and their bounds, a ``torch.profiler`` split
-   of one decode step and one prefill; the launch counts stay 0 (no FFT
-   kernel on the path);
+   new tokens each; L2, granite-moe-1b-a400m, 8 requests, 16 new; L3,
+   hymba-1.5b (32 layers, 128 meta tokens, the 1024 window binding), 8
+   requests of 1024, 32 new, max_len 2048; L4, xlstm-350m (24 layers),
+   16 requests of 256 (two waves: the refill scatters the recurrent
+   states), 32 new; L5, deepseek-v2-lite-16b cut to 9 of its 27 layers
+   (1 dense + 8 MoE, MLA's absorbed cache), 8 requests of 512, 16 new; L6,
+   llama-3.2-vision-90b cut to one unit (4 self layers and the gated cross
+   layer, its gate set nonzero), through ``Model.prefill`` /
+   ``decode_step`` with seeded image embeddings (the engine passes none),
+   batch 4, prompt 256, 16 steps.  The weights float32 from a seeded
+   generator on the card, cast once to bf16.  Every request done with
+   its tokens, every logit finite; the float32 model decodes the token
+   after a prefill of the first prompt within 1e-4 of the float32
+   forward's column; the bf16 decode correlates above 0.999 with the bf16
+   forward's column (an MoE whose bf16 routing parts from the forward's:
+   no further from the float32 column than 2x the bf16 forward's; xlstm's
+   recurrent decode against its chunked forward also with a largest
+   difference under the bf16 forward's own from the float32 column: the
+   reference's max abs < 0.5, "bf16-scale noise", at this model's scale);
+   prefill and decode-step ms (CUDA events), tokens/s and their bounds
+   (a recurrent state read and written once a step), a ``torch.profiler``
+   split of one decode step and one prefill; the launch counts stay 0
+   (no FFT kernel on the path);
 15. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
@@ -438,12 +450,28 @@ DIST_WARMUPS, DIST_REPS = 1, 1
 #: Forwards under ``torch.profiler`` for a node's split (averaged).
 DIST_PROFILED = 3
 #: The ported kernels: (name, CUDA source, the TPU kernel it replaces).
-#: The LM serving phase: (label, architecture, slots, max_len, requests,
-#: prompt tokens, new tokens), each at the config's full width in its
-#: compute dtype.  L1 serves two waves through 8 slots (the refill path);
-#: L2 puts the MoE layer at its published width on the card.
-LM_CELLS = (("L1", "qwen3-1.7b", 8, 1024, 16, 512, 64),
-            ("L2", "granite-moe-1b-a400m", 8, 1024, 8, 512, 16))
+#: The LM serving phase: (label, architecture, layers (None: all), slots,
+#: max_len, requests, prompt tokens, new tokens), each at the config's
+#: full width in its compute dtype.  L1 serves two waves through 8 slots
+#: (the refill path); L2 puts the MoE layer at its published width on the
+#: card; L3's 1024-token prompts and 128 meta tokens pass hymba's 1024
+#: window; L4 refills slots with recurrent states; L5 and L6 are cut in
+#: depth so that the float32 weights and their bf16 cast fit in 80 GB
+#: with the checks (deepseek's 27 layers: 62 + 31 GB; one vision unit:
+#: 26 + 13 GB).  L6 (``vlm``) runs through ``Model`` with image
+#: embeddings, since the engine passes none; its slots are the batch.
+LM_CELLS = (("L1", "qwen3-1.7b", None, 8, 1024, 16, 512, 64),
+            ("L2", "granite-moe-1b-a400m", None, 8, 1024, 8, 512, 16),
+            ("L3", "hymba-1.5b", None, 8, 2048, 8, 1024, 32),
+            ("L4", "xlstm-350m", None, 8, 1024, 16, 256, 32),
+            ("L5", "deepseek-v2-lite-16b", 9, 8, 1024, 8, 512, 16),
+            ("L6", "llama-3.2-vision-90b", 5, 4, 272, 4, 256, 16))
+#: the vlm's cross gate on the card (its init, 0, makes the layer add
+#: nothing)
+LM_CROSS_GATE = 0.7
+#: cache leaves a dense decode reads whole; every other leaf is a
+#: recurrent state, read and written once a step
+LM_ATTENTION_LEAVES = ("k", "v", "c_kv", "k_rope")
 #: float32 decode after a prefill against the float32 forward's column
 LM_F32_TOL = 1e-4
 #: bf16 decode logits against the bf16 forward's column (the reference's
@@ -452,7 +480,9 @@ LM_BF16_CORR = 0.999
 #: an MoE decode whose bf16 routing differs from the forward's: its
 #: distance from the float32 column over the bf16 forward's, at most
 LM_MOE_BF16_RATIO = 2.0
-#: decode steps and prefills profiled per cell
+#: decode steps profiled per cell (a prefill is profiled once: xlstm's
+#: sLSTM loop gives 73k device events a prefill, whose post-processing
+#: took two minutes for three)
 LM_PROFILED = 3
 #: H100 SXM dense bf16 tensor-core peak, the prefill bound's rate
 BF16_FLOPS = 989e12
@@ -3092,8 +3122,8 @@ class _LastRoutes:
         return self.rows
 
 
-def _lm_checks(device, label, cfg, params32, params16, prompt,
-               token) -> tuple[dict, list]:
+def _lm_checks(device, label, cfg, params32, params16, prompt, token,
+               image=None) -> tuple[dict, list]:
     """The float32 model (the engine's weights before the cast) decodes
     token ``len(prompt)`` after a prefill of ``prompt``, against column
     ``len(prompt)`` of the float32 forward (``LM_F32_TOL``, the same
@@ -3105,8 +3135,17 @@ def _lm_checks(device, label, cfg, params32, params16, prompt,
     discontinuous, so where the bf16 decode routes the token to other
     experts than the bf16 forward in some layer, the bar is instead that
     the bf16 decode be no further from the float32 column than
-    ``LM_MOE_BF16_RATIO`` times the bf16 forward's column is.  Returns
-    the numbers and the failed checks."""
+    ``LM_MOE_BF16_RATIO`` times the bf16 forward's column is.  xlstm's
+    decode (the recurrent form) against its forward (the chunked form)
+    holds the correlation and the reference's max-abs bar ("bf16-scale
+    noise": max abs < 0.5 at d 64, vocab 256, ``tests/test_arch_smoke.py``)
+    in the scale of this model: the largest difference of the bf16 decode
+    from the bf16 forward's column must be under the largest difference of
+    that column from the float32 one.  It reports the difference in bf16
+    spacings at the column's largest logit and in standard deviations of
+    the column too.  ``image``:
+    the vlm's image embeddings of one row (bf16).  Returns the numbers and
+    the failed checks."""
     import dataclasses
 
     import numpy as np
@@ -3123,17 +3162,20 @@ def _lm_checks(device, label, cfg, params32, params16, prompt,
     for name, dtype, params in (("f32", torch.float32, params32),
                                 ("bf16", torch.bfloat16, params16)):
         model = Model(dataclasses.replace(cfg, dtype=dtype), device=device)
+        img = None if image is None else image.to(dtype)
         with torch.inference_mode():
             routes = _LastRoutes()
             try:
-                full, _, _ = model.forward(params, seq)
+                full, _, _ = model.forward(params, seq, image_embeds=img)
             finally:
                 full_routes = routes.close()
             cache = model.init_cache(1, s + 8)
-            _, cache = model.prefill(params, seq[:, :s], cache)
+            _, cache = model.prefill(params, seq[:, :s], cache,
+                                     image_embeds=img)
             routes = _LastRoutes()
             try:
-                step, _ = model.decode_step(params, seq[:, s:], cache, s)
+                step, _ = model.decode_step(params, seq[:, s:], cache, s,
+                                            image_embeds=img)
             finally:
                 dec_routes = routes.close()
         if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
@@ -3142,10 +3184,13 @@ def _lm_checks(device, label, cfg, params32, params16, prompt,
         differ[name] = [i for i, (a, b) in
                         enumerate(zip(full_routes, dec_routes)) if a != b]
         out[f"{name}_route_layers_differ"] = differ[name]
+        del model, cache, full, step
     col32, col16 = fwd["f32"][s], fwd["bf16"][s]
     out["f32_decode_vs_forward_rel_l2"] = rel_l2(dec["f32"], col32)
     out["bf16_decode_vs_forward_corr"] = float(np.corrcoef(
         dec["bf16"].cpu().numpy(), col16.cpu().numpy())[0, 1])
+    out["bf16_decode_vs_forward_max_abs"] = float(
+        (dec["bf16"] - col16).abs().max())
     out["bf16_decode_vs_f32_column_rel_l2"] = rel_l2(dec["bf16"], col32)
     out["bf16_forward_vs_f32_column_rel_l2"] = rel_l2(col16, col32)
     out["bf16_vs_f32_forward_rel_l2"] = rel_l2(fwd["bf16"], fwd["f32"])
@@ -3159,25 +3204,61 @@ def _lm_checks(device, label, cfg, params32, params16, prompt,
         failed.append(f"float32 decode against forward "
                       f"{out['f32_decode_vs_forward_rel_l2']:.3e} > "
                       f"{LM_F32_TOL}")
-    if differ["bf16"]:
-        if not out["bf16_decode_vs_f32_column_rel_l2"] <= LM_MOE_BF16_RATIO \
-                * out["bf16_forward_vs_f32_column_rel_l2"]:
-            failed.append(f"bf16 decode {out['bf16_decode_vs_f32_column_rel_l2']:.3e}"
-                          f" from the float32 column, over "
-                          f"{LM_MOE_BF16_RATIO} x the bf16 forward's "
-                          f"{out['bf16_forward_vs_f32_column_rel_l2']:.3e}")
-    elif not out["bf16_decode_vs_forward_corr"] > LM_BF16_CORR:
+    out["bf16_logit_std"] = float(col16.std())
+    out["bf16_column_max_abs_logit"] = float(col16.abs().max())
+    spacing = torch.finfo(torch.bfloat16).eps \
+        * 2.0 ** math.floor(math.log2(out["bf16_column_max_abs_logit"]))
+    out["bf16_spacing_at_column_max"] = spacing
+    out["bf16_decode_vs_forward_max_abs_spacings"] = \
+        out["bf16_decode_vs_forward_max_abs"] / spacing
+    out["bf16_decode_vs_forward_max_abs_per_std"] = \
+        out["bf16_decode_vs_forward_max_abs"] / out["bf16_logit_std"]
+    out["bf16_forward_vs_f32_column_max_abs"] = float(
+        (col16 - col32).abs().max())
+    if cfg.block_kind == "xlstm" and not \
+            out["bf16_decode_vs_forward_max_abs"] \
+            < out["bf16_forward_vs_f32_column_max_abs"]:
+        failed.append(f"bf16 decode against forward max abs "
+                      f"{out['bf16_decode_vs_forward_max_abs']} not under "
+                      f"the bf16 forward's against float32 "
+                      f"{out['bf16_forward_vs_f32_column_max_abs']}")
+    if differ["bf16"] and not out["bf16_decode_vs_f32_column_rel_l2"] \
+            <= LM_MOE_BF16_RATIO * out["bf16_forward_vs_f32_column_rel_l2"]:
+        failed.append(f"bf16 decode {out['bf16_decode_vs_f32_column_rel_l2']:.3e}"
+                      f" from the float32 column, over "
+                      f"{LM_MOE_BF16_RATIO} x the bf16 forward's "
+                      f"{out['bf16_forward_vs_f32_column_rel_l2']:.3e}")
+    if not differ["bf16"] and \
+            not out["bf16_decode_vs_forward_corr"] > LM_BF16_CORR:
         failed.append(f"bf16 decode against forward correlation "
                       f"{out['bf16_decode_vs_forward_corr']} <= "
                       f"{LM_BF16_CORR}")
     return out, failed
 
 
+def _lm_device_events(prof) -> list:
+    """(name, ms) of each device event of a finished ``torch.profiler``
+    run.  It reads kineto's raw events (checked on torch 2.x): the public
+    ``events()`` / ``key_averages()`` build a Python event for every host
+    op too, which took 50 s for one xlstm prefill (70k kernels).  Without
+    them it falls back to the public list."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof.profiler, "kineto_results", None), "events",
+                  None)
+    if raw is None:
+        return [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name(), e.duration_ns() / 1e6) for e in raw()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def _lm_profile(fn, reps: int) -> dict:
     """``fn`` run ``reps`` times under ``torch.profiler`` (CPU and CUDA
     activity): per call, the wall ms (host clock to a synchronize), the
-    device ms (the CUDA events' self time), the device events and the
-    heaviest five."""
+    device ms (the device events' durations), the device events and the
+    heaviest five names.  Where ``reps`` > 1 (the decode steps, a few
+    thousand events) the device ms is read through ``key_averages()`` as
+    well, and the two readings must agree within 5%."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3191,59 +3272,52 @@ def _lm_profile(fn, reps: int) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     busy, count, top = 0.0, 0, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA \
-                or e.key == "Activity Buffer Request":
+    for name, ms in _lm_device_events(prof):
+        if name == "Activity Buffer Request":
             continue
-        busy += e.self_device_time_total / 1e3 / reps
-        count += e.count
-        top[e.key[:60]] = e.self_device_time_total / 1e3 / reps
+        busy += ms / reps
+        count += 1
+        top[name[:60]] = top.get(name[:60], 0.0) + ms / reps
     if not busy:
         raise AssertionError("torch.profiler saw no device time")
-    return {"wall_ms": wall, "device_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "device_events": count / reps,
-            "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:5])}
+    out = {"wall_ms": wall, "device_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "device_events": count / reps,
+           "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:5])}
+    if reps > 1:
+        out["device_ms_key_averages"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.key != "Activity Buffer Request") / 1e3 / reps
+        if not abs(out["device_ms_key_averages"] - busy) <= 0.05 * busy:
+            raise AssertionError(
+                f"device ms {busy} from the raw events, "
+                f"{out['device_ms_key_averages']} from key_averages()")
+    return out
 
 
-def _lm_cell(device, label, arch, slots, max_len, n_requests, prompt_len,
-             max_new) -> dict:
-    """One architecture at full width: float32 weights from a seeded
-    generator on the card, ``ServeEngine`` (weights cast once to bf16)
-    over ``main``'s prompts (``rng.integers``, seed 0), ``main``'s loop;
-    each prefill and decode step timed by CUDA events; then the checks."""
-    import dataclasses
+def _lm_cache_bytes(cache: dict) -> tuple[int, int]:
+    """(bytes of the attention caches, which a dense decode reads whole;
+    bytes of the recurrent states, which a step reads and writes)."""
+    attention = state = 0
+    for name, leaf in cache.items():
+        if isinstance(leaf, dict):
+            a, b = _lm_cache_bytes(leaf)
+            attention, state = attention + a, state + b
+        elif name in LM_ATTENTION_LEAVES:
+            attention += leaf.numel() * leaf.element_size()
+        else:
+            state += leaf.numel() * leaf.element_size()
+    return attention, state
 
-    import numpy as np
-    import torch
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch.serve import Request, ServeEngine
-    from repro_torch.models.model import Model
-    from repro_torch.roofline.analysis import active_params
-
-    t0 = time.perf_counter()
-    cfg = get_config(arch)
-    model32 = Model(dataclasses.replace(cfg, dtype=torch.float32),
-                    device=device)
-    params32 = model32.init_params(torch.Generator(device).manual_seed(0))
-    model = Model(cfg, device=device)
-    engine = ServeEngine(model, params32, slots, max_len)
-    finite: list = []
-    _lm_watch(model, finite)
-    n_params = sum(p.numel() for p in params32.parameters())
-    torch.cuda.synchronize(device)
-    setup_s = time.perf_counter() - t0
-
-    rng = np.random.default_rng(0)
-    queue = [Request(i, rng.integers(0, cfg.vocab_size,
-                                     (prompt_len,)).astype(np.int32),
-                     max_new) for i in range(n_requests)]
+def _lm_engine_run(label, engine, queue, max_new):
+    """``main``'s loop over ``queue`` through ``ServeEngine``, each
+    prefill and decode step between CUDA events.  Returns (prefill
+    events, step events, steps)."""
     prefills, decodes = [], []
     pending = list(queue)
     steps = 0
-    torch.cuda.synchronize(device)
-    t_serve = time.perf_counter()
     while pending or any(r is not None for r in engine.active):
         while pending and None in engine.active:
             ok, ev = _lm_events(lambda: engine.submit(pending[0]))
@@ -3256,48 +3330,160 @@ def _lm_cell(device, label, arch, slots, max_len, n_requests, prompt_len,
         steps += 1
         if steps > 10_000:
             raise AssertionError(f"{label}: the engine does not finish")
-    torch.cuda.synchronize(device)
-    serve_s = time.perf_counter() - t_serve
     if not all(r.done and len(r.out) == max_new for r in queue):
         raise AssertionError(f"{label}: requests not done with {max_new} "
                              f"tokens: {[len(r.out) for r in queue]}")
+    return prefills, decodes, steps
+
+
+def _lm_model_run(model, params, tokens, cache, image, max_new):
+    """A batch through ``Model.prefill`` and ``max_new - 1`` greedy
+    ``decode_step``s (the vlm's path: the engine passes no image
+    embeddings), each between CUDA events.  Returns (prefill events, step
+    events, the generated tokens (B, max_new))."""
+    import torch
+    last, ev = _lm_events(lambda: model.prefill(params, tokens, cache,
+                                                image_embeds=image))
+    prefills, decodes = [ev], []
+    out = [last[0][:, -1].argmax(-1)]
+    pos = tokens.shape[1]
+    for _ in range(max_new - 1):
+        (logits, _), ev = _lm_events(lambda: model.decode_step(
+            params, out[-1][:, None].to(torch.int32), cache, pos,
+            image_embeds=image))
+        decodes.append(ev)
+        out.append(logits[:, -1].argmax(-1))
+        pos += 1
+    return prefills, decodes, torch.stack(out, dim=1)
+
+
+def _lm_cell(device, label, arch, n_layers, slots, max_len, n_requests,
+             prompt_len, max_new) -> dict:
+    """One architecture at full width (cut to ``n_layers`` where given):
+    float32 weights from a seeded generator on the card, cast once to
+    bf16; ``ServeEngine`` over ``main``'s prompts (``rng.integers``, seed
+    0) and ``main``'s loop, or for the vlm ``Model.prefill`` /
+    ``decode_step`` on a batch with seeded image embeddings; each prefill
+    and decode step timed by CUDA events; then the checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+    from repro_torch.roofline.analysis import active_params
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    vlm = cfg.block_kind == "vlm"
+    model32 = Model(dataclasses.replace(cfg, dtype=torch.float32),
+                    device=device)
+    gen = torch.Generator(device).manual_seed(0)
+    params32 = model32.init_params(gen)
+    if vlm:
+        for unit in params32.units:
+            unit.cross.gate.fill_(LM_CROSS_GATE)
+    model = Model(cfg, device=device)
+    finite: list = []
+    _lm_watch(model, finite)
+    n_params = sum(p.numel() for p in params32.parameters())
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (n_requests, prompt_len)).astype(np.int32)
+    image = None
+    if vlm:
+        image = torch.randn((slots, cfg.n_image_tokens, cfg.d_model),
+                            generator=gen, device=device).to(cfg.dtype)
+        params16 = model.cast_params(params32)
+        cache = model.init_cache(slots, max_len)
+    else:
+        engine = ServeEngine(model, params32, slots, max_len)
+        params16, cache = engine.params, engine.cache
+        queue = [Request(i, p, max_new) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+
+    t_serve = time.perf_counter()
+    if vlm:
+        tokens = torch.from_numpy(prompts).to(device)
+        with torch.inference_mode():
+            prefills, decodes, out = _lm_model_run(
+                model, params16, tokens, cache, image, max_new)
+        steps = len(decodes)
+        n_tokens = out.numel()
+        first = int(out[0, 0])
+    else:
+        prefills, decodes, steps = _lm_engine_run(label, engine, queue,
+                                                  max_new)
+        n_tokens = sum(len(r.out) for r in queue)
+        first = int(queue[0].out[0])
+    torch.cuda.synchronize(device)
+    serve_s = time.perf_counter() - t_serve
     if not bool(torch.stack(finite).all()):
         raise AssertionError(f"{label}: a non-finite logit while serving")
     del model.prefill, model.decode_step       # the watch's wrappers
-    tokens = torch.from_numpy(engine.next_tok).to(device)
-    prompt = torch.from_numpy(queue[0].prompt)[None].to(device)
+    prompt = torch.from_numpy(prompts[:1]).to(device)
+    pos = prompt_len + max_new - 1
+    t_profile = time.perf_counter()
     with torch.inference_mode():
-        profiled = {
-            "decode": _lm_profile(lambda: model.decode_step(
-                engine.params, tokens, engine.cache, prompt_len + max_new),
-                LM_PROFILED),
-            "prefill": _lm_profile(lambda: engine._prefill_one(prompt, 0),
-                                   LM_PROFILED)}
+        if vlm:
+            step_tokens = out[:, -1:].to(torch.int32)
+            profiled = {
+                "decode": _lm_profile(lambda: model.decode_step(
+                    params16, step_tokens, cache, pos, image_embeds=image),
+                    LM_PROFILED),
+                "prefill": _lm_profile(lambda: model.prefill(
+                    params16, tokens, cache, image_embeds=image), 1)}
+        else:
+            step_tokens = torch.from_numpy(engine.next_tok).to(device)
+            profiled = {
+                "decode": _lm_profile(lambda: model.decode_step(
+                    params16, step_tokens, cache, pos), LM_PROFILED),
+                "prefill": _lm_profile(lambda: engine._prefill_one(prompt,
+                                                                   0), 1)}
+    profile_s = time.perf_counter() - t_profile
     prefill_ms = statistics.median(a.elapsed_time(b) for a, b in prefills)
     decode_ms = statistics.median(a.elapsed_time(b) for a, b in decodes)
-    n_tokens = sum(len(r.out) for r in queue)
 
     total, active = active_params(cfg)
     tables = cfg.vocab_size * cfg.d_model * max(cfg.n_codebooks, 1)
-    cache_bytes = sum(c.numel() * c.element_size()
-                      for c in engine.cache.values())
+    attention_bytes, state_bytes = _lm_cache_bytes(cache)
     bpe = torch.finfo(cfg.dtype).bits // 8
+    # the vlm's cross layers read the image embeddings and project them
+    # to K and V at every call (the reference's way)
+    image_bytes = 0 if image is None else image.numel() * bpe
+    cross_flops = 0 if image is None else (
+        2 * image.shape[0] * cfg.n_image_tokens * cfg.d_model
+        * 2 * cfg.n_kv_heads * cfg.head_dim * (cfg.n_layers
+                                               // cfg.cross_every))
     # decode: the bf16 weights a token uses (the unembedding's table
-    # once) and the whole cache, which the dense decode reads
-    decode_bound_ms = ((active + tables) * bpe + cache_bytes) \
+    # once), the whole attention cache, which the dense decode reads, and
+    # each recurrent state read and written once
+    moved = attention_bytes + 2 * state_bytes + image_bytes
+    decode_bound_ms = ((active + tables) * bpe + moved) \
         / HBM_BYTES_PER_S * 1e3
-    decode_bound_all_ms = ((total + tables) * bpe + cache_bytes) \
+    decode_bound_all_ms = ((total + tables) * bpe + moved) \
         / HBM_BYTES_PER_S * 1e3
-    # prefill: 2 N_active flops a token and the last token's unembedding
-    prefill_bound_ms = (2 * active * prompt_len + 2 * tables) \
+    # prefill: 2 N_active flops a token (the meta tokens included) and the
+    # last token's unembedding, per request (the vlm: its batch at once)
+    rows = slots if vlm else 1
+    prefill_bound_ms = (rows * (2 * active * (prompt_len + cfg.n_meta_tokens)
+                                + 2 * tables) + cross_flops) \
         / BF16_FLOPS * 1e3
-    row = {"lm_serve": label, "arch": arch, "dtype": str(cfg.dtype),
-           "params": n_params, "active_params": active,
+    row = {"lm_serve": label, "arch": arch, "layers": cfg.n_layers,
+           "dtype": str(cfg.dtype), "params": n_params,
+           "active_params": active,
            "f32_weight_gb": n_params * 4 / 1e9,
            "bf16_weight_gb": n_params * bpe / 1e9,
-           "cache_gb": cache_bytes / 1e9, "slots": slots,
+           "cache_gb": (attention_bytes + state_bytes) / 1e9,
+           "state_gb": state_bytes / 1e9, "slots": slots,
            "max_len": max_len, "requests": n_requests,
            "prompt_len": prompt_len, "max_new": max_new,
+           "engine": "Model" if vlm else "ServeEngine",
            "engine_steps": steps, "tokens": n_tokens,
            "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound_ms,
            "prefill_over_bound": prefill_ms / prefill_bound_ms,
@@ -3305,10 +3491,16 @@ def _lm_cell(device, label, arch, slots, max_len, n_requests, prompt_len,
            "decode_over_bound": decode_ms / decode_bound_ms,
            "decode_bound_all_experts_ms": decode_bound_all_ms,
            "tokens_per_s": n_tokens / serve_s, "serve_s": serve_s,
-           "setup_s": setup_s, "profiled": profiled, **card_info()}
+           "setup_s": setup_s, "profile_s": profile_s,
+           "profiled": profiled, **card_info()}
+    if not vlm:
+        del engine
+    del cache
+    _free_card()
     t_checks = time.perf_counter()
-    checks, failed = _lm_checks(device, label, cfg, params32, engine.params,
-                                queue[0].prompt, int(queue[0].out[0]))
+    checks, failed = _lm_checks(device, label, cfg, params32, params16,
+                                prompts[0], first,
+                                None if image is None else image[:1])
     row.update(checks)
     row["checks_s"] = time.perf_counter() - t_checks
     emit(row)
@@ -3317,24 +3509,34 @@ def _lm_cell(device, label, arch, slots, max_len, n_requests, prompt_len,
     return row
 
 
-def run_lm_serve(device) -> dict:
-    """The LM serving slice on the card: each of ``LM_CELLS`` at full
-    width (``_lm_cell``), with the launch counts set to 0 just before and
-    read just after (the LM path launches no FFT kernel).  TF32 must be
-    off, as torch's default is, for the float32 checks."""
+def _free_card() -> None:
+    """Free what the last cell left on the card."""
     import gc
 
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_lm_serve(device, cells=LM_CELLS) -> dict:
+    """The LM serving slice on the card: each of ``cells`` (rows of
+    ``LM_CELLS``) at full width (``_lm_cell``), with the launch counts set
+    to 0 just before and read just after (the LM path launches no FFT
+    kernel).  TF32 must be off, as torch's default is, for the float32
+    checks."""
     import torch
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the float32 checks "
                              "need full float32 products")
     _reset_counts()
     rows = {}
-    for label, arch, slots, max_len, n, prompt_len, max_new in LM_CELLS:
-        rows[label] = _lm_cell(device, label, arch, slots, max_len, n,
-                               prompt_len, max_new)
-        gc.collect()
-        torch.cuda.empty_cache()
+    for label, arch, n_layers, slots, max_len, n, prompt_len, max_new \
+            in cells:
+        t0 = time.perf_counter()
+        rows[label] = _lm_cell(device, label, arch, n_layers, slots,
+                               max_len, n, prompt_len, max_new)
+        _free_card()
+        emit({"lm_cell": label, "cell_s": time.perf_counter() - t0})
     launched = {k: c for k, (c, _) in _read_counts().items() if c}
     if launched:
         raise AssertionError(f"the LM path launched FFT kernels: {launched}")

@@ -3,14 +3,17 @@ decode_step, the reference package's ``launch/serve.py`` on torch.
 
 Requests arrive with prompts and are packed into a fixed number of slots.
 Each prompt is prefilled into a one-slot cache that is scattered into the
-batch cache; each engine step decodes one token, greedily, for every slot;
+batch cache (every leaf of its nested dicts: KV, MLA latents, recurrent
+states); each engine step decodes one token, greedily, for every slot;
 a finished slot is refilled from the queue.  As in the reference, a step
 decodes every slot at one position, the largest of the slots' positions
 (``ROADMAP.md`` queue 3, fault 5): a slot with a shorter prompt writes its
 token at that position and attends over the gap before it.
 
 The engine casts the float32 weights to the compute dtype once, when it is
-built, and runs under ``torch.inference_mode()``.
+built, and runs under ``torch.inference_mode()``.  Like the reference, it
+passes no ``image_embeds``, so it cannot serve the ``vlm`` kind
+(``ROADMAP.md`` queue 3, fault 6): ``Model.forward`` raises there.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch qwen3-1.7b --reduced --requests 8 --max-new 32
@@ -64,11 +67,7 @@ class ServeEngine:
         Returns the last position's logits."""
         small = self.model.init_cache(1, self.max_len)
         last, small = self.model.prefill(self.params, tokens, small)
-        # generic scatter: every cache leaf has exactly one axis == slots
-        for name, big in self.cache.items():
-            one = small[name]
-            ax = _batch_axis(big.shape, self.slots, one.shape)
-            big.select(ax, slot).copy_(one.squeeze(ax))
+        _scatter(self.cache, small, self.slots, slot)
         return last
 
     @torch.inference_mode()
@@ -110,6 +109,19 @@ class ServeEngine:
             else:
                 n_active += 1
         return n_active
+
+
+def _scatter(cache: dict, small: dict, slots: int, slot: int) -> None:
+    """Copy a one-slot cache into the batch cache at ``slot``, leaf by leaf
+    of the nested dicts: each leaf's batch axis is the first whose size is
+    ``slots`` in the batch cache and 1 in the one-slot cache."""
+    for name, big in cache.items():
+        one = small[name]
+        if isinstance(big, dict):
+            _scatter(big, one, slots, slot)
+            continue
+        ax = _batch_axis(big.shape, slots, one.shape)
+        big.select(ax, slot).copy_(one.squeeze(ax))
 
 
 def _batch_axis(big_shape, slots, one_shape) -> int:

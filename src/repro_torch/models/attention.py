@@ -1,9 +1,10 @@
 """Attention: blocked flash-style softmax attention, GQA/MQA, sliding
-window, and the self-attention layer with its KV cache.
+window, the self-attention layer with its KV cache, cross-attention over
+image tokens and MLA (DeepSeek's multi-head latent attention).
 
-The reference package's ``models/attention.py`` (its ``lax.scan`` over
-query and key blocks becomes a Python loop over the same blocks) for the
-decoder's flat stack.  The numerics are the reference's: scores and the
+The reference package's ``models/attention.py`` on one device (its
+``lax.scan`` over query and key blocks becomes a Python loop over the
+same blocks).  The numerics are the reference's: scores and the
 PV product accumulate in float32 from the inputs' values, probabilities
 are cast to v's dtype before the PV product, masked scores are the finite
 ``NEG_INF`` and the output is divided by ``max(l, 1e-30)``, so a fully
@@ -53,16 +54,18 @@ def _scores(qg: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset=0, causal: bool = True, window: int = 0,
                       is_global=None, kv_len=None, block_q: int = 512,
-                      block_k: int = 512) -> torch.Tensor:
+                      block_k: int = 512,
+                      softmax_scale: float | None = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, KH, Dk/Dv) with H % KH == 0 (GQA).
 
     Returns (B, Sq, H, Dv).  Online softmax over KV blocks, for each Q
-    block; float32 accumulation.  Sq <= 4 takes one dense pass.
+    block; float32 accumulation.  Sq <= 4 takes one dense pass.  The
+    scores are scaled by ``softmax_scale``, by default ``D ** -0.5``.
     """
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
-    scale = d ** -0.5
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
     rep = h // kh
 
     if sq <= 4:
@@ -219,3 +222,102 @@ def attention(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
                               is_global=is_global, block_q=block_q,
                               block_k=block_k)
     return dense(p.wo, y.reshape(b, s, n_heads * head_dim)), new_cache
+
+
+# --------------------------------------------------------------------------
+# cross-attention (the VLM's layers; K and V from precomputed image tokens)
+# --------------------------------------------------------------------------
+def init_cross_attention(gen, d_model: int, n_heads: int, n_kv: int,
+                         head_dim: int, d_kv_in: int | None = None
+                         ) -> Attention:
+    d_kv_in = d_kv_in or d_model
+    return Attention(init_dense(gen, d_model, n_heads * head_dim),
+                     init_dense(gen, d_kv_in, n_kv * head_dim),
+                     init_dense(gen, d_kv_in, n_kv * head_dim),
+                     init_dense(gen, n_heads * head_dim, d_model))
+
+
+def cross_attention(p: Attention, x: torch.Tensor, kv_src: torch.Tensor, *,
+                    n_heads: int, n_kv: int, head_dim: int,
+                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Non-causal attention of x (B, S, d) over kv_src (B, Skv, d_kv_in)."""
+    b, s, _ = x.shape
+    skv = kv_src.shape[1]
+    q = dense(p.wq, x).reshape(b, s, n_heads, head_dim)
+    k = dense(p.wk, kv_src).reshape(b, skv, n_kv, head_dim)
+    v = dense(p.wv, kv_src).reshape(b, skv, n_kv, head_dim)
+    y = blocked_attention(q, k, v, causal=False, block_q=block_q,
+                          block_k=block_k)
+    return dense(p.wo, y.reshape(b, s, n_heads * head_dim))
+
+
+# --------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2)
+# --------------------------------------------------------------------------
+class MLA(nn.Module):
+    def __init__(self, wq: Dense, wdkv: Dense, kv_norm: RMSNorm, wuk: Dense,
+                 wuv: Dense, wo: Dense):
+        super().__init__()
+        self.wq, self.wdkv, self.kv_norm = wq, wdkv, kv_norm
+        self.wuk, self.wuv, self.wo = wuk, wuv, wo
+
+
+def init_mla(gen, d_model: int, n_heads: int, *, kv_lora: int,
+             nope_dim: int, rope_dim: int, v_dim: int) -> MLA:
+    return MLA(init_dense(gen, d_model, n_heads * (nope_dim + rope_dim)),
+               init_dense(gen, d_model, kv_lora + rope_dim),
+               init_rmsnorm(kv_lora, gen),
+               init_dense(gen, kv_lora, n_heads * nope_dim),
+               init_dense(gen, kv_lora, n_heads * v_dim),
+               init_dense(gen, n_heads * v_dim, d_model))
+
+
+def mla_attention(p: MLA, x: torch.Tensor, *, n_heads: int, kv_lora: int,
+                  nope_dim: int, rope_dim: int, v_dim: int,
+                  positions: torch.Tensor, rope_theta: float = 1e4,
+                  cache: dict | None = None, kv_len=None, block_q: int = 512,
+                  block_k: int = 512) -> tuple[torch.Tensor, dict | None]:
+    """No cache: K and V decompressed from the latent, blocked causal
+    attention.  With a cache (prefill and decode): the absorbed form.  The
+    cache holds only ``{'c_kv' (B, Smax, kv_lora), 'k_rope' (B, Smax,
+    rope)}``, written in place; queries move into the latent space
+    (``q_nope`` through ``W_uk``), attention runs over ``[c_kv, k_rope]``
+    with ``c_kv`` as the values, and ``W_uv`` maps the result out.  Both
+    scale the scores by ``(nope + rope) ** -0.5``."""
+    b, s, _ = x.shape
+    hd = nope_dim + rope_dim
+    q = dense(p.wq, x).reshape(b, s, n_heads, hd)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    cos, sin = rope_table(positions, rope_dim, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    dkv = dense(p.wdkv, x)
+    c_kv = _head_norm(p.kv_norm, dkv[..., :kv_lora])
+    k_rope = apply_rope(dkv[..., None, kv_lora:], cos, sin)  # (B, S, 1, rope)
+    wuk = p.wuk.w.to(x.dtype).reshape(kv_lora, n_heads, nope_dim)
+    wuv = p.wuv.w.to(x.dtype).reshape(kv_lora, n_heads, v_dim)
+
+    if cache is None:
+        k_nope = torch.einsum("bsc,chd->bshd", c_kv, wuk)
+        v = torch.einsum("bsc,chd->bshd", c_kv, wuv)
+        k = torch.cat([k_nope, k_rope.expand(b, s, n_heads, rope_dim)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        y = blocked_attention(qq, k, v, causal=True, block_q=block_q,
+                              block_k=block_k, softmax_scale=hd ** -0.5)
+        return dense(p.wo, y.reshape(b, s, n_heads * v_dim)), None
+
+    start = kv_len if kv_len is not None else 0
+    _write(cache["c_kv"], c_kv, start)
+    _write(cache["k_rope"], k_rope[:, :, 0], start)
+    q_abs = torch.einsum("bshd,chd->bshc", q_nope, wuk)    # (B, S, H, kv_lora)
+    qq = torch.cat([q_abs, q_rope], -1)
+    kk = torch.cat([cache["c_kv"], cache["k_rope"]],
+                   -1)[:, :, None, :].to(x.dtype)         # (B, Smax, 1, c + r)
+    y_lat = blocked_attention(qq, kk, kk[..., :kv_lora],
+                              q_offset=positions[0], causal=True,
+                              kv_len=(kv_len + s) if kv_len is not None
+                              else None, block_q=block_q, block_k=block_k,
+                              softmax_scale=hd ** -0.5)   # (B, S, H, kv_lora)
+    y = torch.einsum("bshc,chd->bshd", y_lat, wuv)
+    return dense(p.wo, y.reshape(b, s, n_heads * v_dim)), \
+        {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}

@@ -4,6 +4,7 @@
 reference's ``Model.init_params`` returns it, as nested dicts of numpy
 arrays (layers stacked on a leading axis of ``n_layers``), and loads it
 into the port's modules, so both packages compute with the same numbers.
+vlm's ``units.self`` is stacked twice, ``(n_units, n_self, ...)``.
 """
 
 from __future__ import annotations
@@ -13,8 +14,10 @@ import torch
 
 from .model import Model, Params
 
-#: top-level subtrees whose leaves stack one entry per layer
-STACKED = ("layers",)
+#: top-level subtrees whose leaves stack one entry per layer (or unit)
+STACKED = ("layers", "dense_layers", "units")
+#: subtrees of a stacked entry whose leaves stack a second time
+SUBSTACKED = ("self",)
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -29,15 +32,22 @@ def _flatten(tree: dict, prefix: str = ""):
 def flat_reference(tree: dict) -> dict[str, np.ndarray]:
     """The tree's leaves under the port's state-dict names: each stacked
     leaf split into one entry per layer (``layers.ln1.scale`` of shape
-    (L, d) becomes ``layers.0.ln1.scale`` ... ``layers.{L-1}.ln1.scale``)."""
+    (L, d) becomes ``layers.0.ln1.scale`` ... ``layers.{L-1}.ln1.scale``;
+    ``units.self.attn.wq.w`` of shape (U, N, ...) becomes
+    ``units.{u}.self.{i}.attn.wq.w``)."""
     flat: dict[str, np.ndarray] = {}
     for name, arr in _flatten(tree):
         top, _, rest = name.partition(".")
-        if top in STACKED:
-            for i in range(arr.shape[0]):
-                flat[f"{top}.{i}.{rest}"] = arr[i]
-        else:
+        if top not in STACKED:
             flat[name] = arr
+            continue
+        sub, _, tail = rest.partition(".")
+        for i in range(arr.shape[0]):
+            if sub in SUBSTACKED:
+                for j in range(arr.shape[1]):
+                    flat[f"{top}.{i}.{sub}.{j}.{tail}"] = arr[i, j]
+            else:
+                flat[f"{top}.{i}.{rest}"] = arr[i]
     return flat
 
 

@@ -44,6 +44,17 @@ def _init(gen, shape, scale: float | None = None,
     return (x * scale).to(dtype)
 
 
+class Node(nn.Module):
+    """A parameter subtree: each keyword a submodule or a tensor (held as
+    a frozen parameter) under the reference's name."""
+
+    def __init__(self, /, **parts):
+        super().__init__()
+        for name, part in parts.items():
+            setattr(self, name,
+                    part if isinstance(part, nn.Module) else _param(part))
+
+
 # --------------------------------------------------------------------------
 # norm
 # --------------------------------------------------------------------------

@@ -387,7 +387,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    'llama_3_2_vision_90b', 'xlstm_350m', 'hymba_1_5b',\n"
         "    'musicgen_medium')]\n"
         "need += ['repro_torch.models.' + m for m in (\n"
-        "    'layers', 'attention', 'moe', 'model', 'convert')]\n"
+        "    'layers', 'attention', 'moe', 'ssm', 'model', 'convert')]\n"
         "from repro_torch.roofline import analysis\n"
         "assert callable(analysis.active_params) and callable(analysis.model_flops)\n"
         "from repro_torch.benchmarks import bench_grid\n"

@@ -738,7 +738,7 @@ def test_dist_transforms_on_a_one_rank_nccl_group(cuda_device, natural):
     assert rel_l2(inv(ys), xs) <= LIBRARY_TOL[torch.complex128]
 
 
-def _lm_pair(arch, device):
+def _lm_pair(arch, device, n_layers=2):
     """A reduced float32 model on the CPU and a copy of its weights on the
     card."""
     import copy
@@ -747,7 +747,7 @@ def _lm_pair(arch, device):
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config(arch).reduced(n_layers=2),
+    cfg = dataclasses.replace(get_config(arch).reduced(n_layers=n_layers),
                               dtype=torch.float32)
     cpu = Model(cfg, device="cpu")
     params = cpu.init_params(torch.Generator("cpu").manual_seed(0))
@@ -816,3 +816,38 @@ def test_lm_serve_engine_on_card(cuda_device):
     while engine.step():
         pass
     assert req.done and len(req.out) == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_lm_recurrent_kinds_serve_on_card(cuda_device, arch):
+    """Reduced hymba (its meta tokens, the window binding) and xlstm, four
+    layers, float32 on ``cuda:0``: ``ServeEngine`` completes three
+    requests through two slots (the refill scatters the recurrent
+    states); a decode after a prefill of 20 tokens is the forward's
+    column 20 (rel-L2 <= 1e-4) and the CPU's decode (<= 1e-5)."""
+    from repro_torch.launch.serve import Request, ServeEngine
+
+    cpu, params, card, on_card = _lm_pair(arch, cuda_device, n_layers=4)
+    rng = np.random.default_rng(7)
+    engine = ServeEngine(card, on_card, batch_slots=2, max_len=32)
+    reqs = [Request(i, rng.integers(0, 256, (n,)).astype(np.int32), 4)
+            for i, n in enumerate((5, 9, 3))]
+    pending = list(reqs)
+    for _ in range(100):
+        while pending and engine.submit(pending[0]):
+            pending.pop(0)
+        if engine.step() == 0 and not pending:
+            break
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    tok = torch.from_numpy(rng.integers(0, 256, (2, 21)).astype(np.int32))
+    full, _, _ = card.forward(on_card, tok.to(cuda_device))
+    cache = card.init_cache(2, 32)
+    _, cache = card.prefill(on_card, tok[:, :20].to(cuda_device), cache)
+    step, _ = card.decode_step(on_card, tok[:, 20:].to(cuda_device), cache,
+                               20)
+    assert rel_l2(step[:, 0], full[:, 20]) <= 1e-4
+    c_cpu = cpu.init_cache(2, 32)
+    _, c_cpu = cpu.prefill(params, tok[:, :20], c_cpu)
+    want, _ = cpu.decode_step(params, tok[:, 20:], c_cpu, 20)
+    assert rel_l2(step.cpu(), want) <= 1e-5

@@ -94,6 +94,45 @@ def test_token_streams_are_the_reference(arch):
         [[int(t) for t in r.out] for r in theirs]
 
 
+@pytest.mark.parametrize("arch,n_layers", [("hymba-1.5b", 4),
+                                           ("xlstm-350m", 4),
+                                           ("deepseek-v2-lite-16b", 3)])
+def test_token_streams_of_the_other_kinds_are_the_reference(arch, n_layers):
+    """Three requests through two slots (the third refills a slot), prompts
+    of 5, 9 and 3 tokens: every cache leaf (hymba's KV, conv and ssm
+    states with its meta tokens, xlstm's recurrent states, MLA's latents)
+    goes through the per-slot scatter."""
+    pm, pp, rm, rp = _pair(arch, n_layers)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, pm.cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS[:3]]
+    ours = [Request(i, p, m) for i, (p, m) in
+            enumerate(zip(prompts, MAX_NEW))]
+    theirs = [RRequest(i, p, m) for i, (p, m) in
+              enumerate(zip(prompts, MAX_NEW))]
+    steps = _drive(ServeEngine(pm, pp, batch_slots=2, max_len=32), ours)
+    rsteps = _drive(RServeEngine(rm, rp, batch_slots=2, max_len=32), theirs)
+    assert steps == rsteps
+    assert all(r.done and len(r.out) == r.max_new for r in ours)
+    assert [[int(t) for t in r.out] for r in ours] == \
+        [[int(t) for t in r.out] for r in theirs]
+
+
+def test_fault6_neither_engine_serves_the_vlm():
+    """Neither engine passes ``image_embeds``, so the vlm kind fails in
+    ``submit``: the reference in its cross-attention (``None.shape``),
+    the port in ``Model.forward``, which names what is missing."""
+    pm, pp, rm, rp = _pair("llama-3.2-vision-90b", 5)
+    prompt = np.arange(4, dtype=np.int32)
+    engine = ServeEngine(pm, pp, batch_slots=2, max_len=16)
+    with pytest.raises(ValueError, match="needs image_embeds"):
+        engine.submit(Request(0, prompt, 2))
+    rengine = RServeEngine(rm, rp, batch_slots=2, max_len=16)
+    with pytest.raises(AttributeError, match="'NoneType' object has no "
+                                             "attribute 'shape'"):
+        rengine.submit(RRequest(0, prompt, 2))
+
+
 def test_fault5_decodes_a_short_slot_at_the_long_slots_position():
     """Two slots, prompts of 8 and 4 tokens: the step decodes both at
     position 8, so the short slot's logits are not its forward's column 4
@@ -188,3 +227,17 @@ def test_batch_axis():
     assert serve._batch_axis((2, 3, 16, 4, 8), 3, (2, 1, 16, 4, 8)) == 1
     with pytest.raises(ValueError, match="no batch axis"):
         serve._batch_axis((2, 3, 16), 5, (2, 1, 16))
+
+
+def test_scatter_walks_nested_caches():
+    """Each leaf of a nested cache takes the one-slot cache's values at
+    its own batch axis (the vlm's is the third)."""
+    cache = {"self": {"k": torch.zeros(1, 4, 3, 5)},
+             "mlstm": {"m": torch.zeros(2, 3, 4)}}
+    small = {"self": {"k": torch.ones(1, 4, 1, 5)},
+             "mlstm": {"m": torch.full((2, 1, 4), 2.0)}}
+    serve._scatter(cache, small, 3, 1)
+    assert cache["self"]["k"][:, :, 1].eq(1).all()
+    assert cache["self"]["k"].sum() == 20
+    assert cache["mlstm"]["m"][:, 1].eq(2).all()
+    assert cache["mlstm"]["m"].sum() == 16
