@@ -151,7 +151,23 @@
    (a recurrent state read and written once a step), a ``torch.profiler``
    split of one decode step and one prefill; the launch counts stay 0
    (no FFT kernel on the path);
-15. holds the fused fftconv kernel against its plain version and the
+15. trains the LM path (``repro_torch.train``) on ``cuda:0``
+   (``TRAIN_CELLS``): T1, qwen3-1.7b at full width and depth, 10 steps of
+   ``build_train_step`` at 8 x 512 tokens; T2, granite-moe-1b-a400m, 5
+   steps (the capacity buffers under autograd); float32 parameters from a
+   seeded generator, bf16 compute, remat on.  Checks: every loss and grad
+   norm finite, the bf16 step-0 loss within 1% of the float32 one, the
+   mean of the last three losses below step 0's, and (T1) the float32
+   gradient at 1 x 512 with remat equal to the one without (rel-L2 <=
+   1e-5 per leaf).  Step ms (CUDA events, median), tokens/s, the bound
+   (6 N_active D at 989 TFLOP/s plus AdamW's 28 bytes a parameter at 3.35
+   TB/s), a ``torch.profiler`` split of one more step (device ms and
+   events, by kernel kind), the idle share, peak memory.  Then a
+   ``Trainer`` checkpoint restart of reduced qwen3-1.7b (2 layers,
+   float32) against a straight run (1e-5), and the ``lm_steps`` table's
+   eight clients through ``Session.run``, every node validated; the
+   launch counts stay 0 (no FFT kernel on the path);
+16. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
    (``repro_torch.benchmarks.table_kernels``) at the reference's sizes
@@ -160,7 +176,7 @@
    its plain counterpart; then the fused and unfused fftconv clients at a
    Hyena long convolution's width (F2, F3), with the launch counts set to
    0 before the table and read after F3;
-16. holds each kernel against its plain version at every shape the main
+17. holds each kernel against its plain version at every shape the main
    path (P1-P14), the backends nodes, the sweeps, the serving phase and
    the distributed phase launched it with
    (radix 8 and the default tile, both directions; fftconv against its
@@ -172,7 +188,7 @@
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
    tile and the dft kernel's direct product at 512 MiB shapes
    (``EXTRA_TIMING``);
-17. prints the kernel summary (the distributed nodes' launches counted
+18. prints the kernel summary (the distributed nodes' launches counted
    in) and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -484,8 +500,44 @@ LM_MOE_BF16_RATIO = 2.0
 #: sLSTM loop gives 73k device events a prefill, whose post-processing
 #: took two minutes for three)
 LM_PROFILED = 3
+#: a device event's kind by its kernel name (the first pattern that
+#: matches), for the profiled splits' ``by_kind``: matrix products
+#: (cuBLAS / CUTLASS), ``_foreach`` (AdamW), scatter and gather and
+#: indexing, reductions and softmax, other elementwise kernels, copies
+DEVICE_EVENT_KINDS = (
+    ("product", r"gemm|cutlass|sm90_|xmma|cublas|nvjet"),
+    ("foreach", r"multi_tensor_apply"),
+    ("scatter_gather", r"scatter|gather|index"),
+    ("reduce_softmax", r"reduce|softmax|norm_kernel|cumsum|scan"),
+    ("elementwise", r"elementwise"),
+    ("copy", r"[Mm]emcpy|[Mm]emset|copy"),
+)
 #: H100 SXM dense bf16 tensor-core peak, the prefill bound's rate
 BF16_FLOPS = 989e12
+#: the training phase's cells: (label, arch, batch, sequence length,
+#: steps).  T1 trains qwen3-1.7b at full width and depth (28 layers, 1.72 G
+#: parameters; parameters, gradients, m and v 27.5 GB); T2 puts the MoE's
+#: capacity buffers and the sum over experts under autograd at their
+#: published width (granite-moe-1b-a400m, 24 layers, 32 experts top-8,
+#: 21 GB of state).  float32 parameters from a seeded generator, bf16
+#: compute, remat on, ``SyntheticTokens`` (seed 0) at 4096 tokens a step.
+TRAIN_CELLS = (("T1", "qwen3-1.7b", 8, 512, 10),
+               ("T2", "granite-moe-1b-a400m", 8, 512, 5))
+#: AdamW's settings in both cells (the cell's steps are ``total_steps``)
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+#: the bf16 step-0 loss against the float32 loss on the same parameters
+#: and batch, relative
+TRAIN_BF16_TOL = 0.01
+#: T1's float32 gradient at batch 1 x 512 with remat against without, per
+#: leaf rel-L2 (the same ops recomputed; the embedding's backward
+#: accumulates with atomics, in any order)
+TRAIN_REMAT_TOL = 1e-5
+#: the restart check: reduced qwen3-1.7b at 2 layers in float32, 2 steps,
+#: a checkpoint, 2 more, against 4 straight; the final loss and every
+#: parameter within this rel-L2
+TRAIN_RESTART_TOL = 1e-5
+#: AdamW's bytes a parameter a step: p, g, m, v read, p, m, v written
+ADAMW_BYTES = 28
 KERNELS = (
     ("stockham_pallas", "src/repro_torch/csrc/stockham.cu",
      "src/repro/kernels/stockham_pallas/stockham_pallas.py:177"),
@@ -3271,19 +3323,23 @@ def _lm_profile(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    busy, count, top = 0.0, 0, {}
+    busy, count, top, kinds = 0.0, 0, {}, {}
     for name, ms in _lm_device_events(prof):
         if name == "Activity Buffer Request":
             continue
         busy += ms / reps
         count += 1
         top[name[:60]] = top.get(name[:60], 0.0) + ms / reps
+        kind = next((k for k, pattern in DEVICE_EVENT_KINDS
+                     if re.search(pattern, name)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms / reps
     if not busy:
         raise AssertionError("torch.profiler saw no device time")
     out = {"wall_ms": wall, "device_ms": busy,
            "device_idle_share": max(0.0, 1.0 - busy / wall),
            "device_events": count / reps,
-           "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:5])}
+           "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:5]),
+           "by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
     if reps > 1:
         out["device_ms_key_averages"] = sum(
             e.self_device_time_total for e in prof.key_averages()
@@ -3543,6 +3599,219 @@ def run_lm_serve(device, cells=LM_CELLS) -> dict:
     return rows
 
 
+def _train_cell(device, label, arch, batch, seq, steps) -> dict:
+    """One architecture at full width and depth: float32 parameters from
+    a seeded generator on the card, bf16 compute, remat on; the step-0
+    bf16 loss against the float32 one; (T1) the float32 gradient with
+    remat against without at batch 1; then ``steps`` steps of
+    ``build_train_step`` on ``SyntheticTokens``, each between two CUDA
+    events, one more under ``torch.profiler``; the checks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.roofline.analysis import active_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import (build_train_step, upload,
+                                           value_and_grad)
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model = Model(cfg, device=device)
+    model32 = Model(dataclasses.replace(cfg, dtype=torch.float32),
+                    device=device)
+    if not model.remat:
+        raise AssertionError(f"{label}: remat is off")
+    params = model.init_params(torch.Generator(device).manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=batch,
+                                      seed=0))
+    batches = [upload(data.batch(i), device) for i in range(steps + 1)]
+    failed = []
+    with torch.no_grad():
+        loss16 = float(model.loss_fn(params, batches[0])[1]["loss"])
+        loss32 = float(model32.loss_fn(params, batches[0])[1]["loss"])
+    bf16_rel = abs(loss16 - loss32) / abs(loss32)
+    if not bf16_rel <= TRAIN_BF16_TOL:
+        failed.append(f"bf16 step-0 loss {loss16} against float32 {loss32}")
+    remat = {}
+    if label == "T1":
+        one = {"tokens": batches[0]["tokens"][:1]}
+        _, with_remat = value_and_grad(model32, params, one)
+        model32.remat = False
+        _, without = value_and_grad(model32, params, one)
+        worst, leaf = max((rel_l2(with_remat[k], without[k]), k)
+                          for k in without)
+        remat = {"remat_grad_rel_l2": worst, "remat_worst_leaf": leaf}
+        if not worst <= TRAIN_REMAT_TOL:
+            failed.append(f"remat gradient {leaf}: rel-L2 {worst}")
+        del with_remat, without
+    del model32
+    _free_card()
+    opt = init_opt_state(params)
+    step_fn = build_train_step(model, OptConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps))
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(device)
+    events, losses, norms = [], [], []
+    t_train = time.perf_counter()
+    for i in range(steps):
+        (params, opt, metrics), ev = _lm_events(
+            lambda: step_fn(params, opt, batches[i]))
+        events.append(ev)
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    torch.cuda.synchronize(device)
+    train_s = time.perf_counter() - t_train
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    t_profile = time.perf_counter()
+    profiled = _lm_profile(lambda: step_fn(params, opt, batches[steps]), 1)
+    profile_s = time.perf_counter() - t_profile
+    if not all(math.isfinite(x) for x in losses + norms):
+        failed.append(f"a non-finite loss or grad norm: {losses} {norms}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        failed.append(f"the last three losses {losses[-3:]} are not below "
+                      f"step 0's {losses[0]}")
+
+    _, active = active_params(cfg)
+    tokens = batch * seq
+    flops = 6 * active * tokens
+    median_ms = statistics.median(step_ms)
+    bound_ms = (flops / BF16_FLOPS + ADAMW_BYTES * n_params
+                / HBM_BYTES_PER_S) * 1e3
+    row = {"train": label, "arch": arch, "layers": cfg.n_layers,
+           "dtype": str(cfg.dtype), "remat": model.remat,
+           "params": n_params, "active_params": active,
+           "state_gb": 16 * n_params / 1e9, "batch": batch, "seq": seq,
+           "steps": steps, "losses": losses, "grad_norms": norms,
+           "loss0_bf16": loss16, "loss0_f32": loss32,
+           "loss0_bf16_rel": bf16_rel, **remat,
+           "step_ms": step_ms, "step_ms_median": median_ms,
+           "wall_ms_per_step": train_s * 1e3 / steps,
+           "tokens_per_s": tokens / (median_ms / 1e3),
+           "bound_ms": bound_ms,
+           "bound_flops_ms": flops / BF16_FLOPS * 1e3,
+           "bound_adamw_ms": ADAMW_BYTES * n_params / HBM_BYTES_PER_S * 1e3,
+           "over_bound": median_ms / bound_ms,
+           "device_ms": profiled["device_ms"],
+           "device_events": profiled["device_events"],
+           "idle_share": max(0.0, 1.0 - profiled["device_ms"] / median_ms),
+           "profiled": profiled, "peak_gb": peak_gb,
+           "setup_s": setup_s, "profile_s": profile_s, **card_info()}
+    emit(row)
+    del params, opt, batches, step_fn
+    _free_card()
+    if failed:
+        raise AssertionError(f"{label}: {'; '.join(failed)}")
+    return row
+
+
+def _train_restart(device, root: str) -> dict:
+    """Reduced qwen3-1.7b at 2 layers in float32 through ``Trainer`` on
+    the card: 2 steps, a checkpoint, a resume to step 4, against 4 steps
+    straight: the final loss and every parameter within
+    ``TRAIN_RESTART_TOL``."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(n_layers=2),
+                              dtype=torch.float32)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      global_batch=4))
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(directory, steps):
+        tcfg = TrainConfig(steps=steps, checkpoint_every=2,
+                           checkpoint_dir=os.path.join(root, directory),
+                           log_every=100, opt=OptConfig(
+                               lr=TRAIN_LR, warmup_steps=1, total_steps=4))
+        return Trainer(Model(cfg, device=device, remat=False), data,
+                       tcfg).run(verbose=False)
+    first = run("resumed", 2)
+    resumed = run("resumed", 4)
+    straight = run("straight", 4)
+    worst, leaf = max(
+        (rel_l2(a.detach(), b.detach()), name) for (name, a), b in
+        zip(resumed["params"].named_parameters(),
+            straight["params"].parameters()))
+    loss_rel = abs(resumed["loss"] - straight["loss"]) / abs(straight["loss"])
+    out = {"train_restart": "qwen3-1.7b reduced, 2 layers, float32",
+           "steps": [first["step"], resumed["step"]],
+           "loss": resumed["loss"], "loss_straight": straight["loss"],
+           "loss_rel": loss_rel, "param_rel_l2": worst, "worst_leaf": leaf,
+           "checkpoints": sorted(os.listdir(os.path.join(root, "resumed")))}
+    emit(out)
+    if not (resumed["step"] == 4 and worst <= TRAIN_RESTART_TOL
+            and loss_rel <= TRAIN_RESTART_TOL):
+        raise AssertionError(f"the restart on the card: {out}")
+    return out
+
+
+def _train_table(device) -> None:
+    """The ``lm_steps`` table's eight clients through ``Session.run`` on
+    the card: every node validated."""
+    from repro_torch.benchmarks import table_lm_steps as tl
+    from repro_torch.core.client import TorchContext
+    from repro_torch.core.suite import Session
+
+    rows = Session(TorchContext(device)).run(tl.SPEC).rows
+    validate = {r.library: r for r in rows if r.op == "validate"}
+    bad = {k: r.error for k, r in validate.items() if not r.success}
+    if set(validate) != set(tl.SPEC.clients) or bad:
+        raise AssertionError(f"lm_steps: {sorted(validate)} validated, "
+                             f"failed {bad}")
+    for lib in tl.SPEC.clients:
+        ms = [r.time_ms for r in rows if r.library == lib
+              and r.op == "execute_forward" and r.run >= 0]
+        emit({"lm_steps": lib, "execute_forward_ms": ms,
+              "init_forward": [r.plan_cache for r in rows if r.library == lib
+                               and r.op == "init_forward"]})
+
+
+def run_train(device, cells=TRAIN_CELLS) -> dict:
+    """The LM training slice on the card: each of ``cells`` (``_train_cell``),
+    the checkpoint restart and the ``lm_steps`` table, with the launch
+    counts set to 0 just before and read just after (the training path
+    launches no FFT kernel)."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks "
+                             "need full float32 products")
+    _reset_counts()
+    rows = {}
+    for label, arch, batch, seq, steps in cells:
+        t0 = time.perf_counter()
+        rows[label] = _train_cell(device, label, arch, batch, seq, steps)
+        emit({"train_cell": label, "cell_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    rows["restart"] = _train_restart(device, os.path.join(ROOT, "build",
+                                                          "train_ckpt"))
+    _train_table(device)
+    emit({"train_checks_s": time.perf_counter() - t0})
+    launched = {k: c for k, (c, _) in _read_counts().items() if c}
+    if launched:
+        raise AssertionError(f"the training path launched FFT kernels: "
+                             f"{launched}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3601,6 +3870,9 @@ def main() -> int:
     t_lm = time.perf_counter()
     run_lm_serve(device)
     emit({"lm_serve_phase_s": time.perf_counter() - t_lm})
+    t_train = time.perf_counter()
+    run_train(device)
+    emit({"train_phase_s": time.perf_counter() - t_train})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     for kernel, n in dist_path["launches"].items():

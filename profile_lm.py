@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""The LM serving phase of ``chip_smoke.py`` alone, on one GPU.
+"""The LM phases of ``chip_smoke.py`` alone, on one GPU.
 
-    python3 profile_lm.py [--cells L3,L4] [--tests]
+    python3 profile_lm.py [--cells L3,L4] [--train T1,T2] [--tests]
 
 Runs ``chip_smoke.run_lm_serve`` over the named cells of
-``chip_smoke.LM_CELLS`` (all by default; an unknown label is an error),
-then with ``--tests`` the card tests ``-k lm`` of
-``tests/test_torch_cuda.py``.  Prints one JSON row a cell, as
-``chip_smoke.py`` does.  Exits nonzero if a cell's check or a test fails.
+``chip_smoke.LM_CELLS`` (all by default; an unknown label is an error;
+``--cells none`` runs none); with ``--train`` the training phase,
+``chip_smoke.run_train``, over the named cells of
+``chip_smoke.TRAIN_CELLS`` (``all`` for every one), then the checkpoint
+restart and the ``lm_steps`` table; then with ``--tests`` the card tests
+``-k lm`` of ``tests/test_torch_cuda.py``.  Prints one JSON row a cell,
+as ``chip_smoke.py`` does.  Exits nonzero if a cell's check or a test
+fails.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", default="",
                     help="comma-separated labels of chip_smoke.LM_CELLS")
+    ap.add_argument("--train", default="",
+                    help="comma-separated labels of chip_smoke.TRAIN_CELLS, "
+                         "or 'all'")
     ap.add_argument("--tests", action="store_true",
                     help="then run the LM card tests")
     args = ap.parse_args(argv)
@@ -33,13 +40,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import chip_smoke as cs
-    cells = cs.LM_CELLS
-    if args.cells:
-        by_label = {c[0]: c for c in cs.LM_CELLS}
-        unknown = [x for x in args.cells.split(",") if x not in by_label]
+    def pick(arg, table):
+        if arg == "all":
+            return table
+        if arg == "none":
+            return ()
+        by_label = {c[0]: c for c in table}
+        unknown = [x for x in arg.split(",") if x not in by_label]
         if unknown:
             ap.error(f"unknown cells {unknown}; known: {sorted(by_label)}")
-        cells = tuple(by_label[x] for x in args.cells.split(","))
+        return tuple(by_label[x] for x in arg.split(","))
+    cells = pick(args.cells or "all", cs.LM_CELLS)
+    train = pick(args.train, cs.TRAIN_CELLS) if args.train else None
 
     import torch
     if not torch.cuda.is_available():
@@ -51,11 +63,20 @@ def main(argv=None) -> int:
     rc = 0
     t0 = time.perf_counter()
     try:
-        cs.run_lm_serve(torch.device("cuda", 0), cells)
+        if cells:
+            cs.run_lm_serve(torch.device("cuda", 0), cells)
     except AssertionError:
         traceback.print_exc()
         rc = 1
     cs.emit({"lm_serve_phase_s": time.perf_counter() - t0})
+    if train is not None:
+        t0 = time.perf_counter()
+        try:
+            cs.run_train(torch.device("cuda", 0), train)
+        except AssertionError:
+            traceback.print_exc()
+            rc = 1
+        cs.emit({"train_phase_s": time.perf_counter() - t0})
     if args.tests:
         r = subprocess.run([sys.executable, "-m", "pytest", "-q",
                             "--noconftest", "-m", "cuda",

@@ -12,7 +12,9 @@ classes), radix=Fig. 7 (the extent classes under the vendor path, the
 planner and chirp-Z), dtypes=Fig. 8 (R2C against C2C, f32 against f64);
 ``kernels`` is the beyond-paper kernel table: each hand-written CUDA
 kernel against its plain engine, and the fused fftconv kernel against the
-unfused ``torch.fft`` path; ``serve`` is the beyond-paper serving table
+unfused ``torch.fft`` path; ``lm_steps`` runs the LM train and decode
+steps of four reduced configs through the same runner; ``serve`` is the
+beyond-paper serving table
 (tail latency under Zipf traffic, coalesced against serial bursts, and
 ``TorchServeFFT`` through the suite).  Every table is a declarative
 :class:`repro_torch.core.suite.SuiteSpec` executed by the shared
@@ -26,7 +28,7 @@ import sys
 import time
 
 TABLES = ["overhead", "tts", "plan_rigor", "backends", "radix", "dtypes",
-          "kernels", "serve"]
+          "kernels", "lm_steps", "serve"]
 
 
 def main(argv: list[str] | None = None) -> int:

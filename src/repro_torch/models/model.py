@@ -23,6 +23,13 @@ float32, cast to the compute dtype at use as in the reference;
 ``cast_params`` casts them once instead (serving does), which gives the
 same numbers.
 
+Training (``loss_fn``) differentiates the no-cache forward with autograd.
+With ``remat`` each layer of a flat stack, each vlm unit and each xlstm
+unit runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps
+only the body's input and recomputes the rest in the backward: the
+reference's ``jax.checkpoint`` with the ``nothing_saveable`` policy.  It
+applies only where autograd records (grad enabled) and there is no cache.
+
 Sharded models wait for a later slice (``ROADMAP.md`` queue 1, item 7d).
 """
 
@@ -32,6 +39,7 @@ import re
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
@@ -92,9 +100,18 @@ def _store(views: dict, new: dict) -> None:
             view.copy_(new[name])
 
 
+def _maybe_remat(on: bool, body, *args):
+    """``body(*args)``, under activation checkpointing where ``on``."""
+    if not on:
+        return body(*args)
+    return checkpoint(body, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class Model:
     def __init__(self, cfg: ArchConfig, mesh=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 remat: bool = True):
         if mesh is not None:
             raise NotImplementedError(
                 "sharded models come with models/sharding.py "
@@ -103,6 +120,8 @@ class Model:
             raise ValueError(f"unknown block_kind {cfg.block_kind}")
         self.cfg = cfg
         self.device = torch.device("cuda:0" if device is None else device)
+        # as the reference: a model of two layers or fewer never remats
+        self.remat = remat and cfg.n_layers > 2
 
     # --------------------------- init ------------------------------------
     def init_params(self, gen: torch.Generator) -> Params:
@@ -348,18 +367,25 @@ class Model:
         return self._unembed(params, x), aux_total, cache
 
     # ------------------ flat homogeneous stacks ----------------------------
+    def _remat_on(self, cache) -> bool:
+        return self.remat and cache is None and torch.is_grad_enabled()
+
     def _run_flat_stack(self, layers, x, positions, flags, cache, kv_len):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self._remat_on(cache)
         for i, p in enumerate(layers):
             c_in = _at(cache, i) if cache is not None else None
             flag = flags[i] if flags else None
-            if hasattr(p, "mamba"):
-                x = self._hymba_mix(p, x, positions, flag, c_in, kv_len)
-            else:
-                x = self._attn_block(p, x, positions=positions,
-                                     is_global=flag, cache=c_in,
-                                     kv_len=kv_len)
-            x, aux = self._ffn_block(p, x)
+
+            def body(x, p=p, c_in=c_in, flag=flag):
+                if hasattr(p, "mamba"):
+                    x = self._hymba_mix(p, x, positions, flag, c_in, kv_len)
+                else:
+                    x = self._attn_block(p, x, positions=positions,
+                                         is_global=flag, cache=c_in,
+                                         kv_len=kv_len)
+                return self._ffn_block(p, x)
+            x, aux = _maybe_remat(remat, body, x)
             aux_total = aux_total + aux
         return x, aux_total
 
@@ -387,20 +413,24 @@ class Model:
     # ------------------------------ vlm ------------------------------------
     def _run_vlm(self, units, x, positions, image_embeds, cache, kv_len):
         cfg = self.cfg
+        remat = self._remat_on(cache)
         for u, unit in enumerate(units):
-            for i, sp in enumerate(unit.self):
-                c_in = _at(cache["self"], u, i) if cache is not None \
-                    else None
-                x = self._attn_block(sp, x, positions=positions, cache=c_in,
-                                     kv_len=kv_len)
-                x, _ = self._ffn_block(sp, x)
-            cp = unit.cross
-            h = L.rms_norm(cp.ln1, x)
-            y = A.cross_attention(cp.attn, h, image_embeds,
-                                  n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                  head_dim=cfg.head_dim)
-            x = x + torch.tanh(cp.gate).to(x.dtype) * y
-            x = x + L.mlp(cp.mlp, L.rms_norm(cp.ln2, x), gated=True)
+            def body(x, u=u, unit=unit):
+                for i, sp in enumerate(unit.self):
+                    c_in = _at(cache["self"], u, i) if cache is not None \
+                        else None
+                    x = self._attn_block(sp, x, positions=positions,
+                                         cache=c_in, kv_len=kv_len)
+                    x, _ = self._ffn_block(sp, x)
+                cp = unit.cross
+                h = L.rms_norm(cp.ln1, x)
+                y = A.cross_attention(cp.attn, h, image_embeds,
+                                      n_heads=cfg.n_heads,
+                                      n_kv=cfg.n_kv_heads,
+                                      head_dim=cfg.head_dim)
+                x = x + torch.tanh(cp.gate).to(x.dtype) * y
+                return x + L.mlp(cp.mlp, L.rms_norm(cp.ln2, x), gated=True)
+            x = _maybe_remat(remat, body, x)
         return x
 
     # ------------------------------ xlstm -----------------------------------
@@ -410,26 +440,50 @@ class Model:
         cache's state and handing its final state back."""
         cfg = self.cfg
         decode = cache is not None and x.shape[1] == 1
+        remat = self._remat_on(cache)
         for u, unit in enumerate(units):
             c = _at(cache, u) if cache is not None else None
-            h = L.rms_norm(unit.m_ln, x)
-            if decode:
-                ym, new_m = S.mlstm_decode(unit.mlstm, h, c["mlstm"],
-                                           cfg.n_heads)
-            elif c is not None:
-                ym, new_m = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads,
-                                             state=c["mlstm"],
-                                             return_state=True)
-            else:
-                ym = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads)
-            x = x + ym
-            ys, new_s = S.slstm_sequence(
-                unit.slstm, L.rms_norm(unit.s_ln, x), cfg.n_heads,
-                state=c["slstm"] if c is not None else None)
-            x = x + ys
-            if c is not None:
-                _store(c, {"mlstm": new_m, "slstm": new_s})
+
+            def body(x, unit=unit, c=c):
+                h = L.rms_norm(unit.m_ln, x)
+                if decode:
+                    ym, new_m = S.mlstm_decode(unit.mlstm, h, c["mlstm"],
+                                               cfg.n_heads)
+                elif c is not None:
+                    ym, new_m = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads,
+                                                 state=c["mlstm"],
+                                                 return_state=True)
+                else:
+                    ym = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads)
+                x = x + ym
+                ys, new_s = S.slstm_sequence(
+                    unit.slstm, L.rms_norm(unit.s_ln, x), cfg.n_heads,
+                    state=c["slstm"] if c is not None else None)
+                if c is not None:
+                    _store(c, {"mlstm": new_m, "slstm": new_s})
+                return x + ys
+            x = _maybe_remat(remat, body, x)
         return x
+
+    # --------------------------- loss ---------------------------------------
+    def loss_fn(self, params: Params, batch: dict):
+        """Next-token cross-entropy of ``batch["tokens"]`` (moved to the
+        model's device), with the MoE balance loss at weight 0.01.
+        Returns ``(loss + 0.01 * aux, {"loss": loss, "aux": aux})``: the
+        reference's ``Model.loss_fn``, float32 logits of every position
+        but the last against the tokens shifted by one (musicgen: per
+        codebook); ``batch["image_embeds"]`` feeds the vlm."""
+        tokens = batch["tokens"].to(self.device)
+        image = batch.get("image_embeds")
+        logits, aux, _ = self.forward(
+            params, tokens,
+            image_embeds=None if image is None else image.to(self.device))
+        logits = logits[:, :-1].float()
+        targets = tokens[:, 1:].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])
+        loss = nll.mean()
+        return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
     # cache plumbing -------------------------------------------------------
     def _cache_layout(self, batch_size: int, max_len: int) -> dict:

@@ -1,0 +1,51 @@
+"""Gradient compression: int8 quantization with error feedback.
+
+The reference package's ``train/compression.py`` on tensors.  Before a
+data-parallel all-reduce each gradient leaf is quantized to int8 with one
+float32 scale per leaf, and the quantization residual is fed into the
+next step's gradient (error feedback), which keeps the cumulative update
+unbiased.  It cuts the all-reduce's bytes 4x from float32.  Trees are
+dicts of tensors keyed by name (the parameters' state-dict names in the
+trainer).  ``torch.round``, like ``jnp.round``, rounds half to even.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.convert import named_tensors
+
+
+def quantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 values, float32 scale): ``g ≈ q * scale``."""
+    gf = g.float()
+    scale = gf.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_tree(grads: dict, residual: dict | None):
+    """Add the residual (error feedback), quantize each leaf.  Returns
+    ``((q_tree, scale_tree), new_residual)``."""
+    if residual is not None:
+        grads = {k: g.float() + residual[k] for k, g in grads.items()}
+    qs = {k: quantize(g) for k, g in grads.items()}
+    q_tree = {k: q for k, (q, _) in qs.items()}
+    s_tree = {k: s for k, (_, s) in qs.items()}
+    new_residual = {k: g.float() - dequantize(q_tree[k], s_tree[k])
+                    for k, g in grads.items()}
+    return (q_tree, s_tree), new_residual
+
+
+def decompress_tree(q_tree: dict, s_tree: dict) -> dict:
+    return {k: dequantize(q, s_tree[k]) for k, q in q_tree.items()}
+
+
+def init_residual(params) -> dict:
+    """Zero float32 residuals beside each parameter."""
+    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in named_tensors(params).items()}

@@ -388,6 +388,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    'musicgen_medium')]\n"
         "need += ['repro_torch.models.' + m for m in (\n"
         "    'layers', 'attention', 'moe', 'ssm', 'model', 'convert')]\n"
+        "need += ['repro_torch.train.' + m for m in (\n"
+        "    'optimizer', 'compression', 'checkpoint', 'trainer')]\n"
+        "need += ['repro_torch.launch.train',\n"
+        "         'repro_torch.benchmarks.table_lm_steps']\n"
+        "from repro_torch.models.model import Model\n"
+        "from repro_torch.models import convert\n"
+        "assert callable(Model.loss_fn) and callable(convert.params_to_reference)\n"
         "from repro_torch.roofline import analysis\n"
         "assert callable(analysis.active_params) and callable(analysis.model_flops)\n"
         "from repro_torch.benchmarks import bench_grid\n"

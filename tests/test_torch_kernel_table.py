@@ -290,12 +290,13 @@ def test_table_run_prints_one_row_per_client(capsys):
 
 def test_entry_point_validates_tables_and_needs_the_card(capsys):
     assert port_run.TABLES == ["overhead", "tts", "plan_rigor", "backends",
-                               "radix", "dtypes", "kernels", "serve"]
+                               "radix", "dtypes", "kernels", "lm_steps",
+                               "serve"]
     assert port_run.main(["bogus"]) == 2
     assert "unknown table(s): bogus" in capsys.readouterr().err
     import torch
     if not torch.cuda.is_available():
-        for table in ("kernels", "serve"):
+        for table in ("kernels", "lm_steps", "serve"):
             with pytest.raises(RuntimeError, match="no CUDA GPU"):
                 port_run.main([table])
 
