@@ -167,6 +167,26 @@
    float32) against a straight run (1e-5), and the ``lm_steps`` table's
    eight clients through ``Session.run``, every node validated; the
    launch counts stay 0 (no FFT kernel on the path);
+15b. trains and serves the sharded LM path (``models/sharding.py``,
+   DTensor) on a one-rank ``nccl`` group: M1, qwen3-1.7b at full width
+   and depth on a (1, 1) ``data`` x ``model`` mesh (every parameter, m
+   and v a DTensor), T1's weights and batches, 3 steps of
+   ``build_train_step`` (step 0's loss within 1e-5 of the unsharded
+   model's on the same weights and batch), step ms (CUDA events),
+   tokens/s, a ``torch.profiler`` split, the idle share and peak memory
+   beside T1's; a checkpoint of its parameters restores into the
+   unsharded model with equal leaves; ``launch.train --mesh 1x1
+   --reduced``; M2, the same model in float32 on that mesh, a prefill of
+   8 x 512 tokens and 8 decode steps, its logits within 1e-4 (rel-L2) of
+   the unsharded model's, and the bf16 decode step's ms beside the
+   unsharded one's; the launch counts stay 0.  The dry run
+   (``launch/dryrun.py``, one process a cell, the three started together
+   after M1's timed steps, each on a fake group of 256 ranks on ``meta``,
+   tracing on the host while the later phases run on the card; read after
+   the timing phases): qwen3-1.7b train_4k, granite-moe-1b-a400m
+   train_4k and starcoder2-7b prefill_32k at 16x16, each record's
+   argument GiB, flops and collective MiB by kind and axis per device,
+   rendered by ``roofline.analysis``;
 16. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
@@ -198,10 +218,13 @@ device and the repository's ``src/`` beside it.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3812,6 +3835,342 @@ def run_train(device, cells=TRAIN_CELLS) -> dict:
     return rows
 
 
+#: M1/M2's model, batch and sequence (T1's), sharded steps, decode steps
+SHARDED_ARCH, SHARDED_BATCH, SHARDED_SEQ = "qwen3-1.7b", 8, 512
+SHARDED_STEPS, SHARDED_DECODE = 3, 8
+#: M1's step-0 loss against the unsharded model's, relative
+SHARDED_LOSS_TOL = 1e-5
+#: M2's float32 logits against the unsharded model's, rel-L2 (the LM
+#: phase's decode bar)
+SHARDED_LOGITS_TOL = 1e-4
+#: the dry-run cells at 16x16: (arch, shape)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"),
+                ("granite-moe-1b-a400m", "train_4k"),
+                ("starcoder2-7b", "prefill_32k"))
+
+
+def _all_dtensors(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.convert import named_tensors
+    return all(isinstance(t, DTensor) for t in named_tensors(tree).values())
+
+
+def _sharded_train(device, t1: dict | None) -> dict:
+    """M1: qwen3-1.7b on a (1, 1) mesh, T1's weights and batches."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.roofline.analysis import active_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import build_train_step, upload
+
+    t0 = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    model = Model(cfg, mesh=mesh, device=device, remat=True)
+    plain = Model(cfg, device=device, remat=True)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=SHARDED_SEQ,
+                                      global_batch=SHARDED_BATCH, seed=0))
+    steps = SHARDED_STEPS
+    batches = [upload(data.batch(i), device) for i in range(steps + 1)]
+    with torch.no_grad():
+        params = plain.init_params(torch.Generator(device).manual_seed(0))
+        loss_plain = float(plain.loss_fn(params, batches[0])[1]["loss"])
+        del params
+    _free_card()
+    params = model.init_params(torch.Generator(device).manual_seed(0))
+    opt = init_opt_state(params)
+    failed = []
+    if not (_all_dtensors(params) and _all_dtensors(opt["m"])
+            and _all_dtensors(opt["v"])):
+        failed.append("a parameter or moment is not a DTensor")
+    n_params = sum(p.numel() for p in params.parameters())
+    step_fn = build_train_step(model, OptConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=2 * steps))
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(device)
+    events, losses = [], []
+    for i in range(steps):
+        (params, opt, metrics), ev = _lm_events(
+            lambda: step_fn(params, opt, batches[i]))
+        events.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize(device)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    profiled = _lm_profile(lambda: step_fn(params, opt, batches[steps]), 1)
+    loss_rel = abs(losses[0] - loss_plain) / abs(loss_plain)
+    if not loss_rel <= SHARDED_LOSS_TOL:
+        failed.append(f"step-0 loss {losses[0]} against the unsharded "
+                      f"{loss_plain}")
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"a non-finite loss: {losses}")
+    del opt, step_fn, batches
+    _free_card()
+
+    _, active = active_params(cfg)
+    tokens = SHARDED_BATCH * SHARDED_SEQ
+    flops = 6 * active * tokens
+    median_ms = statistics.median(step_ms)
+    bound_ms = (flops / BF16_FLOPS + ADAMW_BYTES * n_params
+                / HBM_BYTES_PER_S) * 1e3
+    row = {"sharded": "M1", "arch": SHARDED_ARCH, "mesh": "1x1",
+           "params": n_params, "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
+           "losses": losses, "loss0_unsharded": loss_plain,
+           "loss0_rel": loss_rel, "step_ms": step_ms,
+           "step_ms_median": median_ms,
+           "tokens_per_s": tokens / (median_ms / 1e3),
+           "bound_ms": bound_ms, "over_bound": median_ms / bound_ms,
+           "device_ms": profiled["device_ms"],
+           "device_events": profiled["device_events"],
+           "idle_share": max(0.0, 1.0 - profiled["device_ms"] / median_ms),
+           "profiled": profiled, "peak_gb": peak_gb, "setup_s": setup_s,
+           **card_info()}
+    if t1:
+        row["t1"] = {k: t1[k] for k in ("step_ms_median", "tokens_per_s",
+                                        "device_ms", "device_events",
+                                        "idle_share", "peak_gb")}
+        row["step_over_t1"] = median_ms / t1["step_ms_median"]
+        row["host_ms_over_t1"] = median_ms - t1["step_ms_median"]
+    emit(row)
+    if failed:
+        raise AssertionError(f"M1: {'; '.join(failed)}")
+    return {"row": row, "model": model, "plain": plain, "params": params}
+
+
+def _sharded_checkpoint(device, m1: dict) -> None:
+    """M1's parameters saved from the sharded run restore into the
+    unsharded model with equal leaves; then ``launch.train --mesh 1x1
+    --reduced`` on the same one-rank group."""
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    plain, params = m1["plain"], m1["params"]
+    steps = SHARDED_STEPS
+    failed = []
+    t_ck = time.perf_counter()
+    ckdir = os.path.join(ROOT, "build", "sharded_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt = CheckpointManager(ckdir, keep=1)
+    ckpt.save(steps + 1, params)
+    template = plain._build(None)
+    template = template.to_empty(device=device)
+    restored, _, manifest = ckpt.restore(template)
+    mine = dict(params.named_parameters())
+    mismatched = [k for k, p in restored.named_parameters()
+                  if not torch.equal(p, mine[k].to_local())]
+    if manifest["step"] != steps + 1 or mismatched:
+        failed.append(f"the sharded checkpoint restores unequal leaves: "
+                      f"{mismatched[:3]}")
+    del restored, template
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt_s = time.perf_counter() - t_ck
+    del params, mine
+    _free_card()
+
+    # the launcher on the same one-rank group
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--reduced", "--steps", "2", "--batch", "4",
+                                "--seq", "32", "--mesh", "1x1",
+                                "--checkpoint-dir",
+                                os.path.join(ROOT, "build", "m1_launch"),
+                                "--checkpoint-every", "2"])
+    shutil.rmtree(os.path.join(ROOT, "build", "m1_launch"),
+                  ignore_errors=True)
+    if rc != 0 or "[train] finished at step 2" not in out.getvalue():
+        failed.append(f"launch.train --mesh 1x1: {out.getvalue()[-300:]}")
+
+    emit({"sharded_checkpoint_s": ckpt_s, "launch_train_mesh_1x1": rc})
+    if failed:
+        raise AssertionError(f"M1 checkpoint: {'; '.join(failed)}")
+
+
+def _sharded_serve(device) -> dict:
+    """M2: the same model on the same mesh, a prefill and decode steps;
+    the float32 logits against the unsharded model's, the bf16 decode
+    step's ms against the unsharded one's."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    cfg = get_config(SHARDED_ARCH)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    gen = torch.Generator(device).manual_seed(3)
+    b, s, n = SHARDED_BATCH, SHARDED_SEQ, SHARDED_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
+                           device=device, dtype=torch.int32)
+    failed, worst, ms = [], 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        logits = {}
+        for name, model in (("plain", Model(c, device=device)),
+                            ("sharded", Model(c, mesh=mesh, device=device))):
+            params = model.init_params(
+                torch.Generator(device).manual_seed(0))
+            params = model.cast_params(params)
+            with torch.no_grad():
+                cache = model.init_cache(b, s + n)
+                lg, cache = model.prefill(params, tokens[:, :s], cache)
+                outs = [lg]
+                times = []
+                for t in range(n):
+                    (lg, cache), ev = _lm_events(
+                        lambda: model.decode_step(params, tokens[:, s + t:
+                                                               s + t + 1],
+                                                  cache, s + t))
+                    times.append(ev)
+                    outs.append(lg)
+                torch.cuda.synchronize(device)
+            logits[name] = torch.cat(
+                [o.full_tensor() if isinstance(o, DTensor) else o
+                 for o in outs], dim=1).float()
+            if dtype == torch.bfloat16:
+                ms[name] = statistics.median(a.elapsed_time(z)
+                                             for a, z in times[1:])
+            del params, cache, outs
+            _free_card()
+        if dtype == torch.float32:
+            worst = rel_l2(logits["sharded"], logits["plain"])
+            if not worst <= SHARDED_LOGITS_TOL:
+                failed.append(f"float32 logits rel-L2 {worst}")
+        if not torch.isfinite(logits["sharded"]).all():
+            failed.append(f"non-finite {dtype} logits")
+        del logits
+    row = {"sharded": "M2", "arch": SHARDED_ARCH, "mesh": "1x1",
+           "batch": b, "prompt": s, "decode_steps": n,
+           "logits_f32_rel_l2": worst,
+           "decode_ms_bf16_sharded": ms["sharded"],
+           "decode_ms_bf16_plain": ms["plain"],
+           "decode_over_plain": ms["sharded"] / ms["plain"], **card_info()}
+    emit(row)
+    if failed:
+        raise AssertionError(f"M2: {'; '.join(failed)}")
+    return row
+
+
+#: child processes still running (``_stop_children`` ends them)
+_CHILDREN: list = []
+
+
+def _stop_children() -> None:
+    while _CHILDREN:
+        p = _CHILDREN.pop()
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def start_dryrun() -> dict:
+    """Start the dry run's cells at 16x16, one child process each (a fake
+    group is its process's default group), all together; they trace on
+    the host while the card's phases run on; ``finish_dryrun`` reads
+    them."""
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out-dir", out_dir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in DRYRUN_CELLS]
+    _CHILDREN.extend(procs)
+    return {"procs": procs, "out_dir": out_dir, "t0": time.perf_counter()}
+
+
+def finish_dryrun(started: dict) -> dict:
+    """Wait for the dry run's cells: every record ok, printed as counts,
+    and the roofline table rendered."""
+    from repro_torch.roofline import analysis
+
+    procs, out_dir = started["procs"], started["out_dir"]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        _stop_children()
+    wall = time.perf_counter() - started["t0"]
+    records = {}
+    for (arch, shape), p, log in zip(DRYRUN_CELLS, procs, logs):
+        path = os.path.join(out_dir, f"{arch}_{shape}_16-16.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {}
+        if p.returncode != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: rc "
+                                 f"{p.returncode}, {rec.get('status')}: "
+                                 f"{rec.get('trace', log[-2000:])}")
+        coll = rec["collectives"]
+        emit({"dryrun": f"{arch} {shape}", "mesh": rec["mesh"],
+              "mode": rec["mode"], "trace_s": rec["lower_s"],
+              "argument_gib_per_device":
+                  rec["memory"]["argument_size_in_bytes"] / 2**30,
+              "flops_per_device": rec["flops_per_device"],
+              "dot_bytes_per_device": rec["dot_bytes_per_device"],
+              "collective_mib_by_kind": {k: v / 2**20 for k, v in
+                                         coll["by_kind"].items()},
+              "collective_counts": coll["counts"],
+              "collective_mib_by_axis": {
+                  a: {k: v / 2**20 for k, v in kinds.items()}
+                  for a, kinds in coll["by_axis"].items()}})
+        records[(arch, shape)] = rec
+    table = analysis.markdown_table(analysis.load_rows(out_dir, "16x16"))
+    print(table, flush=True)
+    emit({"dryrun_wall_s": wall})
+    return records
+
+
+def run_sharded(device, t1: dict | None = None) -> tuple[dict, dict]:
+    """M1, M2 on a one-rank ``nccl`` group (destroyed after), the launch
+    counts set to 0 before and read after (the LM path launches no FFT
+    kernel); the dry run's cells start after M1's timed steps.  Returns
+    (the rows, the started dry run for ``finish_dryrun``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ensure_default_group
+
+    _reset_counts()
+    ensure_default_group(device)
+    started = None
+    try:
+        if dist.get_world_size() != 1:
+            raise AssertionError("M1/M2 need a one-rank group")
+        t0 = time.perf_counter()
+        m1 = _sharded_train(device, t1)
+        rows = {"M1": m1["row"]}
+        emit({"sharded_train_s": time.perf_counter() - t0})
+        # the dry run's host-only traces beside the untimed checks and M2
+        # (M2's two decode times share the same host)
+        started = start_dryrun()
+        t0 = time.perf_counter()
+        _sharded_checkpoint(device, m1)
+        del m1
+        _free_card()
+        rows["M2"] = _sharded_serve(device)
+        emit({"sharded_serve_s": time.perf_counter() - t0})
+    finally:
+        dist.destroy_process_group()
+    launched = {k: c for k, (c, _) in _read_counts().items() if c}
+    if launched:
+        raise AssertionError(f"the sharded LM path launched FFT kernels: "
+                             f"{launched}")
+    return rows, started
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3871,8 +4230,11 @@ def main() -> int:
     run_lm_serve(device)
     emit({"lm_serve_phase_s": time.perf_counter() - t_lm})
     t_train = time.perf_counter()
-    run_train(device)
+    trained = run_train(device)
     emit({"train_phase_s": time.perf_counter() - t_train})
+    t_sharded = time.perf_counter()
+    _, dryrun = run_sharded(device, trained.get("T1"))
+    emit({"sharded_phase_s": time.perf_counter() - t_sharded})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     for kernel, n in dist_path["launches"].items():
@@ -3902,6 +4264,9 @@ def main() -> int:
     timings = time_kernels(device, main_path, errors)
     time_extra(device)
     emit({"timing_phases_s": time.perf_counter() - t_timing})
+    t_dry = time.perf_counter()
+    finish_dryrun(dryrun)
+    emit({"dryrun_wait_s": time.perf_counter() - t_dry})
 
     summary = []
     for kernel, source, replaces in KERNELS:
@@ -3933,4 +4298,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_children()

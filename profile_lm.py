@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """The LM phases of ``chip_smoke.py`` alone, on one GPU.
 
-    python3 profile_lm.py [--cells L3,L4] [--train T1,T2] [--tests]
+    python3 profile_lm.py [--cells L3,L4] [--train T1,T2] [--sharded]
+                          [--tests]
 
 Runs ``chip_smoke.run_lm_serve`` over the named cells of
 ``chip_smoke.LM_CELLS`` (all by default; an unknown label is an error;
 ``--cells none`` runs none); with ``--train`` the training phase,
 ``chip_smoke.run_train``, over the named cells of
 ``chip_smoke.TRAIN_CELLS`` (``all`` for every one), then the checkpoint
-restart and the ``lm_steps`` table; then with ``--tests`` the card tests
+restart and the ``lm_steps`` table; with ``--sharded`` the sharded
+phase, ``chip_smoke.run_sharded`` (M1, M2 on a one-rank (1, 1) mesh, T1's
+row beside M1's where ``--train`` ran T1, then the dry run's cells);
+then with ``--tests`` the card tests
 ``-k lm`` of ``tests/test_torch_cuda.py``.  Prints one JSON row a cell,
 as ``chip_smoke.py`` does.  Exits nonzero if a cell's check or a test
 fails.
@@ -33,6 +37,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train", default="",
                     help="comma-separated labels of chip_smoke.TRAIN_CELLS, "
                          "or 'all'")
+    ap.add_argument("--sharded", action="store_true",
+                    help="then run the sharded phase (M1, M2, dry run)")
     ap.add_argument("--tests", action="store_true",
                     help="then run the LM card tests")
     args = ap.parse_args(argv)
@@ -69,14 +75,27 @@ def main(argv=None) -> int:
         traceback.print_exc()
         rc = 1
     cs.emit({"lm_serve_phase_s": time.perf_counter() - t0})
+    trained = {}
     if train is not None:
         t0 = time.perf_counter()
         try:
-            cs.run_train(torch.device("cuda", 0), train)
+            trained = cs.run_train(torch.device("cuda", 0), train)
         except AssertionError:
             traceback.print_exc()
             rc = 1
         cs.emit({"train_phase_s": time.perf_counter() - t0})
+    if args.sharded:
+        t0 = time.perf_counter()
+        try:
+            _, dry = cs.run_sharded(torch.device("cuda", 0),
+                                    trained.get("T1"))
+            cs.finish_dryrun(dry)
+        except AssertionError:
+            traceback.print_exc()
+            rc = 1
+        finally:
+            cs._stop_children()
+        cs.emit({"sharded_phase_s": time.perf_counter() - t0})
     if args.tests:
         r = subprocess.run([sys.executable, "-m", "pytest", "-q",
                             "--noconftest", "-m", "cuda",

@@ -115,6 +115,31 @@ class Mesh:
         part = self.partition(axes)
         return _process_group(part), self.members(axes)
 
+    def device_mesh(self, device=None):
+        """The ``torch.distributed`` DeviceMesh over the same ranks and
+        axis names, on ``device``'s backend (``cuda`` for a CUDA device,
+        else ``cpu``, which also carries ``meta`` tensors).  It is built
+        once per default group and cached on the mesh; building it creates
+        every axis's groups on every rank, in the same order."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not dist.is_initialized():
+            raise RuntimeError("a device mesh needs an initialized default "
+                               "process group")
+        world = dist.get_world_size()
+        if world != self.size:
+            raise RuntimeError(f"mesh of {self.size} ranks over a default "
+                               f"group of {world}")
+        kind = "cuda" if torch.device(
+            "cuda" if device is None else device).type == "cuda" else "cpu"
+        cache = self.__dict__.setdefault("_device_meshes", {})
+        held = cache.get(kind)
+        if held is None or held[0]() is not dist.group.WORLD:
+            dm = DeviceMesh(kind, torch.as_tensor(self.ranks),
+                            mesh_dim_names=self.axis_names)
+            held = cache[kind] = (weakref.ref(dist.group.WORLD), dm)
+        return held[1]
+
 
 #: Process groups by partition, for the default group (held weakly) they
 #: were built in.

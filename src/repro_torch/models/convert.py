@@ -12,6 +12,11 @@ gradient, an optimizer moment) back into that nested tree, and
 ``opt_state_to_reference`` / ``opt_state_from_reference`` carry AdamW's
 ``{"m", "v", "step"}``.  ``reference_key`` is the one map between the two
 namings: the checkpoint writer and the decay mask use it too.
+
+A sharded model (one on a mesh) takes the same trees: the reference's
+arrays are placed by ``param_specs`` (each rank keeps its slice), and a
+DTensor leaf is gathered whole (``full_tensor``, a collective every rank
+joins) on its way back to a host array.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from .model import Model, Params
+from .sharding import is_dtensor
 
 #: top-level subtrees whose leaves stack one entry per layer (or unit)
 STACKED = ("layers", "dense_layers", "units")
@@ -81,7 +87,7 @@ def params_from_reference(model: Model, tree: dict) -> Params:
                              f"wants {tuple(spec.shape)} {spec.dtype}")
         state[name] = t.to(model.device)
     shell.load_state_dict(state, assign=True)
-    return shell
+    return model.shard(shell)
 
 
 def reference_key(name: str) -> tuple[str, tuple[int, ...]]:
@@ -121,6 +127,8 @@ def host_array(t) -> np.ndarray:
     leaf."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)  # never a view of the live tensor
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
@@ -193,8 +201,10 @@ def from_table(table: Mapping[str, np.ndarray], name: str,
                like: torch.Tensor, prefix: str = "") -> torch.Tensor:
     """The entry of port name ``name`` from a reference table (keys
     ``prefix`` + the reference path), as a tensor of ``like``'s shape,
-    dtype and device.  A 2-byte leaf read into a bf16 tensor is taken as
-    raw bfloat16 values (``host_array``'s encoding)."""
+    dtype and device (and layout: a DTensor ``like`` gives a DTensor of
+    its placements, each rank keeping its slice).  A 2-byte leaf read into
+    a bf16 tensor is taken as raw bfloat16 values (``host_array``'s
+    encoding)."""
     key, index = reference_key(name)
     if prefix + key not in table:
         raise KeyError(f"no {prefix + key} for {name}")
@@ -206,7 +216,12 @@ def from_table(table: Mapping[str, np.ndarray], name: str,
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"shape mismatch at {prefix + key}{list(index)}: "
                          f"{tuple(t.shape)}, want {tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+    t = t.to(device=like.device, dtype=like.dtype)
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+    return t
 
 
 def opt_state_from_table(table: Mapping[str, np.ndarray],

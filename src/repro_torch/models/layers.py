@@ -12,7 +12,12 @@ Conventions:
   which is a no-op once a caller has cast them (``Model.cast_params``);
 - ``init_*`` draw from an explicit ``torch.Generator`` on the device the
   weights live on; ``gen=None`` builds the module on the ``meta`` device
-  (its structure, no storage).
+  (its structure, no storage);
+- on a mesh the parameters and activations are DTensors and these
+  functions run on them unchanged: DTensor's propagation picks each op's
+  layout (the vocab-parallel embedding is ``F.embedding``'s masked
+  partial); a plain table meeting a DTensor (the rope tables) is made a
+  replicated one (``sharding.like``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .sharding import grad_in_layout, is_dtensor, like
 
 
 def _device(gen: torch.Generator | None) -> torch.device:
@@ -89,8 +96,54 @@ def init_dense(gen, d_in: int, d_out: int,
     return Dense(_init(gen, (d_in, d_out), scale))
 
 
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """``x`` gathered along its middle dims where it is a DTensor sharded
+    there (the SP residual's sequence): once before the products that read
+    it, as Megatron-SP's all-gather, instead of once a product."""
+    return _whole_middle(x) if is_dtensor(x) else x
+
+
+def _whole_middle(x):
+    """DTensor ``x`` gathered along any dim between its first and last."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    middle = [isinstance(p, Shard) and 0 < p.dim % x.ndim < x.ndim - 1
+              for p in x.placements]
+    if not any(middle):
+        return x
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if m else p
+                           for p, m in zip(x.placements, middle)])
+
+
+class _WholeMiddleGrad(torch.autograd.Function):
+    """The identity, whose backward gathers the gradient's middle dims
+    (a product's output may take the SP residual's sequence-sharded
+    gradient, which its backward flattens)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_middle(g)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``.  A DTensor ``x`` sharded on a middle dim (the sequence
+    of the SP residual) is gathered along it first, as Megatron-SP gathers
+    the sequence before a column-parallel product, and so is the output's
+    gradient: the product flattens the leading dims, which DTensor does
+    only where the first is the one sharded."""
+    if not is_dtensor(x):
+        return x @ w
+    out = _whole_middle(x) @ w
+    return _WholeMiddleGrad.apply(out) if out.ndim > 2 else out
+
+
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.w.to(x.dtype)
+    return matmul(x, p.w.to(x.dtype))
 
 
 class MLP(nn.Module):
@@ -119,6 +172,7 @@ ACTS = {"silu": F.silu, "gelu": _gelu}
 def mlp(p: MLP, x: torch.Tensor, *, gated: bool = True,
         act: str = "silu") -> torch.Tensor:
     a = ACTS[act]
+    x = gather_seq(x)
     up = dense(p.up, x)
     h = a(dense(p.gate, x)) * up if gated else a(up)
     return dense(p.down, h)
@@ -144,8 +198,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     splits in half (not interleaved)."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
-    c = cos[..., None, :].to(x.dtype)  # broadcast over the head axis
-    s = sin[..., None, :].to(x.dtype)
+    c = like(cos[..., None, :].to(x.dtype), x)  # broadcast over the heads
+    s = like(sin[..., None, :].to(x.dtype), x)
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
@@ -163,10 +217,37 @@ def init_embedding(gen, vocab: int, d: int) -> Embedding:
 
 
 def embed(p: Embedding, tokens: torch.Tensor,
-          dtype=torch.bfloat16) -> torch.Tensor:
-    return p.table.to(dtype)[tokens.long()]
+          dtype=torch.bfloat16, sharder=None) -> torch.Tensor:
+    """The rows of the table (cast to ``dtype``) at ``tokens``.  On a mesh
+    (``sharder``) a vocab-parallel island: each rank looks up the tokens
+    of its vocabulary slice (zeros elsewhere) and the rows are summed over
+    tp; the table's d axis is gathered over its FSDP axis first."""
+    if sharder is None or sharder.mesh is None:
+        return p.table.to(dtype)[tokens.long()]
+    table = grad_in_layout(p.table).to(dtype)
+    from .sharding import island, psum
+
+    vocab = table.shape[0]
+    v_ok = vocab % sharder.tp_size == 0
+    b_ok = tokens.shape[0] % sharder.dp_size == 0
+    bspec = (sharder.dp if b_ok else None,) + (None,) * (tokens.ndim - 1)
+    v_loc = vocab // sharder.tp_size if v_ok else vocab
+    v0 = sharder.index(sharder.tp) * v_loc if v_ok else 0
+
+    def body(tok, tab):
+        tok = tok.long()
+        if not v_ok:
+            return F.embedding(tok, tab)
+        ids = tok - v0
+        mine = (ids >= 0) & (ids < v_loc)
+        rows = F.embedding(torch.where(mine, ids, 0), tab)
+        rows = rows * mine[..., None].to(rows.dtype)
+        return psum(rows, sharder.group(sharder.tp))
+    return island(sharder, body, (tokens, table),
+                  (bspec, (sharder.tp if v_ok else None, None)),
+                  bspec + (None,))
 
 
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Logits against the embedding table (or a separate lm head table)."""
-    return x @ p.table.to(x.dtype).T
+    return matmul(x, grad_in_layout(p.table).to(x.dtype).T)

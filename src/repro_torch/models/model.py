@@ -30,11 +30,25 @@ only the body's input and recomputes the rest in the backward: the
 reference's ``jax.checkpoint`` with the ``nothing_saveable`` policy.  It
 applies only where autograd records (grad enabled) and there is no cache.
 
-Sharded models wait for a later slice (``ROADMAP.md`` queue 1, item 7d).
+On a mesh (``Model(cfg, mesh=...)``, a ``launch.mesh.Mesh`` over the
+ranks of the default process group) every parameter is a DTensor laid out
+by ``sharding.param_specs`` and the activations are DTensors whose layout
+``self.sh`` (a ``Sharder``) constrains where the reference does: the
+batch over dp after the embedding and after each block, the sequence over
+tp too in training (the SP residual; off with a cache), the logits'
+vocabulary over tp.  Two parts run as islands on local tensors, as the
+reference's ``shard_map``s: the MoE (experts over ``model``, their tables
+gathered over ``data`` after the cast to the compute dtype, offset
+``rank_in_model * E / tp``) and context-parallel attention where the heads
+do not divide over tp (``_cp_mesh``).  The cache is placed by
+``kv_cache_spec`` and written in each rank's local piece.  A sharded
+model draws the same numbers as an unsharded one from the same generator:
+every rank draws every full tensor and keeps its slice.
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import torch
@@ -42,10 +56,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from types import SimpleNamespace
+
 from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import ssm as S
+from .sharding import (Sharder, all_reduce_nograd, distribute, is_dtensor,
+                       island, leave, like, param_specs, pmean, psum)
 
 KINDS = ("gqa", "gemma", "musicgen", "gqa_moe", "mla_moe", "vlm", "xlstm",
          "hymba")
@@ -91,13 +109,23 @@ def _at(tree: dict, *index) -> dict:
     return _map(lambda t: t[index], tree)
 
 
+def _copy_into(view: torch.Tensor, new: torch.Tensor) -> None:
+    """``view.copy_(new)``; a DTensor view is written in its local piece,
+    ``new`` laid out like it first."""
+    if is_dtensor(view):
+        src = new.redistribute(view.device_mesh, view.placements)
+        view.to_local().copy_(src.to_local())
+    else:
+        view.copy_(new)
+
+
 def _store(views: dict, new: dict) -> None:
     """Write each new state into its cache view, in the view's dtype."""
     for name, view in views.items():
         if isinstance(view, dict):
             _store(view, new[name])
         else:
-            view.copy_(new[name])
+            _copy_into(view, new[name])
 
 
 def _maybe_remat(on: bool, body, *args):
@@ -112,16 +140,14 @@ class Model:
     def __init__(self, cfg: ArchConfig, mesh=None,
                  device: str | torch.device | None = None,
                  remat: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded models come with models/sharding.py "
-                "(ROADMAP.md queue 1 item 7d)")
         if cfg.block_kind not in KINDS:
             raise ValueError(f"unknown block_kind {cfg.block_kind}")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device("cuda:0" if device is None else device)
         # as the reference: a model of two layers or fewer never remats
         self.remat = remat and cfg.n_layers > 2
+        self.sh = Sharder(mesh, device=self.device)
 
     # --------------------------- init ------------------------------------
     def init_params(self, gen: torch.Generator) -> Params:
@@ -130,7 +156,20 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
-        return self._build(gen)
+        return self.shard(self._build(gen))
+
+    def shard(self, params: Params) -> Params:
+        """``params`` (the same full tensors on every rank) as DTensors
+        laid out by ``param_specs``, each rank keeping its slice; the
+        identity without a mesh."""
+        if self.mesh is None:
+            return params
+        specs = param_specs(params, self.mesh)
+        state = {k: distribute(v.detach(), specs[k], self.sh)
+                 for k, v in params.state_dict().items()}
+        shell = self._shell()
+        shell.load_state_dict(state, assign=True)
+        return shell
 
     def _shell(self) -> Params:
         """The parameter tree on the ``meta`` device: names and shapes."""
@@ -274,9 +313,12 @@ class Model:
         cfg = self.cfg
         if cfg.n_codebooks:
             tables = params.embed.table.to(cfg.dtype)  # (nq, V, d)
-            return sum(tables[q][tokens[..., q].long()]
+            return sum(L.embed(SimpleNamespace(table=tables[q]),
+                               tokens[..., q], cfg.dtype,
+                               sharder=self._sharder)
                        for q in range(cfg.n_codebooks))
-        return L.embed(params.embed, tokens, cfg.dtype)
+        return L.embed(params.embed, tokens, cfg.dtype,
+                       sharder=self._sharder)
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = getattr(params, "lm_head", params.embed)
@@ -286,6 +328,12 @@ class Model:
         return L.unembed(head, x)
 
     # --------------------------- blocks ------------------------------------
+    @property
+    def _sharder(self):
+        """The sharder the layers take: the model's on a mesh, else
+        None."""
+        return self.sh if self.mesh is not None else None
+
     def _attn_block(self, p: Block, x, *, positions, is_global=None,
                     cache=None, kv_len=None):
         cfg = self.cfg
@@ -295,25 +343,83 @@ class Model:
                 p.attn, h, n_heads=cfg.n_heads, kv_lora=cfg.kv_lora_rank,
                 nope_dim=cfg.qk_nope_dim, rope_dim=cfg.qk_rope_dim,
                 v_dim=cfg.v_head_dim, positions=positions,
-                rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len)
+                rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len,
+                sharder=self._sharder)
         else:
             y, _ = A.attention(
                 p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, positions=positions,
                 rope_theta=cfg.rope_theta, window=cfg.window,
                 is_global=is_global, qk_norm=cfg.qk_norm, cache=cache,
-                kv_len=kv_len)
-        return x + y
+                kv_len=kv_len, cp_mesh=self._cp_mesh(),
+                sharder=self._sharder)
+        return self._residual(x, y)
+
+    def _residual(self, x, y):
+        """``x + y`` on the residual stream, constrained by ``sh.acts``.
+        On a mesh ``y`` (a row-parallel product's partial sum, an island's
+        output) is laid out as ``x`` first, explicitly: the SP
+        reduce-scatter, and in the backward both terms' gradients in
+        ``x``'s layout."""
+        if is_dtensor(x) and is_dtensor(y) and y.placements != x.placements:
+            y = y.redistribute(x.device_mesh, x.placements)
+        return self.sh.acts(x + y)
+
+    def _cp_mesh(self):
+        """The mesh, for context-parallel attention, where head-TP is
+        impossible (``n_heads % tp != 0``); else None."""
+        if self.mesh is None:
+            return None
+        if self.cfg.n_heads % self.mesh.shape[self.sh.tp] == 0:
+            return None
+        return self.mesh
 
     def _ffn_block(self, p: Block, x):
         cfg = self.cfg
         if hasattr(p, "moe"):
-            y, aux = M.moe_ffn(p.moe, L.rms_norm(p.ln2, x), top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor)
+            y, aux = self._moe(p.moe, L.rms_norm(p.ln2, x))
         else:
             y, aux = L.mlp(p.mlp, L.rms_norm(p.ln2, x), gated=cfg.mlp_gated,
                            act=cfg.mlp_act), 0.0
-        return x + y, aux
+        return self._residual(x, y), aux
+
+    def _moe(self, p, x):
+        """The MoE; on a mesh the reference's expert-parallel island."""
+        cfg, sh = self.cfg, self.sh
+        if self.mesh is None:
+            return M.moe_ffn(p, x, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+        dp = sh.dp if x.shape[0] % sh.dp_size == 0 and x.shape[0] > 1 \
+            else None
+        xspec = (dp, None, None)
+        cd = x.dtype
+        # the expert tables cast to the compute dtype BEFORE their gather
+        # over data: the gather moves half the bytes
+        args = [x, p.router.w, p.up.to(cd), p.gate.to(cd), p.down.to(cd)]
+        specs = [xspec, (None, None), ("model", None, None),
+                 ("model", None, None), ("model", None, None)]
+        if hasattr(p, "shared"):
+            args += [p.shared.up.w, p.shared.gate.w, p.shared.down.w]
+            specs += [(None, "model"), (None, "model"), ("model", None)]
+        e_total = cfg.n_experts
+        off = sh.index("model") * (e_total // sh.tp_size)
+
+        def body(xx, router, up, gate, down, *sw):
+            w = SimpleNamespace(router=SimpleNamespace(w=router), up=up,
+                                gate=gate, down=down)
+            if sw:
+                w.shared = SimpleNamespace(
+                    up=SimpleNamespace(w=sw[0]), gate=SimpleNamespace(w=sw[1]),
+                    down=SimpleNamespace(w=sw[2]))
+            y, aux = M.moe_ffn(w, xx, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               ep_axis=sh.group("model"), expert_offset=off,
+                               n_experts_total=e_total)
+            if dp is not None:
+                for a in dp:
+                    aux = pmean(aux, sh.group(a), self.mesh.shape[a])
+            return y, aux
+        return island(sh, body, args, specs, (xspec, ()))
 
     # --------------------------- forward (train/prefill) -------------------
     def forward(self, params: Params, tokens: torch.Tensor, *,
@@ -325,6 +431,13 @@ class Model:
         the last position).  The meta tokens (hymba) are prepended where
         the sequence starts: with no cache, or at kv_len 0."""
         cfg = self.cfg
+        sh = self.sh
+        # the SP residual only where its memory matters (training)
+        sh.sp = cache is None
+        if self.mesh is not None:
+            tokens = sh.batch(tokens)
+            if image_embeds is not None:
+                image_embeds = sh.batch(image_embeds)
         x = self._embed(params, tokens)
         b = x.shape[0]
         n_meta = 0
@@ -333,9 +446,10 @@ class Model:
                 b, cfg.n_meta_tokens, x.shape[-1])
             x = torch.cat([meta, x], dim=1)
             n_meta = cfg.n_meta_tokens
+        x = sh.acts(x)
         steps = torch.arange(x.shape[1], device=x.device)
         positions = steps if kv_len is None else kv_len + steps
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = self._zero(x)
 
         kind = cfg.block_kind
         if kind in FLAT_KINDS:
@@ -364,14 +478,19 @@ class Model:
             x = x[:, n_meta:]
         if last_token_only:
             x = x[:, -1:]
-        return self._unembed(params, x), aux_total, cache
+        return sh.logits(self._unembed(params, x)), aux_total, cache
+
+    @staticmethod
+    def _zero(x):
+        """A float32 zero beside x (a replicated DTensor on a mesh)."""
+        return like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
     # ------------------ flat homogeneous stacks ----------------------------
     def _remat_on(self, cache) -> bool:
         return self.remat and cache is None and torch.is_grad_enabled()
 
     def _run_flat_stack(self, layers, x, positions, flags, cache, kv_len):
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = self._zero(x)
         remat = self._remat_on(cache)
         for i, p in enumerate(layers):
             c_in = _at(cache, i) if cache is not None else None
@@ -401,14 +520,16 @@ class Model:
                             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                             positions=positions, rope_theta=cfg.rope_theta,
                             window=cfg.window, is_global=flag,
-                            cache=cache, kv_len=kv_len)
-        ym, (new_conv, new_ssm) = S.mamba_mix(p.mamba, h, m_conv, m_ssm)
+                            cache=cache, kv_len=kv_len,
+                            cp_mesh=self._cp_mesh(), sharder=self._sharder)
+        ym, (new_conv, new_ssm) = S.mamba_mix(p.mamba, h, m_conv, m_ssm,
+                                              sharder=self._sharder)
         if cache is not None:
-            m_conv.copy_(new_conv)
-            m_ssm.copy_(new_ssm)
+            _copy_into(m_conv, new_conv)
+            _copy_into(m_ssm, new_ssm)
         y = 0.5 * (L.rms_norm(p.mix_norm_a, ya)
                    + L.rms_norm(p.mix_norm_m, ym))
-        return x + y
+        return self._residual(x, y)
 
     # ------------------------------ vlm ------------------------------------
     def _run_vlm(self, units, x, positions, image_embeds, cache, kv_len):
@@ -427,9 +548,11 @@ class Model:
                 y = A.cross_attention(cp.attn, h, image_embeds,
                                       n_heads=cfg.n_heads,
                                       n_kv=cfg.n_kv_heads,
-                                      head_dim=cfg.head_dim)
-                x = x + torch.tanh(cp.gate).to(x.dtype) * y
-                return x + L.mlp(cp.mlp, L.rms_norm(cp.ln2, x), gated=True)
+                                      head_dim=cfg.head_dim,
+                                      sharder=self._sharder)
+                x = self._residual(x, torch.tanh(cp.gate).to(x.dtype) * y)
+                return self._residual(
+                    x, L.mlp(cp.mlp, L.rms_norm(cp.ln2, x), gated=True))
             x = _maybe_remat(remat, body, x)
         return x
 
@@ -452,16 +575,19 @@ class Model:
                 elif c is not None:
                     ym, new_m = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads,
                                                  state=c["mlstm"],
-                                                 return_state=True)
+                                                 return_state=True,
+                                                 sharder=self._sharder)
                 else:
-                    ym = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads)
+                    ym = S.mlstm_sequence(unit.mlstm, h, cfg.n_heads,
+                                          sharder=self._sharder)
                 x = x + ym
                 ys, new_s = S.slstm_sequence(
                     unit.slstm, L.rms_norm(unit.s_ln, x), cfg.n_heads,
-                    state=c["slstm"] if c is not None else None)
+                    state=c["slstm"] if c is not None else None,
+                    sharder=self._sharder)
                 if c is not None:
                     _store(c, {"mlstm": new_m, "slstm": new_s})
-                return x + ys
+                return self._residual(x, ys)
             x = _maybe_remat(remat, body, x)
         return x
 
@@ -480,34 +606,87 @@ class Model:
             image_embeds=None if image is None else image.to(self.device))
         logits = logits[:, :-1].float()
         targets = tokens[:, 1:].long()
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])
-        loss = nll.mean()
+        if self.mesh is not None:
+            loss = self._sharded_nll(logits, targets)
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, targets[..., None])
+            loss = nll.mean()
         return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+
+    def _sharded_nll(self, logits, targets):
+        """The mean next-token loss of vocab-sharded logits, as an island:
+        each rank's log-sum-exp and target logit over its vocabulary
+        slice, summed over tp (the max all-reduced first), the mean over
+        its rows averaged over dp."""
+        sh = self.sh
+        vocab = logits.shape[-1]
+        v_ok = vocab % sh.tp_size == 0
+        b_ok = logits.shape[0] % sh.dp_size == 0
+        dp = sh.dp if b_ok else None
+        lspec = (dp,) + (None,) * (logits.ndim - 2) + \
+            (sh.tp if v_ok else None,)
+        tspec = (dp,) + (None,) * (targets.ndim - 1)
+        v_loc = vocab // sh.tp_size if v_ok else vocab
+        v0 = sh.index(sh.tp) * v_loc if v_ok else 0
+        tp_group = sh.group(sh.tp)
+
+        def body(lg, tg):
+            m = lg.detach().amax(-1, keepdim=True)
+            if v_ok:
+                m = all_reduce_nograd(m, "max", tp_group)
+            sumexp = torch.exp(lg - m).sum(-1)
+            ids = tg - v0
+            mine = (ids >= 0) & (ids < v_loc)
+            picked = torch.gather(lg, -1, torch.where(mine, ids, 0)[..., None]
+                                  )[..., 0] * mine
+            if v_ok:
+                sumexp = psum(sumexp, tp_group)
+                picked = psum(picked, tp_group)
+            loss = (torch.log(sumexp) + m[..., 0] - picked).mean()
+            if dp is not None:
+                for a in dp:
+                    loss = pmean(loss, sh.group(a), self.mesh.shape[a])
+            return loss
+        return island(sh, body, (logits, targets), (lspec, tspec), ())
 
     # cache plumbing -------------------------------------------------------
     def _cache_layout(self, batch_size: int, max_len: int) -> dict:
-        """The reference's cache: a nested dict of (shape, dtype, fill).
-        Positions run to ``max_len`` plus the meta tokens; KV and MLA
-        leaves are in the compute dtype, the recurrent states float32
+        """The reference's cache: a nested dict of (shape, dtype, fill,
+        spec).  Positions run to ``max_len`` plus the meta tokens; KV and
+        MLA leaves are in the compute dtype, the recurrent states float32
         (hymba's conv history in the compute dtype); the m states start at
-        -1e30."""
-        cfg = self.cfg
+        -1e30.  On a mesh ``spec`` is ``kv_cache_spec``'s layout: the batch
+        over dp where it divides (else the sequence), heads over tp where
+        they divide (else the sequence); the recurrent states over the
+        batch where it divides, else replicated."""
+        cfg, sh = self.cfg, self.sh
         dt, f32 = cfg.dtype, torch.float32
         b = batch_size
         total = max_len + cfg.n_meta_tokens
 
+        def leaf(shape, dtype=dt, fill=0.0, **axes):
+            return (shape, dtype, fill, sh.kv_cache_spec(shape, **axes))
+
+        def rep(shape, dtype=f32, fill=0.0):
+            return leaf(shape, dtype, fill, batch_axis=1, seq_axis=1,
+                        head_axis=None)
+
         def kv(*lead):
             shape = (*lead, b, total, cfg.n_kv_heads, cfg.head_dim)
-            return {"k": (shape, dt, 0.0), "v": (shape, dt, 0.0)}
+            n = len(lead)
+            axes = dict(batch_axis=n, seq_axis=n + 1, head_axis=n + 2)
+            return {"k": leaf(shape, **axes), "v": leaf(shape, **axes)}
 
         kind = cfg.block_kind
         if kind in ("gqa", "gemma", "musicgen", "gqa_moe"):
             return kv(cfg.n_layers)
         if kind == "mla_moe":
             def mla(n):
-                return {"c_kv": ((n, b, total, cfg.kv_lora_rank), dt, 0.0),
-                        "k_rope": ((n, b, total, cfg.qk_rope_dim), dt, 0.0)}
+                return {"c_kv": leaf((n, b, total, cfg.kv_lora_rank),
+                                     head_axis=None),
+                        "k_rope": leaf((n, b, total, cfg.qk_rope_dim),
+                                       head_axis=None)}
             nd = cfg.first_dense_layers
             return {"dense": mla(nd), "moe": mla(cfg.n_layers - nd)}
         if kind == "vlm":
@@ -516,30 +695,48 @@ class Model:
             nu, h = cfg.n_layers // 2, cfg.n_heads
             di = cfg.d_model * 2
             dm, ds = di // h, cfg.d_model // h
-            return {"mlstm": {"c": ((nu, b, h, dm, dm), f32, 0.0),
-                              "n": ((nu, b, h, dm), f32, 0.0),
-                              "m": ((nu, b, h), f32, -1e30),
-                              "conv": ((nu, b, cfg.conv_kernel - 1, di),
-                                       f32, 0.0)},
-                    "slstm": {"c": ((nu, b, h, ds), f32, 0.0),
-                              "n": ((nu, b, h, ds), f32, 0.0),
-                              "h": ((nu, b, h, ds), f32, 0.0),
-                              "m": ((nu, b, h, ds), f32, -1e30)}}
+            return {"mlstm": {"c": rep((nu, b, h, dm, dm)),
+                              "n": rep((nu, b, h, dm)),
+                              "m": rep((nu, b, h), fill=-1e30),
+                              "conv": rep((nu, b, cfg.conv_kernel - 1, di))},
+                    "slstm": {"c": rep((nu, b, h, ds)),
+                              "n": rep((nu, b, h, ds)),
+                              "h": rep((nu, b, h, ds)),
+                              "m": rep((nu, b, h, ds), fill=-1e30)}}
         # hymba
         n = cfg.n_layers
         return {**kv(n),
-                "conv": ((n, b, cfg.conv_kernel - 1, cfg.d_inner), dt, 0.0),
-                "ssm": ((n, b, cfg.d_inner, cfg.ssm_state), f32, 0.0)}
+                "conv": rep((n, b, cfg.conv_kernel - 1, cfg.d_inner), dt),
+                "ssm": rep((n, b, cfg.d_inner, cfg.ssm_state))}
 
     def cache_shapes(self, batch_size: int, max_len: int) -> dict:
         """``meta`` tensors of the cache's shapes and dtypes."""
         return _map(lambda d: torch.empty(d[0], dtype=d[1], device="meta"),
                     self._cache_layout(batch_size, max_len))
 
+    def cache_specs(self, batch_size: int, max_len: int) -> dict:
+        """Each cache leaf's spec on the model's mesh (``()`` without
+        one)."""
+        return _map(lambda d: d[3], self._cache_layout(batch_size, max_len))
+
     def init_cache(self, batch_size: int, max_len: int) -> dict:
-        return _map(lambda d: torch.full(d[0], d[2], dtype=d[1],
-                                         device=self.device),
-                    self._cache_layout(batch_size, max_len))
+        """The empty cache; on a mesh each leaf a DTensor laid out by its
+        spec, each rank allocating only its own piece."""
+        if self.mesh is None:
+            return _map(lambda d: torch.full(d[0], d[2], dtype=d[1],
+                                             device=self.device),
+                        self._cache_layout(batch_size, max_len))
+        sh = self.sh
+
+        def make(d):
+            shape, dtype, fill, spec = d
+            spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+            local = [n // math.prod(self.mesh.shape[a] for a in
+                                    (e if isinstance(e, tuple) else (e,)))
+                     if e is not None else n for n, e in zip(shape, spec)]
+            return leave(torch.full(local, fill, dtype=dtype,
+                                    device=self.device), spec, sh)
+        return _map(make, self._cache_layout(batch_size, max_len))
 
     def prefill(self, params, tokens, cache, image_embeds=None):
         logits, _, cache = self.forward(params, tokens, cache=cache, kv_len=0,

@@ -1,6 +1,17 @@
-"""Mixture-of-Experts FFN with token-choice top-k routing, on one device.
+"""Mixture-of-Experts FFN with token-choice top-k routing.
 
-The reference package's ``models/moe.py`` with ``ep_axis=None``.  Dispatch
+The reference package's ``models/moe.py``.  Two entry modes:
+
+- ``ep_axis=None``: one device (or data parallel only); the local experts
+  are all the experts, no collective;
+- ``ep_axis=(device mesh, mesh dim)`` inside the model's expert-parallel
+  island (``Model._moe``): the expert tables are this rank's slice
+  ``[expert_offset, expert_offset + E_local)`` of ``n_experts_total``;
+  the capacity comes from the total, the output (and the shared experts'
+  partial output, their ``d_ff`` sharded over the axis) is summed over
+  the axis and ``aux`` averaged over it.
+
+Dispatch
 is sort-free: for each expert a cumsum over the routing mask, in token
 order, gives each routed token its capacity slot; overflow tokens go to a
 trash row (slot ``cap``) and are dropped.  Every expert runs on its own
@@ -16,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import MLP, Dense, _init, _param, init_mlp, mlp
+from .sharding import pmean, psum
 
 
 class MoE(nn.Module):
@@ -55,16 +67,20 @@ def _route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
-            capacity_factor: float = 1.25):
-    """x: (B, S, d).  Returns (y, aux_loss)."""
+            capacity_factor: float = 1.25, ep_axis=None,
+            expert_offset: int = 0, n_experts_total: int | None = None):
+    """x: (B, S, d).  Returns (y, aux_loss).  With ``ep_axis`` the expert
+    tables in ``p`` are this rank's ``E_local`` experts from
+    ``expert_offset`` and ``y`` is summed over the axis."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     e = p.up.shape[0]
+    e_total = n_experts_total or e
     top_idx, top_w, aux = _route(p.router.w, xt, top_k)
-    cap = int(t * top_k / e * capacity_factor) or 1
+    cap = int(t * top_k / e_total * capacity_factor) or 1
 
-    eids = torch.arange(e, device=x.device)
+    eids = expert_offset + torch.arange(e, device=x.device)
     sel = top_idx[None] == eids[:, None, None]          # (E, T, k)
     w_tok = (top_w[None] * sel).sum(-1)                  # (E, T)
     routed = sel.any(-1)                                 # (E, T)
@@ -81,5 +97,11 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
     y = y_tok.sum(0)
 
     if hasattr(p, "shared"):
+        # with ep_axis the shared experts' d_ff is sharded over the axis:
+        # a partial output, summed with the routed experts'
         y = y + mlp(p.shared, x, gated=True).reshape(t, d)
+    if ep_axis is not None:
+        mesh, dim = ep_axis
+        y = psum(y, ep_axis)
+        aux = pmean(aux, ep_axis, mesh.shape[dim])
     return y.reshape(b, s, d), aux

@@ -17,6 +17,11 @@ Mamba: selective SSM (input-dependent dt, B, C; diagonal A).  Within a
   the associative operator, as ``jax.lax.associative_scan`` composes it,
   up to summation order); the state is carried from chunk to chunk.
 
+On a mesh the recurrences run as islands on each rank's batch rows (the
+mLSTM chunk loop, the sLSTM time loop) and, for mamba, on its channels:
+``mamba_mix(sharder=)`` shards the d_inner channels of the (B, S, d_inner,
+state) scan over tp where they divide, as the reference's does.
+
 The float32 parameters the reference multiplies without a cast
 (``slstm.wx.w``, ``slstm.rh.w``, ``mlstm.wif.w``, ``mamba.w_dt.w`` and the
 biases, ``a_log``, ``d_skip``) stay float32 here too; the other dense
@@ -29,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from .layers import (Dense, Node, _gelu, _init, dense, init_dense,
-                     init_rmsnorm, rms_norm)
+                     init_rmsnorm, matmul, rms_norm)
+from .sharding import is_dtensor, island, merge_last, split_last
 
 F32 = torch.float32
 
@@ -38,6 +44,19 @@ def _vector(gen, values: torch.Tensor) -> torch.Tensor:
     """A fixed float32 vector on the generator's device (``meta`` with no
     generator)."""
     return values.to("meta" if gen is None else gen.device)
+
+
+def _batch_island(sharder, x) -> bool:
+    """Whether the recurrence runs as an island (x is a DTensor on the
+    sharder's mesh)."""
+    return sharder is not None and sharder.mesh is not None and \
+        is_dtensor(x)
+
+
+def _bspec(sharder, b: int, nd: int) -> tuple:
+    """Batch over dp where it divides, the rest replicated."""
+    ok = b % sharder.dp_size == 0 and b > 1
+    return (sharder.dp if ok else None,) + (None,) * (nd - 1)
 
 
 # ==========================================================================
@@ -148,27 +167,13 @@ def _mlstm_out(p: Node, h, x, cx, zb):
     return dense(p.out, h)
 
 
-def mlstm_sequence(p: Node, x: torch.Tensor, n_heads: int, chunk: int = 128,
-                   state: dict | None = None, return_state: bool = False):
-    """Full-sequence mLSTM block (prefill).  x: (B, S, d).  ``state`` (the
-    decode-cache dict) seeds the recurrence; with ``return_state`` the
-    final ``{c, n, m, conv}`` (float32) is returned too, so a prefill
-    hands off to decode."""
-    b, s, _ = x.shape
-    conv_in = state["conv"] if state is not None else None
-    xb, zb, cx, conv_state = _mlstm_front(p, x, conv_in)
-    di = xb.shape[-1]
-    dh = di // n_heads
-
-    def heads(t):
-        return t.reshape(b, s, n_heads, dh).transpose(1, 2).float()
-
-    q, k = heads(dense(p.wq, cx)), heads(dense(p.wk, cx))
-    v = heads(dense(p.wv, xb))
-    gates = (xb.float() @ p.wif.w) + p.wif.b
+def _mlstm_loop(q, k, v, gates, *st, n_heads: int, chunk: int):
+    """The gates' logs and the chunk loop over q, k, v (B, H, S, dh)
+    float32 and the gate pre-activations (B, S, 2H): (h (B, H, S, dh), the
+    final state)."""
+    b, h, s, dh = q.shape
     li = gates[..., :n_heads].transpose(1, 2)          # log input gate
     lf = F.logsigmoid(gates[..., n_heads:]).transpose(1, 2)
-
     lc = min(chunk, s)
     nchunks = -(-s // lc)
     pad = nchunks * lc - s
@@ -176,21 +181,54 @@ def mlstm_sequence(p: Node, x: torch.Tensor, n_heads: int, chunk: int = 128,
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         li = F.pad(li, (0, pad), value=-1e30)
         lf = F.pad(lf, (0, pad))
-
-    if state is not None:
-        st = (state["c"].float(), state["n"].float(), state["m"].float())
-    else:
-        st = (torch.zeros((b, n_heads, dh, dh), dtype=F32, device=x.device),
-              torch.zeros((b, n_heads, dh), dtype=F32, device=x.device),
-              torch.full((b, n_heads), -1e30, dtype=F32, device=x.device))
+    if not st:
+        st = (torch.zeros((b, h, dh, dh), dtype=F32, device=q.device),
+              torch.zeros((b, h, dh), dtype=F32, device=q.device),
+              torch.full((b, h), -1e30, dtype=F32, device=q.device))
     hs = []
     for i in range(nchunks):
         part = slice(i * lc, (i + 1) * lc)
-        h, st = _mlstm_chunk(q[:, :, part], k[:, :, part], v[:, :, part],
-                             li[..., part], lf[..., part], st)
-        hs.append(h)
-    h = torch.cat(hs, dim=2)[:, :, :s]
-    h = h.transpose(1, 2).reshape(b, s, di)
+        hh, st = _mlstm_chunk(q[:, :, part], k[:, :, part], v[:, :, part],
+                              li[..., part], lf[..., part], st)
+        hs.append(hh)
+    return (torch.cat(hs, dim=2)[:, :, :s],) + tuple(st)
+
+
+def mlstm_sequence(p: Node, x: torch.Tensor, n_heads: int, chunk: int = 128,
+                   state: dict | None = None, return_state: bool = False,
+                   sharder=None):
+    """Full-sequence mLSTM block (prefill).  x: (B, S, d).  ``state`` (the
+    decode-cache dict) seeds the recurrence; with ``return_state`` the
+    final ``{c, n, m, conv}`` (float32) is returned too, so a prefill
+    hands off to decode.  On a mesh the chunk loop is an island over the
+    batch."""
+    b, s, _ = x.shape
+    conv_in = state["conv"] if state is not None else None
+    xb, zb, cx, conv_state = _mlstm_front(p, x, conv_in)
+    di = xb.shape[-1]
+    dh = di // n_heads
+
+    def heads(t):
+        return split_last(t, n_heads, dh).transpose(1, 2).float()
+
+    q, k = heads(dense(p.wq, cx)), heads(dense(p.wk, cx))
+    v = heads(dense(p.wv, xb))
+    gates = matmul(xb.float(), p.wif.w) + p.wif.b
+    st = ()
+    if state is not None:
+        st = (state["c"].float(), state["n"].float(), state["m"].float())
+    args = (q, k, v, gates) + st
+
+    def loop(*a):
+        return _mlstm_loop(*a, n_heads=n_heads, chunk=chunk)
+    if _batch_island(sharder, q):
+        specs = [_bspec(sharder, b, t.ndim) for t in args]
+        out_specs = (_bspec(sharder, b, 4), _bspec(sharder, b, 4),
+                     _bspec(sharder, b, 3), _bspec(sharder, b, 2))
+        h, *st = island(sharder, loop, args, specs, out_specs)
+    else:
+        h, *st = loop(*args)
+    h = merge_last(h.transpose(1, 2))
     y = _mlstm_out(p, h, x, cx, zb)
     if return_state:
         return y, {"c": st[0], "n": st[1], "m": st[2],
@@ -216,10 +254,9 @@ def mlstm_decode(p: Node, x: torch.Tensor, cache: dict, n_heads: int):
     xb, zb, cx, conv_state = _mlstm_front(p, x, cache["conv"])
     di = xb.shape[-1]
     dh = di // n_heads
-    hshape = (b, n_heads, dh)
-    q = dense(p.wq, cx)[:, 0].reshape(hshape).float() * dh ** -0.5
-    k = dense(p.wk, cx)[:, 0].reshape(hshape).float()
-    v = dense(p.wv, xb)[:, 0].reshape(hshape).float()
+    q = split_last(dense(p.wq, cx)[:, 0], n_heads, dh).float() * dh ** -0.5
+    k = split_last(dense(p.wk, cx)[:, 0], n_heads, dh).float()
+    v = split_last(dense(p.wv, xb)[:, 0], n_heads, dh).float()
     gates = (xb[:, 0].float() @ p.wif.w) + p.wif.b
     li, lf = gates[..., :n_heads], F.logsigmoid(gates[..., n_heads:])
     m_new = torch.maximum(lf + cache["m"], li)
@@ -231,7 +268,7 @@ def mlstm_decode(p: Node, x: torch.Tensor, cache: dict, n_heads: int):
     num = torch.einsum("bhd,bhde->bhe", q, c)
     den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(),
                         torch.exp(-m_new))[..., None]
-    h = (num / den).reshape(b, 1, di)
+    h = merge_last(num / den)[:, None]
     y = _mlstm_out(p, h, x, cx, zb)
     return y, {"c": c, "n": n, "m": m_new, "conv": conv_state}
 
@@ -252,21 +289,13 @@ def init_slstm(gen, d: int, n_heads: int) -> Node:
         down=init_dense(gen, int(d * 4 / 3), d))
 
 
-def slstm_sequence(p: Node, x: torch.Tensor, n_heads: int,
-                   state: dict | None = None):
-    """x: (B, S, d), a loop over time (a true recurrence).  Returns (y,
-    state); the state is ``{c, n, h, m}``, each (B, H, dh) float32."""
-    b, s, d = x.shape
-    dh = d // n_heads
-    wx = (x.float() @ p.wx.w) + p.bias                  # (B, S, 4d)
-    wx = wx.reshape(b, s, 4, n_heads, dh)
-    if state is None:
-        z = torch.zeros((b, n_heads, dh), dtype=F32, device=x.device)
-        state = {"c": z, "n": z, "h": z,
-                 "m": torch.full((b, n_heads, dh), -1e30, dtype=F32,
-                                 device=x.device)}
-    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-    rh = p.rh.w                                         # (H, dh, 4dh)
+def _slstm_loop(wx, rh, c=None, n=None, h=None, m=None):
+    """The time loop: (h of every step (B, S, H, dh), c, n, h, m)."""
+    b, s, _, n_heads, dh = wx.shape
+    if c is None:
+        z = torch.zeros((b, n_heads, dh), dtype=F32, device=wx.device)
+        c, n, h = z, z, z
+        m = torch.full((b, n_heads, dh), -1e30, dtype=F32, device=wx.device)
     hs = []
     for t in range(s):
         rec = torch.einsum("bhd,hde->bhe", h, rh).reshape(b, n_heads, 4, dh)
@@ -283,7 +312,30 @@ def slstm_sequence(p: Node, x: torch.Tensor, n_heads: int,
         h = oo * c / torch.maximum(n.abs(), torch.exp(-m_new))
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    return torch.stack(hs, dim=1), c, n, h, m
+
+
+def slstm_sequence(p: Node, x: torch.Tensor, n_heads: int,
+                   state: dict | None = None, sharder=None):
+    """x: (B, S, d), a loop over time (a true recurrence).  Returns (y,
+    state); the state is ``{c, n, h, m}``, each (B, H, dh) float32.  On a
+    mesh the time loop is an island over the batch."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    wx = matmul(x.float(), p.wx.w) + p.bias             # (B, S, 4d)
+    wx = split_last(wx, 4, n_heads, dh)
+    st = () if state is None else \
+        (state["c"], state["n"], state["h"], state["m"])
+    if _batch_island(sharder, wx):
+        args = (wx, p.rh.w) + st
+        specs = [_bspec(sharder, b, 5), (None, None, None)] + \
+            [_bspec(sharder, b, 3)] * len(st)
+        hs, c, n, h, m = island(sharder, _slstm_loop, args, specs,
+                                (_bspec(sharder, b, 4),)
+                                + (_bspec(sharder, b, 3),) * 4)
+    else:
+        hs, c, n, h, m = _slstm_loop(wx, p.rh.w, *st)
+    y = merge_last(hs).to(x.dtype)
     y = rms_norm(p.gnorm, y)
     y = dense(p.down, _gelu(dense(p.up, y)))
     return y, {"c": c, "n": n, "h": h, "m": m}
@@ -346,29 +398,62 @@ def _mamba_scan(decay, binp, h0, chunk: int):
     return hs, h
 
 
+def _scan_out(decay, binp, h0, cmat, chunk: int):
+    """The scan and its read-out: (y (B, S, di) float32, h_final)."""
+    hs, h_fin = _mamba_scan(decay, binp, h0, chunk)
+    return torch.einsum("bsdk,bsk->bsd", hs, cmat), h_fin
+
+
 def mamba_mix(p: Node, x: torch.Tensor, conv_state=None, ssm_state=None,
-              chunk: int = 128):
+              chunk: int = 128, sharder=None):
     """Mamba mixer.  x: (B, S, d).  Returns (y, (conv_state, ssm_state)).
-    With states given it continues from them (decode: S = 1)."""
+    With states given it continues from them (decode: S = 1).
+    ``sharder``: shard the d_inner channel axis over tp (where it divides),
+    the batch over dp; the (B, S, di, st) scan tensors are the hybrid
+    archs' largest activations, and the scan runs as an island on each
+    rank's channels."""
     b, s, _ = x.shape
     di = p.in_proj.w.shape[-1] // 2
     st = p.a_log.shape[-1]
+    on_mesh = sharder is not None and sharder.mesh is not None
+    split = on_mesh and di % sharder.mesh.shape[sharder.tp] == 0
+
+    def spec(t) -> tuple:
+        """The channel-sharded layout: the reference's ``ch``."""
+        ax = t.ndim - 1 - (1 if t.shape[-1] == st else 0)
+        out = [None] * t.ndim
+        if t.shape[0] % sharder.dp_size == 0 and t.shape[0] > 1:
+            out[0] = sharder.dp
+        if split:
+            out[ax] = sharder.tp
+        return tuple(out)
+
+    def ch(t):
+        return sharder(t, *spec(t)) if split else t
+
     xz = dense(p.in_proj, x)
     xb, z = xz[..., :di], xz[..., di:]
-    cx, conv_state = conv1d(p.conv, xb, conv_state)
+    cx, conv_state = conv1d(p.conv, ch(xb), conv_state)
     cx = F.silu(cx)
 
     bc = dense(p.wx_bc, cx).float()
     bmat, cmat = bc[..., :st], bc[..., st:]
-    dt = dense(p.wx_dt, cx).float() @ p.w_dt.w + p.w_dt.b
+    dt = matmul(dense(p.wx_dt, cx).float(), p.w_dt.w) + p.w_dt.b
     dt = F.softplus(dt)                                  # (B, S, di)
     a = -torch.exp(p.a_log)                              # (di, st)
-    decay = torch.exp(dt[..., None] * a)                 # (B, S, di, st)
-    binp = (dt * cx.float())[..., None] * bmat[:, :, None, :]
+    decay = ch(torch.exp(dt[..., None] * a))             # (B, S, di, st)
+    binp = ch((dt * cx.float())[..., None] * bmat[:, :, None, :])
     if ssm_state is None:
         ssm_state = torch.zeros((b, di, st), dtype=F32, device=x.device)
-    hs, h_fin = _mamba_scan(decay, binp, ssm_state, chunk)
-    y = torch.einsum("bsdk,bsk->bsd", hs, cmat)
+    if on_mesh and is_dtensor(decay):
+        y, h_fin = island(
+            sharder, lambda d_, b_, h_, c_: _scan_out(d_, b_, h_, c_, chunk),
+            (decay, binp, ssm_state, cmat),
+            (spec(decay), spec(binp), spec(ssm_state), spec(cmat)[:1]
+             + (None, None)),
+            (spec(decay)[:3], spec(ssm_state)))
+    else:
+        y, h_fin = _scan_out(decay, binp, ssm_state, cmat, chunk)
     y = y + cx.float() * p.d_skip
     y = y.to(x.dtype) * F.silu(z)
     return dense(p.out_proj, y), (conv_state, h_fin)

@@ -10,11 +10,33 @@ same peaks ``chip_smoke.py`` bounds every kernel by.
 Also the reference's LM formulas: ``active_params`` (parameters a token
 uses, embeddings excluded) and ``model_flops`` (6·N·D for a training
 step, 2·N·D for inference), for every block kind.
+
+And the report half: dry-run records (``launch/dryrun.py``) -> the
+three-term roofline table.  Terms, in seconds per device (the records'
+counts are per device already):
+
+  compute    = flops_per_device / PEAK_FLOPS
+  memory     = dot_bytes_per_device / HBM_BW   (the products' operand and
+               output traffic: an upper bound on HBM movement)
+  collective = collectives.total_bytes / COLL_BW
+
+The constants are the H100 SXM's, never the reference's TPU v5e figures:
+989e12 dense bf16 flop/s (tensor cores, no sparsity) and 3.35e12 B/s
+HBM3, from NVIDIA's H100 data sheet.  A 16-rank axis of the production
+meshes spans two 8-GPU nodes, so its collectives run at the inter-node
+rate, not NVLink's: COLL_BW is one NDR InfiniBand port per GPU, 400 Gb/s =
+50e9 B/s (the DGX H100's eight ConnectX-7 ports, one a GPU).
+
+    PYTHONPATH=src python -m repro_torch.roofline.analysis --dir build/dryrun
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import math
+import os
+from dataclasses import dataclass
 
 from repro_torch.configs.base import SHAPES, get_config
 
@@ -139,3 +161,107 @@ def model_flops(arch: str, shape: str) -> float:
     if sp.mode == "prefill":
         return 2.0 * act * sp.global_batch * sp.seq_len
     return 2.0 * act * sp.global_batch  # one new token per sequence
+
+
+# --------------------------------------------------------------------------
+# the report: dry-run records -> the roofline table
+# --------------------------------------------------------------------------
+#: H100 SXM dense bf16 tensor-core flop/s (data sheet, without sparsity)
+PEAK_FLOPS = 989e12
+#: H100 SXM HBM3 bytes/s
+HBM_BW = 3.35e12
+#: one NDR InfiniBand port a GPU (400 Gb/s): a 16-rank axis spans nodes
+COLL_BW = 50e9
+CHIPS = {"16x16": 256, "2x16x16": 512}
+
+
+@dataclass
+class RooflineRow:
+    arch: str
+    shape: str
+    mesh: str
+    status: str
+    compute_s: float = 0.0
+    memory_s: float = 0.0
+    collective_s: float = 0.0
+    dominant: str = "-"
+    model_flops: float = 0.0
+    hlo_flops: float = 0.0
+    useful_ratio: float = 0.0
+    roofline_fraction: float = 0.0
+    lower_s: float = 0.0
+
+    def bound_time(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def row_from_record(rec: dict) -> RooflineRow:
+    row = RooflineRow(rec["arch"], rec["shape"], rec["mesh"],
+                      str(rec["status"]))
+    if rec["status"] != "ok":
+        return row
+    chips = CHIPS.get(rec["mesh"])
+    if chips is None:
+        # an unfamiliar dry-run mesh is a skipped row, not a crash
+        row.status = f"skipped: unknown mesh {rec['mesh']}"
+        return row
+    row.compute_s = rec["flops_per_device"] / PEAK_FLOPS
+    row.memory_s = rec["dot_bytes_per_device"] / HBM_BW
+    row.collective_s = rec["collectives"]["total_bytes"] / COLL_BW
+    terms = {"compute": row.compute_s, "memory": row.memory_s,
+             "collective": row.collective_s}
+    row.dominant = max(terms, key=terms.get)
+    row.model_flops = model_flops(rec["arch"], rec["shape"])
+    row.hlo_flops = rec["flops_per_device"] * chips
+    row.useful_ratio = row.model_flops / row.hlo_flops if row.hlo_flops \
+        else 0.0
+    # fraction of ideal: the time at peak for the MODEL flops over the
+    # bound step time
+    ideal = row.model_flops / chips / PEAK_FLOPS
+    bt = row.bound_time()
+    row.roofline_fraction = ideal / bt if bt else 0.0
+    row.lower_s = rec.get("lower_s", 0.0)
+    return row
+
+
+def load_rows(dryrun_dir: str, mesh: str | None = "16x16"
+              ) -> list[RooflineRow]:
+    rows = []
+    for path in sorted(glob.glob(os.path.join(dryrun_dir, "*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        if mesh is not None and rec.get("mesh") != mesh:
+            continue
+        rows.append(row_from_record(rec))
+    return rows
+
+
+def markdown_table(rows: list[RooflineRow]) -> str:
+    hdr = ("| arch | shape | status | compute (ms) | memory (ms) | "
+           "collective (ms) | dominant | useful (6ND/counted) | "
+           "roofline frac |")
+    lines = [hdr, "|" + "---|" * 9]
+    for r in rows:
+        if r.status != "ok":
+            lines.append(f"| {r.arch} | {r.shape} | {r.status} | - | - | "
+                         "- | - | - | - |")
+            continue
+        lines.append(
+            f"| {r.arch} | {r.shape} | ok | {r.compute_s*1e3:.1f} | "
+            f"{r.memory_s*1e3:.1f} | {r.collective_s*1e3:.1f} | "
+            f"**{r.dominant}** | {r.useful_ratio:.2f} | "
+            f"{r.roofline_fraction:.1%} |")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default="build/dryrun")
+    ap.add_argument("--mesh", default="16x16")
+    args = ap.parse_args(argv)
+    print(markdown_table(load_rows(args.dir, args.mesh)))
+
+
+if __name__ == "__main__":
+    main()

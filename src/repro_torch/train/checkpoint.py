@@ -19,6 +19,11 @@ one written by either package restores in the other:
 - ``keep`` rotates old checkpoints; ``save_async`` copies to the host
   first, then hands the file writes to a thread so the device keeps
   stepping.
+- Mesh-independent, as the reference's: a sharded run's DTensor leaves
+  are gathered whole on save (every rank joins) and rank 0 alone writes;
+  on restore each leaf is laid out like the template's (``param_specs``
+  on whatever mesh restores it), so a checkpoint crosses between meshes,
+  the unsharded port and the reference.
 - numpy has no bfloat16.  A bf16 tensor is written as its raw 2-byte
   values (dtype ``|V2``, which is also what the reference writes for a
   ``jnp.bfloat16`` leaf) and read back as bf16 wherever the template's
@@ -39,6 +44,23 @@ from torch import nn
 from repro_torch.models.convert import (from_table, named_tensors,
                                         opt_state_from_table,
                                         opt_state_table, reference_table)
+from repro_torch.models.sharding import is_dtensor
+
+
+def _sharded(params) -> bool:
+    return any(is_dtensor(t) for t in named_tensors(params).values())
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process with no group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _host_tables(params, opt_state) -> dict[str, dict[str, np.ndarray]]:
@@ -54,7 +76,11 @@ def _fill(template, table: dict, prefix: str = ""):
     if isinstance(template, nn.Module):
         with torch.no_grad():
             for name, p in named_tensors(template).items():
-                p.copy_(from_table(table, name, p, prefix))
+                new = from_table(table, name, p, prefix)
+                if is_dtensor(p):
+                    p.to_local().copy_(new.to_local())
+                else:
+                    p.copy_(new)
         return template
     out = {}
     for key, value in template.items():
@@ -76,13 +102,21 @@ class CheckpointManager:
     def save(self, step: int, params, opt_state: dict | None = None,
              extra: dict | None = None) -> str:
         self.wait()  # one async write in flight at a time
-        return self._write(step, _host_tables(params, opt_state),
-                           extra or {})
+        host = _host_tables(params, opt_state)
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        if _writer():
+            path = self._write(step, host, extra or {})
+        if _sharded(params):
+            _barrier()  # the files exist before any rank reads them
+        return path
 
     def save_async(self, step: int, params, opt_state: dict | None = None,
                    extra: dict | None = None) -> None:
         self.wait()
         host = _host_tables(params, opt_state)  # the host copy, taken now
+        self._sync = _sharded(params)
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra or {}), daemon=True)
         self._thread.start()
@@ -91,6 +125,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if getattr(self, "_sync", False):
+            self._sync = False
+            _barrier()
 
     def _write(self, step: int, host: dict, extra: dict) -> str:
         final = os.path.join(self.dir, f"step_{step:08d}")

@@ -47,5 +47,6 @@ def decompress_tree(q_tree: dict, s_tree: dict) -> dict:
 
 def init_residual(params) -> dict:
     """Zero float32 residuals beside each parameter."""
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {k: torch.zeros_like(p, dtype=torch.float32,
+                                requires_grad=False)
             for k, p in named_tensors(params).items()}

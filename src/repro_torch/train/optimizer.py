@@ -21,6 +21,12 @@ decayed and only top-level vectors (``final_norm.scale``) are not.  The
 port keeps one tensor per layer and takes the rank the reference sees
 (``ROADMAP.md`` queue 3, fault 7 of the reference), so that the two
 packages' trajectories compare.
+
+On a mesh the parameters, the gradients and the moments are DTensors of
+one layout per leaf (``sharding.param_specs``).  The update is elementwise,
+so it runs on each rank's local pieces; only the clip's norm needs the
+whole tree: each rank sums the squares of its pieces, a leaf replicated
+over some mesh axes counted once, and one all-reduce sums them.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.convert import named_tensors, reference_key
+from repro_torch.models.sharding import is_dtensor, local
 
 
 @dataclass(frozen=True)
@@ -68,9 +75,32 @@ def init_opt_state(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """The L2 norm of every leaf together, in float32."""
-    leaves = [g.float() for g in named_tensors(tree).values()]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    """The L2 norm of every leaf together, in float32 (a plain tensor).
+    DTensor leaves count their whole global tensor: each rank's squares
+    over its pieces, divided by the number of ranks holding the same
+    piece, summed over the mesh."""
+    leaves = list(named_tensors(tree).values())
+    if not any(is_dtensor(g) for g in leaves):
+        leaves = [g.float() for g in leaves]
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(leaves)))
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.sharding import all_reduce_nograd
+
+    mesh = next(g for g in leaves if is_dtensor(g)).device_mesh
+    norms = torch._foreach_norm([local(g).float() for g in leaves])
+    # the ranks holding each piece: every rank for a plain leaf
+    copies = [math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                        if not isinstance(p, Shard))
+              if is_dtensor(g) else mesh.size() for g in leaves]
+    weights = [1.0 / c for c in copies]
+    sq = torch.stack(norms) ** 2
+    total = (sq * torch.tensor(weights, dtype=sq.dtype,
+                               device=sq.device)).sum()
+    for dim in range(mesh.ndim):
+        total = all_reduce_nograd(total, "sum", (mesh, dim))
+    return torch.sqrt(total)
 
 
 def _decay_mask(params) -> dict[str, float]:
@@ -88,9 +118,9 @@ def adamw_update(cfg: OptConfig, params, grads: dict, state: dict):
     device) and ``lr``."""
     named = named_tensors(params)
     names = list(named)
-    p = [named[k] for k in names]
-    m = [state["m"][k] for k in names]
-    v = [state["v"][k] for k in names]
+    p = [local(named[k]) for k in names]
+    m = [local(state["m"][k]) for k in names]
+    v = [local(state["v"][k]) for k in names]
     step = state["step"]
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -99,7 +129,7 @@ def adamw_update(cfg: OptConfig, params, grads: dict, state: dict):
     bc1 = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t)
     bc2 = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t)
 
-    g = torch._foreach_mul([grads[k].float() for k in names], scale)
+    g = torch._foreach_mul([local(grads[k]).float() for k in names], scale)
     torch._foreach_mul_(m, cfg.b1)
     torch._foreach_add_(m, g, alpha=1 - cfg.b1)
     torch._foreach_mul_(v, cfg.b2)

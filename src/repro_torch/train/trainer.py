@@ -16,6 +16,14 @@ Fault-tolerance model:
 A step is eager: autograd's backward through the model, then AdamW's
 ``_foreach`` update in place.  Its time is the host clock around the step
 after a synchronize, so it spans the device work.
+
+Sharded training (``Trainer(model, data, cfg, mesh=...)``, the model
+built on the same mesh): parameters, ``m`` and ``v`` are DTensors laid
+out by ``param_specs`` and ``step`` is a host scalar every rank holds.
+Every rank draws the same global batch (the pipeline's seed does not
+depend on the rank) and the model takes its dp rows, as the reference's
+``in_shardings`` do; each microbatch still shards over dp, so there are
+at most ``global_batch // dp`` of them.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from repro_torch.models.convert import named_tensors
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import is_dtensor, local
 from . import compression
 from .checkpoint import CheckpointManager
 from .optimizer import OptConfig, adamw_update, init_opt_state
@@ -68,9 +77,20 @@ def value_and_grad(model: Model, params, batch: dict):
     with torch.enable_grad():
         total, metrics = model.loss_fn(params, batch)
         grads = torch.autograd.grad(total, list(named.values()))
-    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-               for k, v in metrics.items()}
-    return (total.detach(), metrics), dict(zip(named, grads))
+    # a sharded gradient in its parameter's layout; values whole
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if is_dtensor(g) and g.placements != p.placements else g
+             for g, p in zip(grads, named.values())]
+    metrics = {k: _whole(v) for k, v in metrics.items()}
+    return (_whole(total), metrics), dict(zip(named, grads))
+
+
+def _whole(v):
+    """A metric detached, a DTensor gathered whole."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    v = v.detach()
+    return v.full_tensor() if is_dtensor(v) else v
 
 
 def build_train_step(model: Model, opt_cfg: OptConfig, microbatches: int = 1,
@@ -93,10 +113,10 @@ def build_train_step(model: Model, opt_cfg: OptConfig, microbatches: int = 1,
             if acc is None:
                 acc = {k: g.float() for k, g in grads.items()}
             else:
-                torch._foreach_add_(list(acc.values()),
-                                    [grads[k] for k in acc])
+                torch._foreach_add_([local(a) for a in acc.values()],
+                                    [local(grads[k]) for k in acc])
             del grads
-        torch._foreach_div_(list(acc.values()), microbatches)
+        torch._foreach_div_([local(a) for a in acc.values()], microbatches)
         return acc, metrics  # the last microbatch's metrics
 
     if not grad_compression:
@@ -119,14 +139,13 @@ def build_train_step(model: Model, opt_cfg: OptConfig, microbatches: int = 1,
 
 class Trainer:
     def __init__(self, model: Model, data, cfg: TrainConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded training comes with models/sharding.py "
-                "(ROADMAP.md queue 1 item 7d)")
+        if mesh is not None and model.mesh is not mesh:
+            raise ValueError(f"the model is not built on the trainer's "
+                             f"mesh {mesh}: build Model(cfg, mesh=mesh)")
         self.model = model
         self.data = data
         self.cfg = cfg
-        self.mesh = mesh
+        self.mesh = model.mesh
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints)
         self._stop = False
         self._step_times: list[float] = []
@@ -163,7 +182,14 @@ class Trainer:
             if verbose:
                 print(f"[trainer] resumed from step {start_step}")
 
-        step_fn = build_train_step(model, cfg.opt, cfg.microbatches,
+        micro = cfg.microbatches
+        if self.mesh is not None:
+            # each microbatch must still shard over dp
+            batch = getattr(getattr(self.data, "cfg", None),
+                            "global_batch", None)
+            if batch is not None:
+                micro = min(micro, max(1, batch // model.sh.dp_size))
+        step_fn = build_train_step(model, cfg.opt, micro,
                                    cfg.grad_compression)
         residual = compression.init_residual(params) \
             if cfg.grad_compression else None

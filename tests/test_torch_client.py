@@ -387,7 +387,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    'llama_3_2_vision_90b', 'xlstm_350m', 'hymba_1_5b',\n"
         "    'musicgen_medium')]\n"
         "need += ['repro_torch.models.' + m for m in (\n"
-        "    'layers', 'attention', 'moe', 'ssm', 'model', 'convert')]\n"
+        "    'layers', 'attention', 'moe', 'ssm', 'model', 'convert',\n"
+        "    'sharding')]\n"
+        "need += ['repro_torch.launch.dryrun',\n"
+        "         'repro_torch.roofline.op_count']\n"
         "need += ['repro_torch.train.' + m for m in (\n"
         "    'optimizer', 'compression', 'checkpoint', 'trainer')]\n"
         "need += ['repro_torch.launch.train',\n"

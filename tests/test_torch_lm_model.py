@@ -615,8 +615,16 @@ def test_every_config_builds(arch):
 
 
 def test_sharded_model_raises():
-    with pytest.raises(NotImplementedError, match="7d"):
-        Model(base.get_config("qwen3-1.7b"), mesh=object(), device="cpu")
+    """A model on a mesh needs a default process group of the mesh's
+    size: without one (or with another size) it raises when it lays out
+    its parameters."""
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = base.get_config("qwen3-1.7b").reduced(n_layers=1)
+    model = Model(cfg, mesh=make_mesh((2, 2), ("data", "model")),
+                  device="cpu")
+    with pytest.raises(RuntimeError, match="default"):
+        model.init_params(torch.Generator("cpu").manual_seed(0))
 
 
 def test_init_params_needs_a_generator_on_the_device():

@@ -282,9 +282,13 @@ def test_straggler_watchdog():
 
 
 def test_trainer_and_model_refuse_a_mesh(tmp_path):
+    """The trainer takes a mesh only with a model built on it."""
+    from repro_torch.launch.mesh import make_mesh
+
     model, data, tcfg = _tiny_setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="7d"):
-        Trainer(model, data, tcfg, mesh=object())
+    with pytest.raises(ValueError, match="not built on"):
+        Trainer(model, data, tcfg, mesh=make_mesh((2, 2),
+                                                  ("data", "model")))
 
 
 # --------------------------------------------------------------------------
