@@ -187,6 +187,27 @@
    train_4k and starcoder2-7b prefill_32k at 16x16, each record's
    argument GiB, flops and collective MiB by kind and axis per device,
    rendered by ``roofline.analysis``;
+15c. runs the examples (``examples/torch_*``) through their own entry
+   points, after the sharded phase (``run_examples``): E1 the quickstart
+   on ``cuda:0`` (four nodes validated, its CSV and saved spec); E2 the
+   suite example whole at ``--reps 1`` (its failed nodes exactly its
+   ``expected_failures``: ``support_matrix``'s unsupported nodes but the
+   plain four-step client's at 19, 361, 6859, which its engine takes;
+   the six ``TorchPlanned`` nodes validated); E3 the distributed demo in
+   a child process on one ``nccl`` rank a card (3-D and 1-D rel-L2 <= 1e-3
+   against numpy, the round trip <= 1e-5, the ``TorchDistFFT1D`` node
+   validated); E4 ``torch_serve_lm.py --no-reduced`` (qwen3-1.7b at full
+   width and depth, 8 requests on 4 slots: all done, every prefill's and
+   decode step's logits finite; tokens/s); E5 ``torch_train_lm.py
+   --full-100m`` to step 150 and again to 300 on one directory (the
+   second resumes from 150; losses finite, the last below step 0's; step
+   ms by CUDA events); the kernels E1-E3 launch (the suite's MEASURE
+   sweeps and the distributed node's local engines) join the main path's
+   launch counts and their shapes the checked shapes, and the phase fails
+   if none of the five launched; E4 and E5 launch none; E6, after the dry
+   run is read, fills an EXPERIMENTS.md's two markers from DR1-DR3's
+   records (``benchmarks/update_experiments.py``: three roofline rows ok,
+   temp bytes "not counted");
 16. holds the fused fftconv kernel against its plain version and the
    float64 oracle on fixed cases (every k, ragged tiles, every tile that
    fits), then drives its path: the port's kernel table
@@ -4171,6 +4192,346 @@ def run_sharded(device, t1: dict | None = None) -> tuple[dict, dict]:
     return rows, started
 
 
+#: The examples phase (``examples/torch_*``): the files, their outputs,
+#: the distributed demo's bars (float32: the suite's rel-L2 1e-3 forward,
+#: 1e-5 for the round trip) and E5's two invocations on one directory.
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+EXAMPLES_OUT = os.path.join(ROOT, "build", "examples")
+DEMO_TOL, DEMO_ROUNDTRIP_TOL = 1e-3, 1e-5
+TRAIN_EXAMPLE_STEPS = (150, 300)
+#: E5's steps left out of its step-ms median (the first steps' allocator
+#: and kernel loading)
+TRAIN_EXAMPLE_WARMUP = 5
+
+
+def _example(name: str):
+    """An example module, imported from its file."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_log(label: str, text: str) -> str:
+    path = os.path.join(EXAMPLES_OUT, f"{label}.log")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _launched() -> dict:
+    """Per kernel, (launches, shapes) since the counts were last set to 0,
+    for the kernels that launched."""
+    return {k: (c, shapes) for k, (c, shapes) in _read_counts().items() if c}
+
+
+def _example_quickstart(device) -> dict:
+    """E1: the quickstart in ``build/examples/e1`` (its CSV and spec
+    there): four nodes validated, the saved spec reads back."""
+    from repro_torch.core.suite import SuiteSpec
+
+    ex = _example("torch_quickstart")
+    where = os.path.join(EXAMPLES_OUT, "e1")
+    os.makedirs(where, exist_ok=True)
+    buf = io.StringIO()
+    with contextlib.chdir(where), contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(buf):
+        rs = ex.main(["--device", str(device)])
+    _example_log("E1", buf.getvalue())
+    val = rs.query(op="validate")
+    fwd = {f"{lib} {ext}": mean for lib, ext, _, _, _, _, mean, _, _
+           in rs.aggregate(op="execute_forward")}
+    if rs.n_failures or len(val) != 4 or not all(r.success for r in val):
+        raise AssertionError(f"E1: {[r.error for r in rs.failures()]}")
+    if SuiteSpec.from_file(os.path.join(where, "quickstart.toml")) \
+            != ex.SPEC or not os.path.exists(os.path.join(where,
+                                                          "result.csv")):
+        raise AssertionError("E1: the saved spec or the CSV is wrong")
+    if len(fwd) != 4 or not all(math.isfinite(v) for v in fwd.values()):
+        raise AssertionError(f"E1: execute_forward aggregates {fwd}")
+    return {"example": "E1", "nodes": len(val),
+            "execute_forward_ms": fwd}
+
+
+def _example_suite(device) -> dict:
+    """E2: the suite example whole at ``--reps 1``: its failed nodes are
+    exactly its ``expected_failures`` (``support_matrix``'s unsupported
+    nodes but the plain four-step client's, whose engine takes every
+    length with prime factors up to 128), every other node validated."""
+    ex = _example("torch_fft_benchmark_suite")
+    out = os.path.join(EXAMPLES_OUT, "suite.csv")
+    buf = io.StringIO()     # the failed nodes' tracebacks go to stderr
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rs = ex.main(["--device", str(device), "--reps", "1", "-o", out])
+    _example_log("E2", buf.getvalue())
+    failed = {ex.failure_key(r.library, r.extents, r.kind, r.precision)
+              for r in rs.failures()}
+    want = ex.expected_failures(ex.MAIN_SPEC) \
+        | ex.expected_failures(ex.RIGOR_SPEC)
+    if failed != want:
+        raise AssertionError(f"E2: failed but supported "
+                             f"{sorted(failed - want)}; unsupported but "
+                             f"not failed {sorted(want - failed)}")
+    val = rs.query(op="validate")
+    planned = [r for r in val if r.library == "TorchPlanned"]
+    if len(planned) != 6 or not all(r.success for r in planned):
+        raise AssertionError(f"E2: TorchPlanned {planned}")
+    passed = sorted(ex.unsupported_nodes(ex.MAIN_SPEC) - want)
+    return {"example": "E2", "nodes": len(val), "failed": len(failed),
+            "unsupported_but_run": [list(k) for k in passed],
+            "rows": rs.n_rows,
+            "planned_forward_ms": {
+                f"{rigor} {ext}": mean
+                for lib, ext, _, _, rigor, _, mean, _, _
+                in rs.aggregate(op="execute_forward")
+                if lib == "TorchPlanned"}}
+
+
+def _example_demo() -> dict:
+    """E3: the distributed demo in a child process (its own ``nccl``
+    group, one rank a card): rel-L2 against numpy, the round trip, the
+    Suite node; returns its report (rank 0's kernel launches in it)."""
+    report = os.path.join(EXAMPLES_OUT, "demo.json")
+    if os.path.exists(report):
+        os.remove(report)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, os.path.join(EXAMPLES_DIR,
+                                      "torch_distributed_fft_demo.py"),
+         "--report", report], env=env, capture_output=True, text=True,
+        timeout=600)
+    _example_log("E3", out.stdout + out.stderr)
+    if out.returncode != 0 or not os.path.exists(report):
+        raise AssertionError(f"E3: rc {out.returncode}: "
+                             f"{(out.stdout + out.stderr)[-3000:]}")
+    with open(report) as f:
+        got = json.load(f)
+    import torch
+    bad = []
+    if got["ranks"] != torch.cuda.device_count() or got["backend"] != "nccl":
+        bad.append(f"{got['ranks']} {got['backend']} ranks")
+    for what in ("fft3d", "fft1d"):
+        if not got[what]["rel_l2"] <= DEMO_TOL:
+            bad.append(f"{what} rel-L2 {got[what]['rel_l2']:.3e}")
+    if not got["ifft1d"]["rel_l2"] <= DEMO_ROUNDTRIP_TOL:
+        bad.append(f"round trip rel-L2 {got['ifft1d']['rel_l2']:.3e}")
+    if got["suite"]["validate"] != [[True, ""]]:
+        bad.append(f"Suite node {got['suite']['validate']}")
+    if bad:
+        raise AssertionError(f"E3: {'; '.join(bad)}")
+    return got
+
+
+def _example_serve() -> dict:
+    """E4: ``torch_serve_lm.py --no-reduced`` run as a program in this
+    process (qwen3-1.7b at full width and depth, the example's defaults):
+    every request done, every prefill's and decode step's logits finite."""
+    import runpy
+
+    import torch
+
+    from repro_torch.models.model import Model
+
+    finite, clock = [], []
+    orig = {name: getattr(Model, name) for name in ("prefill",
+                                                    "decode_step")}
+
+    def watched(name):
+        def call(self, *args, **kwargs):
+            if not clock:
+                clock.append(time.perf_counter())
+            logits, cache = orig[name](self, *args, **kwargs)
+            finite.append(torch.isfinite(logits).all())
+            clock[1:] = [time.perf_counter()]
+            return logits, cache
+        return call
+
+    argv, buf = sys.argv, io.StringIO()
+    sys.argv = [os.path.join(EXAMPLES_DIR, "torch_serve_lm.py"),
+                "--no-reduced"]
+    for name in orig:
+        setattr(Model, name, watched(name))
+    rc = None
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(sys.argv[0], run_name="__main__")
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        sys.argv = argv
+        for name, fn in orig.items():
+            setattr(Model, name, fn)
+    text = buf.getvalue()
+    _example_log("E4", text)
+    m = re.search(r"\[serve\] (\d+)/(\d+) requests, (\d+) tokens in "
+                  r"([\d.]+)s \(([\d.]+) tok/s, (\d+) engine steps\)", text)
+    if rc not in (0, None) or m is None:
+        raise AssertionError(f"E4: rc {rc}: {text[-2000:]}")
+    done, total, tokens, secs, tps, steps = m.groups()
+    if done != total or int(total) != 8:
+        raise AssertionError(f"E4: {done}/{total} requests done")
+    if not finite or not bool(torch.stack(finite).all()):
+        raise AssertionError("E4: logits not finite")
+    # the serve loop's seconds on the host clock, from the first prefill
+    # to the last decode (each decode ends in the argmax's copy out)
+    wall = clock[-1] - clock[0]
+    return {"example": "E4", "requests": int(total), "tokens": int(tokens),
+            "printed_s": float(secs), "printed_tokens_per_s": float(tps),
+            "loop_s": wall, "tokens_per_s": int(tokens) / wall,
+            "engine_steps": int(steps), "logit_calls": len(finite)}
+
+
+def _example_train(device) -> dict:
+    """E5: ``torch_train_lm.py --full-100m`` to step 150, then to 300 on
+    the same directory: the second resumes from 150 and ends at 300, every
+    loss finite and the last below step 0's; step ms from CUDA events
+    around each step (``build_train_step`` wrapped)."""
+    import torch
+
+    from repro_torch.train import trainer as trainer_mod
+
+    ex = _example("torch_train_lm")
+    ckpt = os.path.join(EXAMPLES_OUT, "train_lm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses, events = [], []
+    orig = trainer_mod.build_train_step
+
+    def recording(*args, **kwargs):
+        step_fn = orig(*args, **kwargs)
+
+        def step(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(*a)
+            end.record()
+            losses.append(out[2]["loss"].detach().float())
+            events.append((start, end))
+            return out
+        return step
+
+    outs, logs = [], []
+    trainer_mod.build_train_step = recording
+    try:
+        for steps in TRAIN_EXAMPLE_STEPS:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                outs.append(ex.main(["--full-100m", "--steps", str(steps),
+                                     "--ckpt", ckpt, "--device",
+                                     str(device)]))
+            logs.append(buf.getvalue())
+    finally:
+        trainer_mod.build_train_step = orig
+    _example_log("E5", "\n".join(logs))
+    torch.cuda.synchronize(device)
+    first, second = TRAIN_EXAMPLE_STEPS
+    vals = torch.stack(losses).cpu().tolist()
+    bad = []
+    if f"[trainer] resumed from step {first}" not in logs[1] \
+            or "resumed" in logs[0]:
+        bad.append("no resume from the first run's last step")
+    if [o["step"] for o in outs] != [first, second] or len(vals) != second:
+        bad.append(f"steps {[o['step'] for o in outs]}, {len(vals)} losses")
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        bad.append(f"losses step 0 {vals[0]}, last {vals[-1]}")
+    if bad:
+        raise AssertionError(f"E5: {'; '.join(bad)}")
+    m = re.search(r"variant: ([\d.]+)M params", logs[0])
+    ms = [s.elapsed_time(e) for s, e in events]
+    step_ms = statistics.median(ms[TRAIN_EXAMPLE_WARMUP:first]
+                                + ms[first + TRAIN_EXAMPLE_WARMUP:])
+    tokens = 4 * 128        # the example's default batch x sequence
+    return {"example": "E5", "params_m": float(m.group(1)),
+            "steps": [first, second], "loss_step0": vals[0],
+            "loss_last": vals[-1], "step_ms_median": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3}
+
+
+def run_examples(device) -> dict:
+    """The examples phase, E1-E5 (E6 needs the dry run's records:
+    ``run_experiments_report`` after ``finish_dryrun``).  The launch counts
+    are set to 0 before each of E1 and E2 and read after it; E3 reports
+    its own rank's.  Returns the rows and, per kernel, the launches and
+    launch shapes of E1-E3; raises if none of the five launched."""
+    import torch
+
+    shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    os.makedirs(EXAMPLES_OUT)
+    launches, shapes, rows = {}, {}, {}
+
+    def count(label, got):
+        for kernel, (c, kshapes) in got.items():
+            launches[kernel] = launches.get(kernel, 0) + c
+            for key, n in kshapes.items():
+                shapes.setdefault(kernel, {}).setdefault(key, 0)
+                shapes[kernel][key] += n
+        rows[label]["launches"] = {k: c for k, (c, _) in got.items()}
+
+    for label, fn in (("E1", _example_quickstart), ("E2", _example_suite)):
+        t0 = time.perf_counter()
+        _reset_counts()
+        rows[label] = fn(device)
+        count(label, _launched())
+        rows[label]["run_s"] = time.perf_counter() - t0
+        emit(rows[label])
+        _free_card()
+    t0 = time.perf_counter()
+    demo = _example_demo()
+    rows["E3"] = {"example": "E3", **{k: v for k, v in demo.items()
+                                      if k != "launches"}}
+    count("E3", {k: (v["count"], {tuple(key): c for key, c in v["shapes"]})
+                 for k, v in demo["launches"].items() if v["count"]})
+    rows["E3"]["run_s"] = time.perf_counter() - t0
+    emit(rows["E3"])
+    if not any(launches.values()):
+        raise AssertionError("E1-E3 launched none of the five kernels")
+    for label, fn in (("E4", _example_serve),
+                      ("E5", lambda: _example_train(device))):
+        t0 = time.perf_counter()
+        _reset_counts()
+        rows[label] = fn()
+        if _launched():
+            raise AssertionError(f"{label} launched FFT kernels: "
+                                 f"{_launched()}")
+        rows[label]["run_s"] = time.perf_counter() - t0
+        emit({**rows[label], **card_info()})
+        _free_card()
+    torch.cuda.synchronize(device)
+    return {"rows": rows, "launches": launches, "shapes": shapes}
+
+
+def run_experiments_report() -> dict:
+    """E6: ``update_experiments`` over the dry run's DR1-DR3 records into
+    an EXPERIMENTS.md with both markers: the markers filled, every
+    roofline row ok, the perf table's temp rows "not counted" (the
+    port's records carry no temp bytes)."""
+    from repro_torch.benchmarks import update_experiments as ue
+
+    records = os.path.join(ROOT, "build", "dryrun")
+    exp = os.path.join(EXAMPLES_OUT, "EXPERIMENTS.md")
+    with open(exp, "w") as f:
+        f.write("# Experiments\n\n## Roofline\n\n<!-- ROOFLINE_TABLE -->\n\n"
+                "## Perf\n\n<!-- PERF_TABLE -->\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ue.main(["--experiments", exp, "--tuned", records,
+                      "--baseline", records, "--out",
+                      os.path.join(EXAMPLES_OUT, "roofline_table.md")])
+    with open(exp) as f:
+        text = f.read()
+    rows = [ln for ln in text.splitlines()
+            if ln.startswith("| ") and " | ok | " in ln]
+    temp = [ln for ln in text.splitlines() if "temp GiB/chip" in ln]
+    if rc != 0 or "<!--" in text or len(rows) != len(DRYRUN_CELLS) \
+            or not temp or not all("not counted" in ln for ln in temp):
+        raise AssertionError(f"E6: rc {rc}: {buf.getvalue()}\n{text}")
+    print(text, flush=True)
+    return {"example": "E6", "roofline_rows_ok": len(rows),
+            "perf_cells": len(temp)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4235,6 +4596,11 @@ def main() -> int:
     t_sharded = time.perf_counter()
     _, dryrun = run_sharded(device, trained.get("T1"))
     emit({"sharded_phase_s": time.perf_counter() - t_sharded})
+    _free_card()
+    t_examples = time.perf_counter()
+    examples = run_examples(device)
+    examples_s = time.perf_counter() - t_examples
+    emit({"examples_e1_e5_s": examples_s})
     main_path["launches"]["dft_matmul"] = planner["launches"]
     main_path["shapes"]["dft_matmul"] = planner["shapes"]
     for kernel, n in dist_path["launches"].items():
@@ -4248,11 +4614,14 @@ def main() -> int:
     main_path["shapes"]["fftconv"] = conv["shapes"]["fftconv"]
     for kernel, n in serve["launches"].items():
         main_path["launches"][kernel] += n
+    for kernel, n in examples["launches"].items():
+        main_path["launches"][kernel] += n
     checked = {k: dict(v) for k, v in main_path["shapes"].items()}
     others = {k: v for k, v in conv["shapes"].items() if k != "fftconv"}
     for sweep in planner["sweep_shapes"] + [others, backends["shapes"],
                                             serve["shapes"],
-                                            dist_path["shapes"]]:
+                                            dist_path["shapes"],
+                                            examples["shapes"]]:
         for kernel, shapes in sweep.items():
             for key, n in shapes.items():
                 checked.setdefault(kernel, {}).setdefault(key, 0)
@@ -4267,6 +4636,10 @@ def main() -> int:
     t_dry = time.perf_counter()
     finish_dryrun(dryrun)
     emit({"dryrun_wait_s": time.perf_counter() - t_dry})
+    t_report = time.perf_counter()
+    emit(run_experiments_report())
+    examples_s += time.perf_counter() - t_report
+    emit({"examples_phase_s": examples_s})
 
     summary = []
     for kernel, source, replaces in KERNELS:

@@ -16,14 +16,15 @@ node never aborts the suite: it is recorded and the suite continues.
 from __future__ import annotations
 
 import traceback
-from dataclasses import dataclass
+import warnings
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 
 from .client import Problem, TorchContext
 from .plan import PlanCache, PlanRigor
-from .results import ResultSink, Row
+from .results import ResultSink, ResultWriter, Row, columns_for
 from .schedule import FFT_SCHEDULE, Runner
 from .timer import Timer
 from .tree import BenchNode
@@ -32,6 +33,8 @@ from .wisdom import Wisdom
 DEFAULT_ERROR_BOUND = 1e-5
 DEFAULT_WARMUPS = 2
 DEFAULT_REPS = 10
+
+OPS = FFT_SCHEDULE.op_names   # ("allocate", ..., "destroy", "total")
 
 
 class NoRunsError(RuntimeError):
@@ -44,6 +47,7 @@ class BenchmarkConfig:
     repetitions: int = DEFAULT_REPS
     error_bound: float = DEFAULT_ERROR_BOUND
     rigor: PlanRigor = PlanRigor.ESTIMATE
+    output: str = "result.csv"
     seed: int = 2017  # year of the paper
 
 
@@ -172,3 +176,37 @@ def run_nodes(nodes: Sequence[BenchNode], *, context: TorchContext,
                  plan_cache=plan_cache, wisdom=wisdom, verbose=verbose)
     context.destroy()
     return writer
+
+
+@dataclass
+class Benchmark:
+    """Deprecated suite driver: use :class:`repro_torch.core.suite.Session`
+    with a :class:`repro_torch.core.suite.SuiteSpec` instead.
+
+    A thin shim over :func:`run_nodes`.  ``plan_cache`` (optional)
+    memoizes built plans across runs and adds a ``plan_cache`` column to
+    every row; left ``None``, every run rebuilds and the rows keep the seed
+    schema.
+    """
+
+    context: TorchContext
+    config: BenchmarkConfig = field(default_factory=BenchmarkConfig)
+    writer: Optional[ResultSink] = None
+    plan_cache: Optional[PlanCache] = None
+
+    def __post_init__(self):
+        if self.writer is None:
+            self.writer = ResultWriter(
+                self.config.output,
+                columns=columns_for(self.plan_cache is not None))
+
+    def run_nodes(self, nodes: Sequence[BenchNode],
+                  wisdom: Optional[Wisdom] = None,
+                  verbose: bool = False) -> ResultSink:
+        warnings.warn(
+            "Benchmark.run_nodes is deprecated; build a SuiteSpec and run it "
+            "through repro_torch.core.suite.Session (or run_suite)",
+            DeprecationWarning, stacklevel=2)
+        return run_nodes(nodes, context=self.context, config=self.config,
+                         writer=self.writer, plan_cache=self.plan_cache,
+                         wisdom=wisdom, verbose=verbose)

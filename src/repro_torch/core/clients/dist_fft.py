@@ -35,8 +35,8 @@ import torch
 import torch.distributed as dist
 
 from ...fft import distributed as dfft
-from ...launch.mesh import flat_mesh, get_active_mesh, rank_device, \
-    reshaped_mesh
+from ...launch.mesh import default_rank_device, flat_mesh, \
+    get_active_mesh, rank_device, reshaped_mesh
 from ..candidates import (Candidate, _dist_candidates, dist_local_lengths,
                           dist_supports)
 from ..client import FFTClient, Problem, TorchContext
@@ -50,12 +50,14 @@ from .torch_fft import (_TORCH_DTYPES, Transform, _axis_table, _bytes,
 
 
 def dist_engines(problem: Problem, cand: Candidate, inverse: bool = False,
-                 device="cpu") -> tuple[list, int]:
+                 device=None) -> tuple[list, int]:
     """One local engine per sub-transform of a distributed candidate (the
     ``local`` knob where the sweep forced one, else the cost model's best
     separable backend at each local length), each bound to its table for
-    ``inverse`` on ``device``; with the bytes of the tables.  Equal
-    (backend, length) pairs share one table."""
+    ``inverse`` on ``device`` (default: this rank's card; raises without
+    one); with the bytes of the tables.  Equal (backend, length) pairs
+    share one table."""
+    device = default_rank_device(device)
     forced = cand.opts().get("local")
     dtype = _complex_dtype(problem)
     tables: dict = {}

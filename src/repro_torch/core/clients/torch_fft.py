@@ -337,6 +337,33 @@ def _inverse_fn(problem: Problem, cand: Candidate, device) -> Transform:
                      nbytes + _bytes(roots=roots) + added)
 
 
+def _on(device) -> torch.device:
+    """``device``, ``cuda:0`` where None; raises where it is missing."""
+    context = TorchContext(device)
+    context.discover_kind()
+    return context.device
+
+
+def build_forward(problem: Problem, cand: Candidate,
+                  device=None) -> Transform:
+    """The forward of ``cand`` on ``problem`` (what planner MEASURE times),
+    built on ``device`` (default ``cuda:0``; raises without a card): its
+    tables uploaded once, the transform called on a device tensor."""
+    return _forward_fn(problem, cand, _on(device))
+
+
+#: The reference's name for its un-jitted builder; torch has no jit, so it
+#: is ``build_forward`` itself.
+forward_fn = build_forward
+
+
+def build_inverse(problem: Problem, cand: Candidate,
+                  device=None) -> Transform:
+    """The inverse (the conformance matrix's roundtrip leg) on ``device``,
+    as :func:`build_forward`."""
+    return _inverse_fn(problem, cand, _on(device))
+
+
 class TorchFFTClient(FFTClient):
     """Generic client; subclasses pin ``backend_filter`` to mimic having one
     binary per library (gearshifft_cufft, gearshifft_fftw, ...)."""

@@ -62,6 +62,15 @@ from .extents import next_pow2 as _next_pow2, next_smooth
 #: Schema stamped into coefficient-table files; loaders reject others.
 COSTMODEL_SCHEMA_VERSION = 1
 
+#: Interconnect cost of one all-to-all'd byte relative to one HBM byte:
+#: the one coefficient that ranks "one device, one HBM touch" against "P
+#: devices, two all-to-alls" in ESTIMATE.
+DIST_LINK_COST = 4.0
+#: Fixed charge of one collective (latency, layout fix-ups) in equivalent
+#: HBM bytes: below ~1 MiB the collective's constant cost outweighs any
+#: gain from sharding.
+DIST_A2A_LATENCY_BYTES = float(1 << 20)
+
 
 @dataclass(frozen=True)
 class Infeasible:
@@ -100,8 +109,8 @@ class CostCoefficients:
     bluestein_stage_passes: float = 3.0
     bluestein_setup_passes: float = 2.0
     transpose_passes: float = 2.0
-    dist_link_cost: float = 4.0
-    dist_a2a_latency_bytes: float = float(1 << 20)
+    dist_link_cost: float = DIST_LINK_COST
+    dist_a2a_latency_bytes: float = DIST_A2A_LATENCY_BYTES
     dist1d_twiddle_passes: float = 1.0
     # rank-1 problems at or below this inner engine length go straight to
     # the single-product dft kernel

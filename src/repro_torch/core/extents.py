@@ -4,6 +4,7 @@ the '-e 128x128 1024' syntax."""
 
 from __future__ import annotations
 
+import math
 from typing import Iterator, Sequence
 
 
@@ -20,6 +21,10 @@ def parse_extents(spec: str) -> tuple[int, ...]:
 
 def format_extents(ext: Sequence[int]) -> str:
     return "x".join(str(v) for v in ext)
+
+
+def total_elems(ext: Sequence[int]) -> int:
+    return math.prod(ext)
 
 
 def _factors_only(n: int, primes: Sequence[int]) -> bool:

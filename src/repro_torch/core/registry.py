@@ -39,3 +39,7 @@ def get_client(name: str) -> Type:
 
 def client_names() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def registered_clients() -> dict[str, Type]:
+    return dict(_REGISTRY)

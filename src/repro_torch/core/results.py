@@ -152,6 +152,29 @@ def open_sink(path: str, fmt: str | None = None,
     raise ValueError(f"unknown sink format {fmt!r}")
 
 
+class ResultWriter(ResultSink):
+    """Buffer-everything sink: keeps rows in memory for aggregation
+    (paper-style figures) and writes the whole CSV on :meth:`save`."""
+
+    def __init__(self, path: str = "result.csv",
+                 columns: list[str] | None = None):
+        super().__init__(path, columns)
+        self.rows: list[Row] = []
+
+    def _write(self, row: Row) -> None:
+        self.rows.append(row)
+
+    def save(self) -> str:
+        return save_csv(self.path, self.rows, self.columns)
+
+    def to_csv_string(self) -> str:
+        return rows_to_csv(self.rows, self.columns)
+
+    def aggregate(self, op: str | None = None):
+        """mean/stdev per (library, extents, precision, kind, rigor, op)."""
+        return aggregate_rows(self.rows, op)
+
+
 def rows_to_csv(rows, columns) -> str:
     """Header + every row as one CSV string."""
     buf = io.StringIO()

@@ -25,6 +25,10 @@ from .candidates import BACKENDS, Candidate, backend_supports
 from .client import Problem
 from .costmodel import estimate_bytes_moved
 from .extents import classify, parse_extents
+from .plan import PlanRigor
+
+#: The wisdom file ``generate`` and ``main`` write by default.
+DEFAULT_PATH = os.path.expanduser("~/.cache/repro_torch/wisdom.json")
 
 #: Schema version stamped into every record this writer produces.  Loaders
 #: keep records at or below their own version (missing ``v`` = version 1)
@@ -317,3 +321,68 @@ class Wisdom:
     def __len__(self) -> int:
         with self._lock:
             return len(self._store) - (_DEMOTED_KEY in self._store)
+
+
+def generate(sizes, path: str = DEFAULT_PATH,
+             rigor: PlanRigor = PlanRigor.PATIENT,
+             kinds=("Outplace_Real", "Outplace_Complex"),
+             precisions=("float",), device=None) -> Wisdom:
+    """Deprecated: use ``python -m repro_torch.benchmarks.pregen_wisdom``
+    (it sweeps the full support matrix and records v3 provenance).
+
+    Plans every (extents, kind, precision) at ``rigor`` on ``device``
+    (default ``cuda:0``; raises without a card) and saves the picks."""
+    warnings.warn(
+        "repro_torch.core.wisdom.generate is deprecated; use "
+        "python -m repro_torch.benchmarks.pregen_wisdom",
+        DeprecationWarning, stacklevel=2)
+    from .client import TorchContext
+    from .clients.torch_fft import build_forward
+    from .plan import make_plan
+
+    context = TorchContext(device)
+    wisdom = Wisdom(path, device_kind=context.discover_kind())
+    for ext in sizes:
+        for kind in kinds:
+            for prec in precisions:
+                problem = Problem(tuple(ext), kind, prec)
+                # near=False: every swept shape gets a real sweep; a
+                # pregeneration run must not inherit its neighbor's pick
+                make_plan(problem, rigor,
+                          build=lambda c, p=problem: build_forward(
+                              p, c, context.device),
+                          wisdom=wisdom, device=context.device, near=False)
+    wisdom.save()
+    return wisdom
+
+
+def main(argv=None) -> None:
+    """Deprecated CLI shim: ``python -m repro_torch.benchmarks.pregen_wisdom``
+    replaces it."""
+    warnings.warn(
+        "python -m repro_torch.core.wisdom is deprecated; use "
+        "python -m repro_torch.benchmarks.pregen_wisdom",
+        DeprecationWarning, stacklevel=2)
+    import argparse
+
+    p = argparse.ArgumentParser(description="pre-generate FFT wisdom "
+                                "(deprecated: use python -m "
+                                "repro_torch.benchmarks.pregen_wisdom)")
+    p.add_argument("-o", "--output", default=DEFAULT_PATH)
+    p.add_argument("--max-exp", type=int, default=12,
+                   help="powers of two up to 2^max_exp (1D) / "
+                        "2^(max_exp//3*3) (3D)")
+    p.add_argument("--device", default="cuda:0",
+                   help="torch device (default cuda:0; 'cpu' on a host "
+                        "without a card)")
+    args = p.parse_args(argv)
+    sizes = [(2 ** e,) for e in range(1, args.max_exp + 1)]
+    sizes += [(2 ** e,) * 3 for e in range(1, args.max_exp // 3 + 1)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        w = generate(sizes, args.output, device=args.device)
+    print(f"wrote {len(w)} wisdom entries to {args.output}")
+
+
+if __name__ == "__main__":
+    main()

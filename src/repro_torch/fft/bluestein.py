@@ -205,3 +205,7 @@ def fft(x: torch.Tensor, inverse: bool = False, *, engine: str = "stockham",
     if inverse:
         y = y / n
     return y
+
+
+def ifft(x: torch.Tensor) -> torch.Tensor:
+    return fft(x, inverse=True)

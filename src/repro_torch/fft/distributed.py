@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..launch.mesh import default_rank_device
 from . import fourstep
 from .nd import _apply_last
 
@@ -261,17 +262,19 @@ class Transform1D:
 
 def make_fft1d(mesh, axis, n: int, inverse: bool = False,
                natural: bool = False, engines=None, *,
-               dtype: torch.dtype = torch.complex64, device="cpu"):
+               dtype: torch.dtype = torch.complex64, device=None):
     """A distributed 1-D FFT over ``mesh[axis]``: input (n,) complex
     sharded contiguously over ``axis``, output the spectrum with the same
     sharding, in transposed order by default or in natural order
     (``natural=True``, one more all_to_all).  ``engines`` are the local
     engines of the n1 and n2 passes.  Returns ``(fn, (n1, n2))``; ``fn``
-    holds the rank's twiddles for ``dtype`` on ``device``."""
+    holds the rank's twiddles for ``dtype`` on ``device`` (default: this
+    rank's card; raises without one)."""
     axes = _axes(axis)
     p = _mesh_size(mesh, axes)
     n1, n2 = _choose_1d_factors(n, p)
-    tw = fft1d_twiddles(n1, n2, p, mesh.index(axes), inverse, dtype, device)
+    tw = fft1d_twiddles(n1, n2, p, mesh.index(axes), inverse, dtype,
+                        default_rank_device(device))
 
     def body(xb):
         blk = xb.reshape(n1 // p, n2)
@@ -315,15 +318,17 @@ def ifft1d_shard(y_block: torch.Tensor, n1: int, n2: int, mesh, axes,
 
 
 def make_ifft1d(mesh, axis, n: int, natural: bool = False, engines=None, *,
-                dtype: torch.dtype = torch.complex64, device="cpu"):
+                dtype: torch.dtype = torch.complex64, device=None):
     """The inverse of :func:`make_fft1d`'s transform: input the (n,)
     spectrum sharded as ``make_fft1d`` emitted it (transposed order, or
     natural with ``natural=True``), output the natural-order signal with
-    the same sharding.  Returns ``(fn, (n1, n2))``."""
+    the same sharding.  Returns ``(fn, (n1, n2))``; ``device`` as
+    :func:`make_fft1d`'s."""
     axes = _axes(axis)
     p = _mesh_size(mesh, axes)
     n1, n2 = _choose_1d_factors(n, p)
-    tw = fft1d_twiddles(n1, n2, p, mesh.index(axes), True, dtype, device)
+    tw = fft1d_twiddles(n1, n2, p, mesh.index(axes), True, dtype,
+                        default_rank_device(device))
 
     def body(yb):
         if natural:

@@ -71,3 +71,7 @@ def fft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         x = x.to(torch.complex64)
     y = _fft_unnormalized(x, inverse)
     return y / x.shape[-1] if inverse else y
+
+
+def ifft(x: torch.Tensor) -> torch.Tensor:
+    return fft(x, inverse=True)

@@ -152,3 +152,7 @@ def fft(x: torch.Tensor, inverse: bool = False, *, n1: int | None = None,
                          twiddles=plan.second)         # length-n2 FFTs
     # the sub-transforms' own 1/n1 and 1/n2 compose to the inverse's 1/n
     return d.transpose(-1, -2).reshape(*batch, n)
+
+
+def ifft(x: torch.Tensor) -> torch.Tensor:
+    return fft(x, inverse=True)

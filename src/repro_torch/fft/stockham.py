@@ -53,3 +53,7 @@ def fft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     if inverse:
         x = x / n_total
     return x
+
+
+def ifft(x: torch.Tensor) -> torch.Tensor:
+    return fft(x, inverse=True)

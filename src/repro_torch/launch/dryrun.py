@@ -119,7 +119,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     dp = math.prod(mesh.shape[a] for a in dp_axes(mesh))
 
     t0 = time.perf_counter()
-    params = model.shard(model._shell())
+    params = model.shard(model.abstract_params())
     specs = _input_specs(cfg, sp)
     args_bytes = _tree_bytes(named_tensors(params))
     counter = OpCounter()

@@ -178,6 +178,17 @@ def rank_device(device) -> torch.device:
     return torch.device("cuda", 0 if device.index is None else device.index)
 
 
+def default_rank_device(device=None) -> torch.device:
+    """``device`` where given, else this rank's card (:func:`rank_device`
+    of ``"cuda"``); raises on a host without a card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU found for this rank's blocks (pass "
+                           "device='cpu' to run on the CPU)")
+    return rank_device("cuda")
+
+
 def ensure_default_group(device) -> None:
     """Start a one-rank default group on ``device``'s backend (``nccl``
     for a CUDA device, ``gloo`` for the CPU) where none exists, through a

@@ -72,7 +72,7 @@ def params_from_reference(model: Model, tree: dict) -> Params:
     Every leaf must be there with the port's shape and dtype; a missing,
     extra or misshapen leaf raises ``ValueError``."""
     flat = flat_reference(tree)
-    shell = model._shell()
+    shell = model.abstract_params()
     want = shell.state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))

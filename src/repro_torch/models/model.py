@@ -167,12 +167,13 @@ class Model:
         specs = param_specs(params, self.mesh)
         state = {k: distribute(v.detach(), specs[k], self.sh)
                  for k, v in params.state_dict().items()}
-        shell = self._shell()
+        shell = self.abstract_params()
         shell.load_state_dict(state, assign=True)
         return shell
 
-    def _shell(self) -> Params:
-        """The parameter tree on the ``meta`` device: names and shapes."""
+    def abstract_params(self) -> Params:
+        """The parameter tree on ``meta`` (names and shapes, no storage):
+        the reference's ``jax.eval_shape`` of ``init_params``."""
         return self._build(None)
 
     def _build(self, gen) -> Params:
@@ -291,7 +292,7 @@ class Model:
             return params
         cast = {k: v.to(dtype) if _cast_at_use(k) else v
                 for k, v in state.items()}
-        shell = self._shell()
+        shell = self.abstract_params()
         shell.load_state_dict(cast, assign=True)
         return shell
 

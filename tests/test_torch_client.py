@@ -54,6 +54,7 @@ from repro_torch.kernels.stockham_pallas import ops
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
+EXAMPLES = os.path.join(os.path.dirname(SRC), "examples")
 TOL = {"float": 1e-5, "double": 1e-12}
 CLIENTS = {"TorchFFT": ("xla", TorchFFT),
            "TorchStockhamPallas": ("stockham_pallas", TorchStockhamPallas)}
@@ -363,9 +364,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax')\n"
-        "       or k == 'repro' or k.startswith('repro.')]\n"
-        "assert not bad, bad\n"
+
         "need = ['repro_torch.core.cli', 'repro_torch.roofline.analysis']\n"
         "need += ['repro_torch.benchmarks.table_' + t for t in (\n"
         "    'overhead', 'tts', 'plan_rigor', 'backends', 'radix', 'dtypes',\n"
@@ -394,7 +393,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         "need += ['repro_torch.train.' + m for m in (\n"
         "    'optimizer', 'compression', 'checkpoint', 'trainer')]\n"
         "need += ['repro_torch.launch.train',\n"
-        "         'repro_torch.benchmarks.table_lm_steps']\n"
+        "         'repro_torch.benchmarks.table_lm_steps',\n"
+        "         'repro_torch.benchmarks.update_experiments']\n"
+        "import glob, importlib.util, os\n"
+        f"examples = sorted(glob.glob(os.path.join({EXAMPLES!r}, 'torch_*.py')))\n"
+        "assert len(examples) == 5, examples\n"
+        "for path in examples:\n"
+        "    name = os.path.basename(path)[:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "from repro_torch.models.model import Model\n"
         "from repro_torch.models import convert\n"
         "assert callable(Model.loss_fn) and callable(convert.params_to_reference)\n"
@@ -402,6 +409,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert callable(analysis.active_params) and callable(analysis.model_flops)\n"
         "from repro_torch.benchmarks import bench_grid\n"
         "assert callable(bench_grid._run_serve) and callable(bench_grid._run_chaos)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax')\n"
+        "       or k == 'repro' or k.startswith('repro.')]\n"
+        "assert not bad, bad\n"
         "assert all(n in sys.modules for n in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -215,12 +215,12 @@ def _port_outputs() -> dict:
             nat = layout == "natural"
             fn, _ = pdist.make_fft1d(
                 mesh, axes, N1D, natural=nat,
-                engines=engines((N1D,), "dist1d", (p,), False))
+                engines=engines((N1D,), "dist1d", (p,), False), device="cpu")
             out[f"fft1d/{mname}/{layout}"] = run(fn, xs["x1d"], mesh, spec,
                                                  spec)
             inv, _ = pdist.make_ifft1d(
                 mesh, axes, N1D, natural=nat,
-                engines=engines((N1D,), "dist1d", (p,), True))
+                engines=engines((N1D,), "dist1d", (p,), True), device="cpu")
             out[f"ifft1d/{mname}/{layout}"] = run(inv, xs["y1d"], mesh, spec,
                                                   spec)
     mesh = mesh_of((4,), ("data",))
@@ -577,3 +577,32 @@ if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     outs = _reference_outputs(4)
     np.savez(sys.argv[1], **{k.replace("/", "|"): v for k, v in outs.items()})
+
+
+# ---------------------------------------------------------------------------
+# the builders' device
+# ---------------------------------------------------------------------------
+def test_builders_default_to_the_card(monkeypatch):
+    """Without ``device`` the 1-D builders and ``dist_engines`` build on
+    this rank's card: without one they raise, naming ``device='cpu'``;
+    with one visible the default is ``cuda:0`` at one rank."""
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.client import Problem
+    from repro_torch.core.clients.dist_fft import dist_engines
+    from repro_torch.fft import distributed as pdist
+    from repro_torch.launch.mesh import default_rank_device, make_mesh
+
+    mesh = make_mesh((1,), ("data",))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (pdist.make_fft1d, pdist.make_ifft1d):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(mesh, "data", N1D)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist_engines(Problem((N1D,), "Outplace_Complex"),
+                     Candidate("dist1d", mesh=(1,)))
+    fn, _ = pdist.make_fft1d(mesh, "data", N1D, device="cpu")
+    assert fn.twiddles.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    assert default_rank_device(None) == torch.device("cuda", 0)

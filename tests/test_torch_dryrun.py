@@ -108,7 +108,7 @@ def test_train_argument_bytes_are_the_hand_count(records):
 
     mesh = make_mesh((2, 2), ("data", "model"))
     cfg = get_config(ARCH).reduced()
-    shell = Model(cfg, device="cpu")._shell()
+    shell = Model(cfg, device="cpu").abstract_params()
     specs = param_specs(shell, mesh)
     params = sum(_local_numel(t.shape, specs[k], mesh) * t.element_size()
                  for k, t in shell.state_dict().items())

@@ -607,7 +607,7 @@ def test_every_config_builds(arch):
     """Every config at its published size, on ``meta``, with the
     reference's parameter count (``jax.eval_shape`` of its init)."""
     cfg = base.get_config(arch)
-    shell = Model(cfg, device="cpu")._shell()
+    shell = Model(cfg, device="cpu").abstract_params()
     n = sum(v.numel() for v in shell.state_dict().values())
     shapes = jax.eval_shape(RModel(r_base.get_config(arch)).init_params,
                             jax.random.PRNGKey(0))

@@ -56,7 +56,7 @@ def _specs(arch: str):
     """(the port's meta shell, the reference's parameter shapes),
     cached per config."""
     if arch not in _SPECS:
-        shell = Model(base.get_config(arch), device="cpu")._shell()
+        shell = Model(base.get_config(arch), device="cpu").abstract_params()
         shapes = jax.eval_shape(RModel(r_base.get_config(arch)).init_params,
                                 jax.random.PRNGKey(0))
         _SPECS[arch] = (shell, shapes)

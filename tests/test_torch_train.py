@@ -355,7 +355,7 @@ def test_decay_mask_is_the_reference(arch):
                             jax.random.PRNGKey(0))
     want = {k: float(v) for k, v in _leaves(jax.tree.map(
         lambda s: s.ndim >= 2, shapes)).items()}
-    got = _decay_mask(Model(cfg, device="cpu")._shell())
+    got = _decay_mask(Model(cfg, device="cpu").abstract_params())
     for name, value in got.items():
         assert value == want[reference_key(name)[0]], name
     assert {reference_key(n)[0] for n in got} == set(want)
@@ -597,7 +597,7 @@ def test_checkpoint_layout_is_the_reference(tmp_path):
                 np.testing.assert_array_equal(za[k], zb[k])
     # cross restores
     p2, o2, man = CheckpointManager(str(tmp_path / "ref")).restore(
-        pm._shell().to_empty(device="cpu"), init_opt_state(params))
+        pm.abstract_params().to_empty(device="cpu"), init_opt_state(params))
     assert man == {"step": 7, "preempted": False}
     assert _worst(params_to_reference(p2), tree)[0] == 0
     assert int(o2["step"]) == 7 and all(
