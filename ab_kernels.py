@@ -9,7 +9,11 @@ operands at the main path's shapes: the fft2 kernel at P7's and P6's
 tiles, the Stockham kernel at P7's axis and P3, the four-step kernel at
 the axes of P1-P7 (complex64 and complex128), the dft kernel at P8 and
 P9's packed axis, and
-the fused fftconv kernel at F2 and F3 (the default tile); and the real
+the fused fftconv kernel at F2 and F3 (the default tile); the Stockham
+kernel's two column passes (``stockham_columns_kernel``) over one
+block's cap at B1's 65536 x 1024 and 2^20 x 64 complex64 and P13's
+13720 x 8192 complex128 (its chirp-Z length, split 98 x 140), and
+fft2's row and column passes at B2's 256 x 256 x 1024; and the real
 transforms of the main path, forward and inverse: the fft2 kernel's fold
 at P6 (rfft2 of 128 x 128 x 8192 float32) and the Stockham kernel's at
 P1's inner axis (rfft of 256 x 65536) and P5 (945 x 65536).  A tree whose
@@ -34,6 +38,13 @@ FFT2_SHAPES = ((64, 64, torch.complex128), (128, 64, torch.complex64))
 #: (n, rows, dtype) of the Stockham kernel
 STOCKHAM_SHAPES = ((64, 524288, torch.complex128),
                    (4096, 16384, torch.complex64))
+#: (n, rows, dtype) of the Stockham kernel's two column passes: B1's
+#: 65536, 2^20, P13's m = 13720 in complex128 (512 MiB, 512 MiB, 1.8 GB)
+COLUMN_SHAPES = ((65536, 1024, torch.complex64),
+                 (1 << 20, 64, torch.complex64),
+                 (13720, 8192, torch.complex128))
+#: (n1, n2, signals) of fft2's passes over one block's cap (complex64)
+FFT2_PASS_SHAPES = ((256, 256, 1024),)
 #: (n, rows, dtype) of the four-step kernel on the main path: P3, P5's
 #: packed axis, P1's packed inner and outer axes, P4's packed and outer
 #: axes, P2's and P7's axes
@@ -99,6 +110,19 @@ def main() -> None:
         row[f"stockham {n}x{rows} {dt}"] = median_ms(
             lambda: sp.fft(x, False, twiddles=tw))
         del x
+    for n, rows, dt in COLUMN_SHAPES:
+        x = rand((rows, n), dt)
+        tw = sp.make_twiddles(n, 8, False, dt, dev)
+        row[f"stockham passes {n}x{rows} {dt}"] = median_ms(
+            lambda: sp.fft(x, False, twiddles=tw))
+        del x
+    for n1, n2, sigs in FFT2_PASS_SHAPES:
+        x = rand((sigs, n1, n2), torch.complex64)
+        tw = f2.make_twiddles2(n1, n2, 8, False, torch.complex64, dev)
+        row[f"fft2 passes {n1}x{n2}x{sigs} torch.complex64"] = median_ms(
+            lambda: f2.fft2(x, False, twiddles=tw))
+        del x
+    torch.cuda.empty_cache()
     for n, rows, dt in FOURSTEP_SHAPES:
         x = rand((rows, n), dt)
         tables = fs.make_tables(n, False, dt, dev)

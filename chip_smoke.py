@@ -324,13 +324,15 @@ BACKENDS_NODES = (("TorchStockhamPallas", (65536,), "stockham_pallas"),
 #: the dft kernel's direct product at n = 127 (P8's bytes), the fused
 #: rank-2 kernel's complex transform of P6's packed tile (the main path
 #: runs P6 through the fold), the Stockham kernel's two passes, fft2's
-#: passes, the four-step kernel's two launches.
+#: passes, the four-step kernel's two launches; and P13's two passes in
+#: complex128 (m = 13720 = 98 x 140 on 8192 rows, 1.8 GB each way).
 EXTRA_TIMING = (("dft_matmul", (127, 524288, "complex64")),
                 ("fft2_pallas", (128, 64, 8192, "complex64")),
                 ("stockham_pallas", (65536, 1024, "complex64")),
                 ("stockham_pallas", (1 << 20, 64, "complex64")),
                 ("fft2_pallas", (256, 256, 1024, "complex64")),
-                ("fft4step", (16384, 2048, "complex128")))
+                ("fft4step", (16384, 2048, "complex128")),
+                ("stockham_pallas", (13720, 8192, "complex128")))
 #: kernel vs its plain version: same algorithm and twiddles, only the
 #: summation order differs.
 PLAIN_TOL = {"complex64": 1e-5, "complex128": 1e-12}
@@ -664,6 +666,39 @@ def build() -> float:
     return seconds
 
 
+def column_ptxas() -> list[dict]:
+    """ptxas's report (``-Xptxas -v``) of every column-pass instantiation
+    (``stockham_columns_kernel``, per dtype and case family): registers,
+    stack frame, spill stores and loads.  Raises if one spills."""
+    from repro_torch.kernels import _build
+    rows, entry, frame = [], None, None
+    for name in ("stockham", "stockham64"):
+        for line in _build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                frame = tuple(int(v) for v in m.groups())
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry and "stockham_columns_kernel" in entry:
+                t = re.search(r"stockham_columns_kernelI(\w)Li(\d)E", entry)
+                rows.append({"library": name, "dtype": {"f": "complex64",
+                             "d": "complex128"}[t.group(1)],
+                             "family": int(t.group(2)),
+                             "registers": int(m.group(1)),
+                             "stack_frame": frame[0],
+                             "spill_stores": frame[1],
+                             "spill_loads": frame[2]})
+                entry = None
+    if not rows or any(r["spill_stores"] or r["spill_loads"] for r in rows):
+        raise AssertionError(f"column pass instantiations spill: {rows}")
+    return rows
+
+
 class Worst:
     """The worst errors over a kernel's checks."""
 
@@ -810,6 +845,7 @@ def check_capacity(device) -> dict:
     import torch
     gen = torch.Generator(device=device).manual_seed(2020)
     worst = {}
+    _reset_counts()
     sp, _ = kernel_ops("stockham_pallas")
     f2, _ = kernel_ops("fft2_pallas")
     fs, fs_ref = kernel_ops("fft4step")
@@ -860,6 +896,8 @@ def check_capacity(device) -> dict:
             w.row["check"] = "multi_pass_vs_plain"
             emit(w.row)
             worst[(w.row["kernel"], f"{name} passes")] = w.row
+    emit({"check": "multi_pass_vs_plain", "column_launches":
+          _column_launches()})
     return worst
 
 
@@ -1012,11 +1050,16 @@ def run_backends_nodes(device) -> dict:
         if set(launched) != {kernel}:
             raise AssertionError(f"{client} {extents} should launch only "
                                  f"{kernel}, launched {launched}")
+        columns = _column_launches()
+        if not columns:
+            raise AssertionError(f"{client} {extents} launched no column "
+                                 "pass")
         emit({"node": "x".join(map(str, extents)), "client": client,
               "kind": problem.kind, "device": val[0].device,
               "execute_forward_ms": statistics.median(
                   r.time_ms for r in rs.query(op="execute_forward")),
-              "launches": launched, "node_s": time.perf_counter() - t0})
+              "launches": launched, "column_launches": columns,
+              "node_s": time.perf_counter() - t0})
         out["launches"][kernel] = counts[kernel][0]
         out["shapes"][kernel] = counts[kernel][1]
     return out
@@ -1047,6 +1090,7 @@ def run_large_paths(device) -> dict:
             t0 = time.perf_counter()
             rs = session.run(spec, nodes=[BenchNode(cls, problem)])
             counts = _read_counts()
+            columns = _column_launches()
             val = rs.query(op="validate")
             if rs.failures() or len(val) != 1 or not val[0].success:
                 raise AssertionError(f"{client} {pname} failed: "
@@ -1067,7 +1111,8 @@ def run_large_paths(device) -> dict:
                     "execute_forward_ms": med("execute_forward"),
                     "execute_inverse_ms": med("execute_inverse"),
                     "init_forward_cold_ms": cold[0] if cold else None,
-                    "launches": launched, "node_s": time.perf_counter() - t0}
+                    "launches": launched, "column_launches": columns,
+                    "node_s": time.perf_counter() - t0}
             emit(node)
             out["nodes"].append(node)
             for k in kernels:
@@ -2126,6 +2171,13 @@ def _reset_counts() -> None:
         ops, _ = kernel_ops(kernel)
         ops.LAUNCHES = 0
         ops.LAUNCH_SHAPES.clear()
+    kernel_ops("stockham_pallas")[0].COLUMN_LAUNCHES = 0
+
+
+def _column_launches() -> int:
+    """Column-pass launches (part of the Stockham and fft2 counts) since
+    the counts were last set to 0."""
+    return kernel_ops("stockham_pallas")[0].COLUMN_LAUNCHES
 
 
 def _read_counts() -> dict:
@@ -2884,6 +2936,25 @@ def time_kernels(device, main_path: dict, errors: dict) -> list[dict]:
     return rows_out
 
 
+def _column_plans(s, plan) -> dict:
+    """The column passes' plans (``column_layout``: columns a block,
+    threads, family, passes, shared memory) of a shape that runs them."""
+    sp = kernel_ops("stockham_pallas")[0]
+    item = s.x.element_size()
+    if s.kernel == "stockham_pallas" and isinstance(plan, sp.TwoPass):
+        lays = [sp.column_layout(plan.first, plan.n2, item, True),
+                sp.column_layout(plan.second, plan.n1, item, False)]
+    elif s.kernel == "fft2_pallas" and isinstance(
+            getattr(plan, "cols", None), sp.Twiddles):
+        lays = [sp.column_layout(plan.cols, plan.n2, item, False)]
+    else:
+        return {}
+    return {"column_plans": [
+        {"length": lay.n1, "cols": lay.l2, "threads": lay.threads,
+         "family": lay.family, "smem": lay.smem,
+         "passes": [[p.ra, p.rb] for p in lay.passes]} for lay in lays]}
+
+
 def time_extra(device) -> list[dict]:
     """The ``EXTRA_TIMING`` shapes: each kernel with its default plan
     against its plain oracle in both directions (raises above its
@@ -2907,6 +2978,7 @@ def time_extra(device) -> list[dict]:
         plan, plain = s.plan()
         bound_ms, bound_by = s.bound()
         row = {"kernel": kernel, **s.shape, "launches": 0,
+               **_column_plans(s, plan),
                "ms": _events_ms(lambda: s.kernel_call(plan=plan), TIMING_REPS),
                "plain_ms": _events_ms(plain, PLAIN_REPS),
                "library_ms": _events_ms(s.library, TIMING_REPS),
@@ -4549,6 +4621,7 @@ def main() -> int:
 
     emit(card_info())
     emit({"build_s": build()})
+    emit({"ptxas_column_pass": column_ptxas()})
     emit({"kernels": [k for k, _, _ in KERNELS]})
     t_checks = time.perf_counter()
     checks = check_kernels(device)

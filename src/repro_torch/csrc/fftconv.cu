@@ -16,9 +16,9 @@
 //      zero-fill to n; read as N = n/2 complex points they are the packed
 //      signal z[j] = x[2j] + i x[2j+1] (the same words);
 //   2. Z = FFT_N(z): radix-8/4/2 Stockham stages ping-ponging between two
-//      buffers, with the host's float64 stage twiddles: run_stage's
-//      arithmetic (its butterflies, stockham_stages.cuh) for power-of-two
-//      sizes, in a layout padded against bank conflicts;
+//      buffers, with the host's float64 stage twiddles: the Stockham
+//      stage below (`stage`, with the butterflies of stockham_stages.cuh)
+//      for power-of-two sizes, in a layout padded against bank conflicts;
 //   3. one pass over the pairs (k, N-k), k <= N/2, in place:
 //        E = (Z[k] + conj Z[N-k]) / 2,  O = (Z[k] - conj Z[N-k]) / 2i,
 //        X[k] = E + w^k O,  X[N-k] = conj(E - w^k O)      (w = e^{-2 pi i/n})
@@ -82,11 +82,11 @@ __device__ __forceinline__ C32 cconj(C32 a) { return {a.re, -a.im}; }
 // fewest wavefronts a warp's 256 bytes allow.
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
-// One radix-R Stockham stage over `rows` rows of N = 2^log_n points, as
-// run_stage (stockham_stages.cuh) computes it with cols = 1, for the
-// padded layout (row pitch `pitch`) and power-of-two sizes (shifts, not
-// divisions): y[q + s (R p + u)] = (sum_t x[q + s p + N/R t] W_R^{t u})
-// W_cur^{p u}, with m = 2^log_m and s = 2^log_s.
+// One radix-R Stockham stage over `rows` rows of N = 2^log_n points, the
+// reference's stage (stockham.cu's header) for the padded layout (row
+// pitch `pitch`) and power-of-two sizes (shifts, not divisions):
+// y[q + s (R p + u)] = (sum_t x[q + s p + N/R t] W_R^{t u}) W_cur^{p u},
+// with m = 2^log_m and s = 2^log_s.
 template <int R>
 __device__ __forceinline__ void stage(const C32* __restrict__ src,
                                       C32* __restrict__ dst,

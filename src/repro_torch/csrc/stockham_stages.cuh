@@ -1,16 +1,17 @@
 // Stage routines shared by the port's FFT kernels for Hopper (sm_90a):
 // interleaved complex values, the radix-2/3/4/5/7/8 butterflies, the
-// register passes of the one-block kernels over one shared buffer
-// (block_fft, below), one Stockham stage over a tile of columns in two
-// buffers (run_stage, the column pass's), and the launches' opt-in to more
-// than 48 KB of shared memory a block (opt_in).
+// register passes over one shared buffer (block_fft, below: the one-block
+// kernels; their column form also runs stockham_columns.cuh's column
+// pass), and the launches' opt-in to more than 48 KB of shared memory a
+// block (opt_in).
 //
-// Included by stockham.cu (the fused 1-D kernel and its real-input folds:
-// block_fft; the column pass: run_stage), fft2.cu (the fused rank-2
-// kernel and its fold: block_fft), fftconv.cu (Cx, the butterflies: its
-// own power-of-two stage routine), fft4step.cu and tc_product.cuh (Cx,
-// mul, scale) and dft.cu (Cx, cfma, mul, the butterflies); every kernel's
-// launch uses opt_in.
+// Included by stockham.cu and stockham64.cu (the fused 1-D kernel and its
+// real-input folds: block_fft; the column pass through
+// stockham_columns.cuh: pass_stages, the shared-memory loads and stores,
+// FastDiv), fft2.cu (the fused rank-2 kernel and its fold: block_fft),
+// fftconv.cu (Cx, the butterflies: its own power-of-two stage routine),
+// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, cfma,
+// mul, the butterflies); every kernel's launch uses opt_in.
 // Everything here lives in an anonymous namespace: each kernel library is
 // its own translation unit.
 
@@ -198,55 +199,11 @@ struct Butterfly<5, INV, T> : OddButterfly<5, INV, T> {};
 template <bool INV, typename T>
 struct Butterfly<7, INV, T> : OddButterfly<7, INV, T> {};
 
-// One radix-R stage over `rows` rows, each holding `cols` interleaved
-// sequences of length n: element k of sequence c sits at c + k*cols
-// (cols = 1 for contiguous rows; cols = n2 for the columns of a row-major
-// n1 x n2 signal).  src and dst point at the tile's first row (global
-// memory or a shared-memory buffer).  Threads stride over the
-// rows * n/R * cols butterflies, the sequence index fastest and then
-// j = p*s + q, so the R loads of a butterfly are contiguous across the
-// warp.
-template <int R, bool INV, typename T>
-__device__ __forceinline__ void run_stage(const Cx<T>* __restrict__ src,
-                                          Cx<T>* __restrict__ dst,
-                                          const Cx<T>* __restrict__ tw,
-                                          int n, int rows, int m, int s,
-                                          int base, bool last, T inv_n,
-                                          int cols = 1) {
-  const int nr = n / R;  // == m * s
-  const int total = rows * nr * cols;
-  for (int g = threadIdx.x; g < total; g += blockDim.x) {
-    const int line = g / cols;
-    const int c = g - line * cols;
-    const int row = line / nr;
-    const int j = line - row * nr;
-    const int p = j / s;
-    const int q = j - p * s;
-    const long long row_off = static_cast<long long>(row) * n * cols + c;
-    const Cx<T>* in = src + row_off + static_cast<long long>(j) * cols;
-    Cx<T> a[R];
-#pragma unroll
-    for (int t = 0; t < R; ++t) a[t] = in[t * nr * cols];
-    Butterfly<R, INV, T>::run(a);
-    if (m > 1) {
-#pragma unroll
-      for (int u = 1; u < R; ++u) a[u] = mul(a[u], tw[base + (u - 1) * m + p]);
-    }
-    if (INV && last) {
-#pragma unroll
-      for (int u = 0; u < R; ++u) a[u] = scale(a[u], inv_n);
-    }
-    Cx<T>* out = dst + row_off +
-                 (q + static_cast<long long>(s) * R * p) * cols;
-#pragma unroll
-    for (int u = 0; u < R; ++u) out[static_cast<long long>(s) * u * cols] = a[u];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Register passes over one shared buffer: the one-block kernels' stages
 // (stockham.cu's 1-D kernel and its real-input folds, fft2.cu's rank-2
-// kernel and its folds).
+// kernel and its folds) and, in the column form, the column pass's
+// (stockham_columns.cuh).
 //
 // A block owns a tile of `tile` signals, each n1 rows of l2 points (n1 = 1
 // for a 1-D signal), row-major.  The host groups the stages of each axis'

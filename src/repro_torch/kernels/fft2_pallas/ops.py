@@ -121,9 +121,9 @@ def _from_planes(twr: np.ndarray, twi: np.ndarray, off1, off2,
 class Passes2:
     """A plan for a tile over the one-block cap: the Stockham kernel's
     plan of the row pass (n2-point FFTs along the rows) and of the column
-    pass (n1-point FFTs down the columns, on the column entry), each one
-    block's or two passes' (``stockham_pallas.ops.make_twiddles``); None
-    for an extent of 1."""
+    pass (n1-point FFTs down the columns, on the column entry, over the
+    column schedule), each one block's or two passes'
+    (``stockham_pallas.ops.make_twiddles``); None for an extent of 1."""
 
     n1: int
     n2: int
@@ -144,9 +144,10 @@ def make_twiddles2(n1: int, n2: int, radix: int, inverse: bool,
     passes'."""
     check_shape(n1, n2, dtype)
     if n1 * n2 > ONE_BLOCK_ELEMS[dtype]:
-        axis = lambda n: sp.make_twiddles(n, radix, inverse, dtype, device) \
+        axis = lambda n, columns: sp.make_twiddles(
+            n, radix, inverse, dtype, device, columns=columns) \
             if n > 1 else None
-        return Passes2(n1, n2, axis(n2), axis(n1), inverse)
+        return Passes2(n1, n2, axis(n2, False), axis(n1, True), inverse)
     radices1, radices2 = schedules(n1, n2, radix)
     real = np.float64 if dtype == torch.complex128 else np.float32
     return _from_planes(*pack_twiddles2(n1, n2, radices1, radices2, inverse,
@@ -217,8 +218,9 @@ def _matches(plan: Twiddles2 | Passes2, n1: int, n2: int, radix: int,
     if isinstance(plan, Passes2):
         return n1 * n2 > ONE_BLOCK_ELEMS[dtype] and plan.inverse == inverse \
             and all(p is None if n == 1 else
-                    sp._matches(p, n, radix, inverse, dtype, device)
-                    for p, n in ((plan.rows, n2), (plan.cols, n1)))
+                    sp._matches(p, n, radix, inverse, dtype, device, cols)
+                    for p, n, cols in ((plan.rows, n2, False),
+                                       (plan.cols, n1, True)))
     return (n1 * n2 <= ONE_BLOCK_ELEMS[dtype]
             and (plan.radices1, plan.radices2) == schedules(n1, n2, radix)
             and plan.tw.dtype == dtype and plan.tw.device == device
@@ -269,11 +271,6 @@ def layout(plan: Twiddles2, tile: int, itemsize: int, mode: int = block.C2C,
 @functools.lru_cache(maxsize=1024)
 def _struct(lay: block.Layout, **fold) -> block.BlockPlanC:
     return lay.struct(**fold)
-
-
-@functools.cache
-def _c_ints(values: tuple[int, ...]):
-    return (ctypes.c_int * len(values))(*values)
 
 
 def _columns(src: torch.Tensor, dst: torch.Tensor, plan, sigs: int,

@@ -15,6 +15,16 @@ kernel's ``BlockPlan``.
 Nothing here touches a device: the tests run it on the CPU, and
 ``ref.run_block`` executes a layout in torch, index by index, as the
 kernel does.
+
+``column_layout`` plans the column pass (``stockham_columns_kernel`` in
+``csrc/stockham_columns.cuh``) the same way: one signal of ``length``
+rows by ``cols`` interleaved columns (n1 = length, l2 = cols), its
+stages grouped into the passes of one column family (``column_cases``:
+no kBig family, and the kSmallPow2 family in complex64 also holds the
+32-point 8x4 pass); the last pass may take its butterflies
+fastest across a warp (``jfast``: a transposed store), which the bank
+model follows.  ``ColumnPlanC`` is that kernel's ``ColumnPlan`` and
+``ref.run_columns`` its model.
 """
 
 from __future__ import annotations
@@ -47,19 +57,34 @@ _SINGLES = frozenset({0, 1, 3, 6})           # 1, 2, 4, 8
 _ODD_SINGLES = frozenset({2, 4, 5})          # 3, 5, 7
 _POW2_PAIRS16 = frozenset({24, 25, 26, 27})  # 8x2, 4x4, 4x2, 2x2
 _ODD_PAIRS16 = frozenset({12, 14, 17, 18, 20, 21})
+#: The column kernel's kSmallPow2 family in complex64 adds the 32-point
+#: 8x4 pass (``kColumnPow2``); the column kernel has no kBig family.
+_COLUMN_POW2 = frozenset({23})
 
-def max_threads(family: int, itemsize: int) -> int:
-    """Threads a block of a family's kernel may have (``family_threads``):
-    512 for the one-stage family in complex64 (at most 128 registers a
-    thread), 256 for the others (up to 255)."""
+def max_threads(family: int, itemsize: int, column: bool = False) -> int:
+    """Threads a block of a family's kernel may have (``family_threads``;
+    the column kernel's: ``column_threads``): 512 for the one-stage family
+    in complex64 (at most 128 registers a thread), 256 for the others (up
+    to 255); the column kernel's complex128 families but kSmallPow2, 64
+    (six blocks an SM, 168 registers)."""
+    if column and itemsize == 16 and family != SMALL_POW2:
+        return 64
     return 512 if family == ONE_STAGE and itemsize == 8 else 256
 
 
-def family_cases(family: int, itemsize: int, paired: bool) -> frozenset:
+def family_cases(family: int, itemsize: int, paired: bool,
+                 column: bool = False) -> frozenset:
     """The pass codes (``PASS_CASES`` indices) of a family's kernel for
     complex ``itemsize``: unpaired passes, or a fold's paired pass (two
-    butterflies, so half the points)."""
+    butterflies, so half the points); ``column``: the column kernel's
+    family (``column_cases``)."""
     dbl = itemsize == 16
+    if column:
+        if family == BIG:
+            return frozenset()
+        extra = _COLUMN_POW2 if family == SMALL_POW2 and not dbl \
+            else frozenset()
+        return family_cases(family, itemsize, False) | extra
     if family == SMALL_POW2:
         return _SINGLES | (frozenset({26, 27}) if paired else _POW2_PAIRS16)
     if family == ODD_RADIX:
@@ -181,14 +206,18 @@ def _groupings(k: int) -> tuple[tuple[int, ...], ...]:
     return tuple(out)
 
 
-def _addresses(p: Pass, n1: int, units: int, write: bool) -> np.ndarray:
+def _addresses(p: Pass, n1: int, units: int, write: bool,
+               jfast: bool = False) -> np.ndarray:
     """Tile-linear shared-memory indices of a pass's loads (or stores) by
-    the first ``units`` work units, as the unpaired kernel maps them:
-    (points, units)."""
+    the first ``units`` work units, as the unpaired kernel maps them (the
+    column form's butterfly fastest under ``jfast``): (points, units)."""
     u = np.arange(units)
     upg = (p.C if p.col else n1) * p.nb
     sig, rest = np.divmod(u, upg)
-    if p.col:
+    if p.col and jfast:
+        c, j = np.divmod(rest, p.nb)
+        line = sig
+    elif p.col:
         j, c = np.divmod(rest, p.C)
         line = sig
     else:
@@ -222,11 +251,11 @@ def wavefronts(addr: np.ndarray, itemsize: int) -> int:
 
 
 def _bank_cost(writer: Pass, reader: Pass, n1: int, tile: int, sh: int,
-               itemsize: int) -> int:
+               itemsize: int, jfast: bool = False) -> int:
     total = 0
-    for p, write in ((writer, True), (reader, False)):
+    for p, write, fast in ((writer, True, False), (reader, False, jfast)):
         units = min(tile * (p.C if p.col else n1) * p.nb, MODEL_WARPS * 32)
-        a = _addresses(p, n1, units, write)
+        a = _addresses(p, n1, units, write, fast)
         total += wavefronts(a + (a >> sh) if sh != NO_PAD else a, itemsize)
     return total
 
@@ -235,7 +264,8 @@ def _bank_cost(writer: Pass, reader: Pass, n1: int, tile: int, sh: int,
 class Layout:
     """A launch of ``block_fft``: the passes, the kernel's case family, its
     threads, the shared buffers (0, 1 or 2), the pad shift of the layout
-    after each pass but the last, and the dynamic shared memory."""
+    after each pass but the last, and the dynamic shared memory (and, for
+    a column layout, ``jfast``)."""
 
     n1: int
     l2: int
@@ -247,6 +277,7 @@ class Layout:
     buffers: int
     shifts: tuple[int, ...]
     smem: int
+    jfast: bool = False
 
     @property
     def points(self) -> int:
@@ -268,8 +299,33 @@ class Layout:
         bp.mode = self.mode
         bp.in_sig, bp.in_row, bp.out_sig, bp.out_row = (in_sig, in_row,
                                                         out_sig, out_row)
+        self._fill_passes(bp.passes)
+        return bp
+
+    def column_struct(self, width: int, *, in_sig: int, in_k: int,
+                      out_big: int, out_small: int, out_k: int, out_col: int,
+                      group: int, tw_n: int, tw_q: int) -> "ColumnPlanC":
+        """The column kernel's ``ColumnPlan`` for this layout (one signal
+        of ``n1`` rows by ``l2`` columns a block) over ``width`` columns,
+        with the column pass's strides and pass twiddle (see
+        ``ops.column_pass``)."""
+        cp = ColumnPlanC()
+        cp.in_sig, cp.in_k, cp.out_big, cp.out_small = (in_sig, in_k,
+                                                        out_big, out_small)
+        cp.out_k, cp.out_col = out_k, out_col
+        cp.n_passes = len(self.passes)
+        cp.width, cp.cols = width, self.l2
+        cp.tiles = -(-width // self.l2)
+        cp.tw_n, cp.jfast = tw_n, int(self.jfast)
+        for name, v in (("f_tiles", cp.tiles), ("f_group", group),
+                        ("f_twq", tw_q)):
+            setattr(cp, name, FastDivC(*fast_div(v)))
+        self._fill_passes(cp.passes)
+        return cp
+
+    def _fill_passes(self, descs) -> None:
         for i, p in enumerate(self.passes):
-            d = bp.passes[i]
+            d = descs[i]
             in_off, out_off = self.offsets(i)
             d.code = _CODE[(p.ra, p.rb)]
             d.col = int(p.col)
@@ -287,7 +343,6 @@ class Layout:
             for name, v in (("f_upg", d.upg), ("f_nb", p.nb), ("f_c", p.C),
                             ("f_s", p.s), ("f_b", f_b)):
                 setattr(d, name, FastDivC(*fast_div(v)))
-        return bp
 
 
 class FastDivC(ctypes.Structure):
@@ -310,12 +365,29 @@ class BlockPlanC(ctypes.Structure):
         ("passes", PassDescC * MAX_PASSES)]
 
 
-def entry(fn) -> object:
+class ColumnPlanC(ctypes.Structure):
+    """``ColumnPlan`` of ``csrc/stockham_columns.cuh``."""
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "in_sig", "in_k", "out_big", "out_small", "out_k", "out_col")] + [
+        (name, ctypes.c_int) for name in (
+            "n_passes", "width", "cols", "tiles", "tw_n", "jfast")] + [
+        (name, FastDivC) for name in ("f_tiles", "f_group", "f_twq")] + [
+        ("passes", PassDescC * MAX_PASSES)]
+
+
+def column_entry(fn) -> object:
+    """Set the argument types of a library's column entry
+    (``stockham_columns_f32`` / ``_f64``): x, y, tw, roots, plan, signals,
+    inverse, family, scale, threads, shared memory, stream."""
+    return entry(fn, ColumnPlanC)
+
+
+def entry(fn, plan=BlockPlanC) -> object:
     """Set the argument types of a library's one-block entry (``fn``:
     ``stockham_block_f32`` and the like): x, y, tw, roots, plan, signals,
     inverse, family, scale, threads, shared memory, stream."""
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.POINTER(BlockPlanC),
+                   ctypes.c_void_p, ctypes.POINTER(plan),
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
@@ -323,12 +395,13 @@ def entry(fn) -> object:
     return fn
 
 
-def _family(passes: list[Pass], itemsize: int) -> int | None:
-    """The first family (``FAMILIES``' order) whose kernel holds every
-    pass, or None."""
+def _family(passes: list[Pass], itemsize: int,
+            column: bool = False) -> int | None:
+    """The first family (``FAMILIES``' order) whose kernel (the column
+    kernel's, ``column``) holds every pass, or None."""
     for family in FAMILIES:
-        if all(_CODE[(p.ra, p.rb)] in family_cases(family, itemsize, p.paired)
-               for p in passes):
+        if all(_CODE.get((p.ra, p.rb)) in family_cases(
+                family, itemsize, p.paired, column) for p in passes):
             return family
     return None
 
@@ -337,7 +410,7 @@ def _family(passes: list[Pass], itemsize: int) -> int | None:
 def group_passes(n1: int, l2: int, row_radices: tuple[int, ...],
                  row_bases: tuple[int, ...], col_radices: tuple[int, ...],
                  col_bases: tuple[int, ...], tile: int, itemsize: int,
-                 mode: int = C2C, inverse: bool = False
+                 mode: int = C2C, inverse: bool = False, column: bool = False
                  ) -> tuple[tuple[Pass, ...], int, int, int]:
     """The passes of ``tile`` signals of n1 x l2 points: the row stages
     (the l2 axis; ``row_radices`` with their twiddle bases) then the column
@@ -349,7 +422,8 @@ def group_passes(n1: int, l2: int, row_radices: tuple[int, ...],
     work in points (a tail of small butterflies loops) and every in-place
     pass's butterflies.  The best feasible one: one buffer before two,
     then the fewest passes, then the smallest largest pass, then the
-    family of fewest registers."""
+    family of fewest registers.  ``column``: over the column kernel's
+    families, and at equal passes the largest first pass first."""
     paired_side = None
     if mode == EVEN:
         paired_side = "first" if inverse else "last"
@@ -364,7 +438,7 @@ def group_passes(n1: int, l2: int, row_radices: tuple[int, ...],
             if paired_side is not None:
                 i = 0 if paired_side == "first" else -1
                 passes[i] = passes[i].with_pairing(n1, paired_side)
-            family = _family(passes, itemsize)
+            family = _family(passes, itemsize, column)
             if family is None:
                 continue
             units = [tile * p.units(n1) for p in passes]
@@ -374,11 +448,14 @@ def group_passes(n1: int, l2: int, row_radices: tuple[int, ...],
             work = max(-(-u * p.R * (2 if p.paired else 1) // largest)
                        for u, p in zip(units, passes))
             most = max([work] + units[1:-1])
-            threads = max(32, min(max_threads(family, itemsize),
+            threads = max(32, min(max_threads(family, itemsize, column),
                                   -(-most // 32) * 32))
             buffers = 0 if len(passes) == 1 else (
                 1 if all(u <= threads for u in units[1:-1]) else 2)
-            key = (buffers == 2, len(passes), largest,
+            # the column kernel's first pass loads the tile: the largest
+            # pass first puts all of it in flight
+            first = -passes[0].R if column else 0
+            key = (buffers == 2, len(passes), first, largest,
                    FAMILIES.index(family))
             if best is None or key < best[0]:
                 best = (key, tuple(passes), family, threads, buffers)
@@ -397,17 +474,41 @@ def block_layout(n1: int, l2: int, row_radices: tuple[int, ...],
     a pad shift for each layout between two passes (the bank model's
     cheapest; none in two buffers) and the shared memory.  Raises
     ``ValueError`` when the tile's shared memory exceeds the limit."""
-    passes, family, threads, buffers = group_passes(
+    return _place(n1, l2, tile, mode, *group_passes(
         n1, l2, row_radices, row_bases, col_radices, col_bases, tile,
-        itemsize, mode, inverse)
+        itemsize, mode, inverse), itemsize)
+
+
+@functools.lru_cache(maxsize=1024)
+def column_layout(length: int, cols: int, radices: tuple[int, ...],
+                  bases: tuple[int, ...], itemsize: int,
+                  jfast: bool = False) -> Layout:
+    """The column kernel's launch of one tile: ``cols`` interleaved
+    columns of ``length`` points (the schedule ``radices`` with its
+    twiddle ``bases``) in the column kernel's families; ``jfast``: the
+    last pass takes its butterflies fastest across a warp (its stores
+    run along the output's unit stride).  The first pass reads global
+    memory and the last writes it, so the buffer holds the layouts
+    between passes only.  Raises ``ValueError`` as ``block_layout``."""
+    return _place(length, cols, 1, C2C, *group_passes(
+        length, cols, (), (), radices, bases, 1, itemsize, column=True),
+        itemsize, jfast)
+
+
+def _place(n1: int, l2: int, tile: int, mode: int, passes: tuple[Pass, ...],
+           family: int, threads: int, buffers: int, itemsize: int,
+           jfast: bool = False) -> Layout:
+    """A layout of ``group_passes``' passes: the bank model's cheapest pad
+    shift between two passes in one buffer, and the shared memory."""
     pts = n1 * l2 * tile
     shifts = []
     for i in range(len(passes) - 1):
         if buffers == 2:
             shifts.append(NO_PAD)
             continue
+        fast = jfast and i + 1 == len(passes) - 1
         costs = [(_bank_cost(passes[i], passes[i + 1], n1, tile, sh,
-                             itemsize), sh) for sh in PAD_SHIFTS]
+                             itemsize, fast), sh) for sh in PAD_SHIFTS]
         shifts.append(min(costs, key=lambda c: c[0])[1])
     if buffers == 2:
         smem = 2 * pts * itemsize
@@ -419,4 +520,4 @@ def block_layout(n1: int, l2: int, row_radices: tuple[int, ...],
         raise ValueError(f"{tile} signals of {n1}x{l2} points need {smem} "
                          f"bytes of shared memory (limit {SMEM_LIMIT_BYTES})")
     return Layout(n1, l2, tile, mode, tuple(passes), family, threads,
-                  buffers, tuple(shifts), smem)
+                  buffers, tuple(shifts), smem, jfast)

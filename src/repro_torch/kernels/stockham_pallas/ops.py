@@ -32,7 +32,7 @@ from ...fft import rfft as rfft_mod
 from ...fft.reference import half_roots
 from .. import _build
 from . import block
-from .ref import apply_passes, apply_two_pass
+from .ref import apply_passes, apply_two_pass, run_columns
 from .stockham_pallas import radix_schedule, smooth7
 
 #: Shared memory one block may use on Hopper (227 KB).
@@ -48,6 +48,10 @@ _CDTYPES = (torch.complex64, torch.complex128)
 #: where they launch the kernel and nowhere else.
 LAUNCHES = 0
 LAUNCH_SHAPES: Counter = Counter()
+#: Launches of the column pass (``stockham_columns_kernel``) by its own
+#: callers' wrappers (this module's and ``fft2_pallas``'s): a part of
+#: their counts, added where the column kernel launches.
+COLUMN_LAUNCHES = 0
 
 
 def smem_bytes(n: int, tile_b: int, itemsize: int, n_stages: int) -> int:
@@ -74,9 +78,10 @@ ONE_BLOCK_N = {torch.complex64: _largest_fitting(8),
 #: Longest axis the kernel takes: the reference's 2^20, in both dtypes.
 MAX_N = {torch.complex64: 1 << 20, torch.complex128: 1 << 20}
 
-#: Shared memory of one column-pass block: half a block's limit, so two
-#: blocks share an SM.
-COLUMN_SMEM_BYTES = SMEM_LIMIT_BYTES // 2
+#: Bytes of a row-run the column pass aims for (``column_layout``'s rule):
+#: 128 bytes, one line of the L2 (16 complex64 / 8 complex128 adjacent
+#: columns).
+COLUMN_RUN_BYTES = 128
 
 #: Entries of the low root table of the two-pass twiddle: W_n^e is
 #: hi[e >> 10] * lo[e & 1023] (``kRootLo`` in the kernel).
@@ -106,16 +111,27 @@ def choose_split(n: int, dtype: torch.dtype) -> tuple[int, int]:
     return n1, n // n1
 
 
-def column_tile(length: int, width: int, itemsize: int) -> int:
-    """Adjacent columns one column-pass block holds (a power of two up to
-    16, no more than the width needs): as many as fit two buffers of
-    ``length`` points in ``COLUMN_SMEM_BYTES``, at least one."""
-    cols = 1
-    while cols < min(16, width):
-        cols *= 2
-    while cols > 1 and 2 * length * cols * itemsize > COLUMN_SMEM_BYTES:
-        cols //= 2
-    return cols
+def column_layout(stages: "Twiddles", width: int, itemsize: int,
+                  k_fast: bool) -> block.Layout:
+    """The column pass's launch (``block.column_layout``) over ``width``
+    columns of ``stages.n`` points: a block holds the fewest adjacent
+    columns whose row-run is ``COLUMN_RUN_BYTES`` (no more than the width
+    needs), halved while the layout does not fit a block (measured on the
+    card, the run is worth more than blocks sharing an SM); ``k_fast``:
+    the output's unit stride is along k (a transposed store), so the last
+    pass takes its butterflies fastest across a warp."""
+    def lay(c: int) -> block.Layout:
+        return block.column_layout(stages.n, c, stages.radices,
+                                   stages.bases, itemsize, k_fast)
+    c = 1
+    while c * itemsize < COLUMN_RUN_BYTES and c < width:
+        c *= 2
+    while c > 1:
+        try:
+            return lay(c)
+        except ValueError:
+            c //= 2
+    return lay(1)
 
 
 def pass_roots(n: int, inverse: bool, dtype: torch.dtype,
@@ -229,9 +245,9 @@ def _from_planes(twr: np.ndarray, twi: np.ndarray,
 @dataclass(frozen=True)
 class TwoPass:
     """A plan for an axis over the one-block cap: the split n = n1*n2,
-    the one-block schedule and twiddles of each pass (``first``: the
-    n1-point column FFTs, ``second``: the n2-point ones) and the pass
-    twiddle's root tables (``pass_roots``)."""
+    the column schedule (``column_schedule``) and twiddles of each pass
+    (``first``: the n1-point column FFTs, ``second``: the n2-point ones)
+    and the pass twiddle's root tables (``pass_roots``)."""
 
     n: int
     n1: int
@@ -247,31 +263,54 @@ class TwoPass:
                 + self.roots.numel() * self.roots.element_size())
 
 
-def _one_block(n: int, radix: int, inverse: bool, dtype: torch.dtype,
-               device) -> Twiddles:
+def column_schedule(n: int, radix: int, dtype: torch.dtype
+                    ) -> tuple[int, ...]:
+    """The stage schedule of a column pass of length ``n`` (a two-pass
+    plan's, fft2's columns over one block): ``radix_schedule``'s, except
+    that in complex64 at radix 8 the power-of-two stages run as 8x4
+    pairs, the column kernel's 32-point register pass (a remainder of 2^4
+    as 4x4), so that 1024 points are two passes and the first pass the
+    largest."""
     radices = radix_schedule(n, radix)
+    if radix != 8 or dtype != torch.complex64:
+        return radices
+    odd = tuple(r for r in radices if r % 2)
+    k = (n // math.prod(odd)).bit_length() - 1
+    pow2 = (8, 4) * (k // 5) + {0: (), 1: (2,), 2: (4,), 3: (8,),
+                                4: (4, 4)}[k % 5]
+    return odd + pow2
+
+
+def _one_block(n: int, radix: int, inverse: bool, dtype: torch.dtype,
+               device, radices: tuple[int, ...] | None = None) -> Twiddles:
+    radices = radices or radix_schedule(n, radix)
     real = np.float64 if dtype == torch.complex128 else np.float32
     return _from_planes(*pack_twiddles(n, radices, inverse, real), dtype,
                         device)
 
 
 def make_twiddles(n: int, radix: int, inverse: bool, dtype: torch.dtype,
-                  device, split: tuple[int, int] | None = None
-                  ) -> Twiddles | TwoPass:
+                  device, split: tuple[int, int] | None = None,
+                  columns: bool = False) -> Twiddles | TwoPass:
     """Build the plan for length ``n`` on ``device``: schedules, twiddles
     in float64 on the host, cast once to ``dtype``'s precision and
     uploaded.  One block's plan up to ``ONE_BLOCK_N``, else a ``TwoPass``
-    over ``choose_split``; ``split`` forces two passes over that split."""
+    over ``choose_split``; ``split`` forces two passes over that split.
+    ``columns``: a plan that only the column pass runs (fft2's columns
+    over its one-block cap), on ``column_schedule`` at any length."""
     check_length(n, dtype)
     if split is None and n <= ONE_BLOCK_N[dtype]:
-        return _one_block(n, radix, inverse, dtype, device)
+        return _one_block(n, radix, inverse, dtype, device,
+                          column_schedule(n, radix, dtype) if columns
+                          else None)
     n1, n2 = split or choose_split(n, dtype)
     if n1 * n2 != n or min(n1, n2) < 2 or max(n1, n2) > ONE_BLOCK_N[dtype]:
         raise ValueError(f"split {n1}x{n2} is not a two-pass split of "
                          f"n={n} for {dtype}")
-    return TwoPass(n, n1, n2, _one_block(n1, radix, inverse, dtype, device),
-                   _one_block(n2, radix, inverse, dtype, device),
-                   pass_roots(n, inverse, dtype, device), inverse)
+    return TwoPass(n, n1, n2, *(
+        _one_block(m, radix, inverse, dtype, device,
+                   column_schedule(m, radix, dtype)) for m in (n1, n2)),
+        pass_roots(n, inverse, dtype, device), inverse)
 
 
 def _describe(plan: Twiddles | TwoPass) -> str:
@@ -285,15 +324,19 @@ def _describe(plan: Twiddles | TwoPass) -> str:
 
 
 def _matches(plan: Twiddles | TwoPass, n: int, radix: int, inverse: bool,
-             dtype: torch.dtype, device) -> bool:
+             dtype: torch.dtype, device, columns: bool = False) -> bool:
     if isinstance(plan, TwoPass):
         return (plan.n == n and plan.inverse == inverse
-                and plan.first.radices == radix_schedule(plan.n1, radix)
-                and plan.second.radices == radix_schedule(plan.n2, radix)
+                and plan.first.radices == column_schedule(plan.n1, radix,
+                                                          dtype)
+                and plan.second.radices == column_schedule(plan.n2, radix,
+                                                           dtype)
                 and plan.roots.dtype == dtype
                 and plan.roots.device == device)
+    schedule = column_schedule(n, radix, dtype) if columns \
+        else radix_schedule(n, radix)
     return (plan.n == n and n <= ONE_BLOCK_N[dtype]
-            and plan.radices == radix_schedule(n, radix)
+            and plan.radices == schedule
             and plan.tw.dtype == dtype and plan.tw.device == device
             and plan.inverse in (None, inverse))
 
@@ -362,23 +405,18 @@ def _kernel(dtype: torch.dtype):
 
 @functools.cache
 def _columns_kernel(dtype: torch.dtype):
-    """The library's column-pass entry for ``dtype``, its signature set
-    once."""
-    lib = _build.library("stockham")
-    fn = lib.stockham_columns_f64 if dtype == torch.complex128 \
-        else lib.stockham_columns_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_double,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The column-pass entry for ``dtype`` (in the library of the
+    dtype's one-block entry), its signature set once."""
+    if dtype == torch.complex128:
+        return block.column_entry(
+            _build.library("stockham64").stockham_columns_f64)
+    return block.column_entry(_build.library("stockham").stockham_columns_f32)
 
 
-@functools.cache
-def _c_ints(values: tuple[int, ...]):
-    return (ctypes.c_int * len(values))(*values)
+@functools.lru_cache(maxsize=1024)
+def _column_struct(lay: block.Layout, width: int, **strides
+                   ) -> block.ColumnPlanC:
+    return lay.column_struct(width, **strides)
 
 
 def column_pass(src: torch.Tensor, dst: torch.Tensor, stages: Twiddles,
@@ -387,29 +425,44 @@ def column_pass(src: torch.Tensor, dst: torch.Tensor, stages: Twiddles,
                 group: int = 1, roots: torch.Tensor | None = None,
                 tw_n: int = 0, tw_q: int = 1, inverse: bool = False,
                 scale: float = 1.0) -> None:
-    """Launch one column pass of ``csrc/stockham.cu``: for each of
+    """One column pass of ``csrc/stockham_columns.cuh``: for each of
     ``nsig`` signals and ``width`` columns, the ``stages.n``-point FFT of
     src[sig*in_sig + j*in_k + col], output k times W_tw_n^(k*(col//tw_q))
     (``roots`` from ``pass_roots``; none when tw_n is 0) and ``scale``,
     stored at dst[(sig//group)*out_big + (sig%group)*out_small + k*out_k
-    + col*out_col].  Counts nothing: the caller's wrapper counts its
-    launches.  Raises if the launch fails."""
+    + col*out_col], a block a tile of ``column_layout``.  On a tensor on
+    the card it launches the kernel (adding one to
+    ``COLUMN_LAUNCHES``) and raises if the launch fails; on a CPU tensor
+    it runs the kernel's index model (``ref.run_columns``), which the
+    tests hold against the plain version.  The caller's wrapper counts
+    its own launches."""
+    global COLUMN_LAUNCHES
     length = stages.n
-    cols = column_tile(length, width, src.element_size())
-    prm = (ctypes.c_longlong * 13)(nsig, length, width, cols, in_sig, in_k,
-                                   group, out_big, out_small, out_k, out_col,
-                                   tw_n, tw_q)
+    lay = column_layout(stages, width, src.element_size(), out_k == 1)
+    strides = dict(in_sig=in_sig, in_k=in_k, out_big=out_big,
+                   out_small=out_small, out_k=out_k, out_col=out_col,
+                   group=group, tw_n=tw_n, tw_q=tw_q)
+    if src.device.type == "cpu":
+        run_columns(src.reshape(-1), dst.view(-1), lay, nsig, width,
+                    stages.tw, roots, inverse, scale, **strides)
+        return
+    if (length - 1) * in_k + width > 1 << 31 or \
+            (length - 1) * out_k + (width - 1) * out_col >= 1 << 31:
+        raise ValueError(f"column pass offsets within a signal exceed "
+                         f"32 bits (length={length}, width={width})")
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = _columns_kernel(src.dtype)(
             src.data_ptr(), dst.data_ptr(), stages.tw.data_ptr(),
-            roots.data_ptr() if roots is not None else None, prm,
-            int(inverse), len(stages.radices), _c_ints(stages.radices),
-            _c_ints(stages.bases), float(scale), stream)
+            roots.data_ptr() if roots is not None else None,
+            ctypes.byref(_column_struct(lay, width, **strides)), nsig,
+            int(inverse), lay.family, float(scale), lay.threads, lay.smem,
+            stream)
     if err != 0:
         raise RuntimeError(f"stockham column pass failed: cudaError_t {err} "
                            f"(length={length}, width={width}, "
-                           f"signals={nsig}, cols={cols}, {src.dtype})")
+                           f"signals={nsig}, cols={lay.l2}, {src.dtype})")
+    COLUMN_LAUNCHES += 1
 
 
 def run_two_pass(x: torch.Tensor, y: torch.Tensor, plan: TwoPass,

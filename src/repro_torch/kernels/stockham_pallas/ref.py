@@ -14,7 +14,14 @@
 * :func:`apply_two_pass` repeats the two column passes of an axis over the
   one-block cap (n = n1*n2): the n1-point column FFTs with the pass
   twiddle W_n^(j2*k1) from the plan's root tables, then the n2-point ones,
-  stored in natural order.
+  stored in natural order.  ``ops.fft`` takes it for tensors that lie on
+  the CPU.
+* :func:`run_columns` runs one column pass as the CUDA kernel does
+  (``block.column_layout``): blocks of adjacent columns, work units,
+  FastDiv, the strided first load, the padded layouts between passes, the
+  twiddled last store at the pass's output strides.  ``ops.column_pass``
+  takes it for a CPU tensor; the tests hold it against
+  :func:`apply_two_pass` and numpy.
 * :func:`stockham_ref` is the independent oracle: the same recursion with
   its twiddles computed here, as the reference package's ``ref.py`` does, so
   a kernel-vs-oracle comparison isolates the kernel, not the factorization.
@@ -330,6 +337,87 @@ def run_block(x: torch.Tensor, layout: block.Layout, tw: torch.Tensor,
                     flat[sig0 * sig_pts + e] = (v.real * scale).to(flat.dtype)
                 else:
                     flat[sig0 * sig_pts + e] = v * scale if inverse else v
+    return y
+
+
+def run_columns(x: torch.Tensor, y: torch.Tensor, layout: block.Layout,
+                nsig: int, width: int, tw: torch.Tensor,
+                roots: torch.Tensor | None, inverse: bool, scale: float = 1.0,
+                *, in_sig: int, in_k: int, out_big: int, out_small: int,
+                out_k: int, out_col: int, group: int, tw_n: int,
+                tw_q: int) -> torch.Tensor:
+    """``stockham_columns_kernel`` over the flat tensors ``x`` -> ``y``
+    (``y`` written in place and returned), every block at once with the
+    kernel's own index arithmetic (``block.fdiv``): block -> (signal,
+    tile of ``layout.l2`` columns), signal -> its output group; work unit
+    -> (column, q, p), the column fastest (the butterfly fastest in the
+    last pass of a ``jfast`` layout); the first pass reads x[sig*in_sig +
+    j*in_k + col] (zero past the width), the passes between hold the tile
+    in the padded shared layouts, the last multiplies output k of column
+    col by W_tw_n^(k*(col//tw_q)) (``pass_twiddle``) and ``scale`` and
+    stores it at the strides; the inverse as the kernel runs it, the
+    conjugate of the forward passes.  Asserts what the kernel assumes (an
+    in-place pass has no more units than threads)."""
+    lay, C, L = layout, layout.l2, layout.n1
+    tiles = -(-width // C)
+    blk = torch.arange(nsig * tiles)
+    sig = block.fdiv(block.fast_div(tiles), blk)
+    col0 = (blk - sig * tiles) * C
+    grp = block.fdiv(block.fast_div(group), sig)
+    xbase = sig * in_sig + col0
+    ybase = grp * out_big + (sig - grp * group) * out_small + col0 * out_col
+    cw = (width - col0).clamp(max=C)
+    sm = torch.zeros((blk.numel(), max(1, lay.smem // tw.element_size())),
+                     dtype=tw.dtype)
+    pad = lambda e, sh: e + (e >> sh)
+    for i, p in enumerate(lay.passes):
+        first, last = i == 0, i == len(lay.passes) - 1
+        in_off, out_off = lay.offsets(i)
+        in_sh = lay.shifts[i - 1] if i > 0 else block.NO_PAD
+        out_sh = lay.shifts[i] if i < len(lay.shifts) else block.NO_PAD
+        units = p.units(L)
+        if not first and not last and in_off == out_off:
+            assert units <= lay.threads, (i, units, lay.threads)
+        u = torch.arange(units)
+        if last and lay.jfast:
+            c = block.fdiv(block.fast_div(p.nb), u)
+            j = u - c * p.nb
+        else:
+            j = block.fdiv(block.fast_div(C), u)
+            c = u - j * C
+        pp = block.fdiv(block.fast_div(p.s), j)
+        q = j - pp * p.s
+        t = torch.arange(p.R)[:, None, None]
+        live = c[None, :] < cw[:, None]                         # (blk, u)
+        if first:                                               # s = 1, q = 0
+            idx = xbase[:, None] + c[None, :]
+            idx = idx[None] + (pp[None, :] + p.M * t) * in_k    # (R, blk, u)
+            a = torch.where(live, x[idx.clamp(0, x.numel() - 1)], 0)
+            a = a.to(tw.dtype)
+            if inverse:     # the conjugate of the forward passes
+                a = a.conj_physical()
+        else:
+            e = c + C * (q + p.s * pp) + C * p.s * p.M * t      # (R, 1, u)
+            a = sm[:, in_off + pad(e[:, 0], in_sh)].movedim(1, 0)
+        a = _pass_stages(a, p, tw.conj_physical() if inverse else tw, pp,
+                         False)
+        for k in range(p.R):
+            v = a[_slot(p, k)]
+            if last:
+                kk = q + p.s * (k + p.R * pp)                   # (u,)
+                if inverse:
+                    v = v.conj_physical()
+                if tw_n > 0:    # live columns only: e < tw_n
+                    jq = block.fdiv(block.fast_div(tw_q), col0[:, None] +
+                                    c[None, :])
+                    v = v * pass_twiddle(roots, torch.where(
+                        live, kk[None, :] * jq, 0))
+                v = v * scale
+                dst = ybase[:, None] + kk * out_k + c * out_col
+                y[dst[live]] = v[live].to(y.dtype)
+            else:
+                e = c + C * (q + p.s * (k + p.R * pp))
+                sm[:, out_off + pad(e, out_sh)] = v
     return y
 
 

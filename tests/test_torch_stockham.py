@@ -20,7 +20,7 @@ from helpers.accuracy import REL_L2_TOL, rel_l2
 from repro.kernels.stockham_pallas import ops as sp_ops
 from repro.kernels.stockham_pallas.stockham_pallas import (
     radix_schedule as ref_schedule)
-from repro_torch.kernels.stockham_pallas import ops, ref
+from repro_torch.kernels.stockham_pallas import block, ops, ref
 from repro_torch.kernels.stockham_pallas.stockham_pallas import (
     radix_schedule, smooth7)
 
@@ -148,7 +148,10 @@ def test_hopper_cap_raises():
 def test_two_pass_split_fits_one_block_at_every_length():
     """Every 7-smooth length over the one-block cap, up to 2^20, splits
     into two factors that one block holds, the smaller at most sqrt(n);
-    a column-pass block holds its tile within half a block's memory."""
+    each column pass's plan (``column_layout``) fits one block's 227 KB,
+    its threads fit its family's column kernel, and its row-run is 128
+    bytes unless the width is narrower or twice the columns would not
+    fit a block."""
     for dtype, itemsize in ((torch.complex64, 8), (torch.complex128, 16)):
         cap = ops.ONE_BLOCK_N[dtype]
         for n in [m for m in range(cap + 1, (1 << 20) + 1, 97) if smooth7(m)] \
@@ -156,10 +159,20 @@ def test_two_pass_split_fits_one_block_at_every_length():
             n1, n2 = ops.choose_split(n, dtype)
             assert n1 * n2 == n and 2 <= n1 <= n2 <= cap, (n, dtype)
             assert n1 * n1 <= n
-            for length, width in ((n1, n2), (n2, n1)):
-                cols = ops.column_tile(length, width, itemsize)
-                assert 1 <= cols <= 16
-                assert 2 * length * cols * itemsize <= ops.COLUMN_SMEM_BYTES
+            plan = ops.make_twiddles(n, 8, False, dtype, "cpu")
+            for stages, width, k_fast in ((plan.first, n2, True),
+                                          (plan.second, n1, False)):
+                lay = ops.column_layout(stages, width, itemsize, k_fast)
+                cols = lay.l2
+                assert 1 <= cols <= 16 and lay.jfast == k_fast
+                assert lay.smem <= ops.SMEM_LIMIT_BYTES
+                assert lay.threads <= block.max_threads(lay.family, itemsize,
+                                                        column=True)
+                if cols * itemsize < ops.COLUMN_RUN_BYTES and cols < width:
+                    with pytest.raises(ValueError):
+                        block.column_layout(stages.n, 2 * cols,
+                                            stages.radices, stages.bases,
+                                            itemsize, k_fast)
     assert ops.choose_split(1 << 20, torch.complex64) == (1024, 1024)
     assert ops.choose_split(65536, torch.complex128) == (256, 256)
     assert ops.choose_split(76545, torch.complex64) == (243, 315)
