@@ -7,8 +7,8 @@ with ``git archive`` into ``build/``).  Prints one JSON line: the median
 of 50 CUDA-event times (after 3 warm calls) of each kernel on prepared
 operands at the main path's shapes: the fft2 kernel at P7's and P6's
 tiles, the Stockham kernel at P7's axis and P3, the four-step kernel at
-the axes of P1-P7 (complex64 and complex128), the dft kernel at P8 and
-P9's packed axis, and
+the axes of P1-P7 (complex64 and complex128), the dft kernel at P8, P9's
+packed axis, P15 and n = 127 in both dtypes, and
 the fused fftconv kernel at F2 and F3 (the default tile); the Stockham
 kernel's two column passes (``stockham_columns_kernel``) over one
 block's cap at B1's 65536 x 1024 and 2^20 x 64 complex64 and P13's
@@ -56,8 +56,11 @@ FOURSTEP_SHAPES = ((4096, 16384, torch.complex64),
                    (3072, 1537, torch.complex64),
                    (128, 16384, torch.complex128),
                    (64, 524288, torch.complex128))
-#: (n, rows, dtype) of the dft kernel: P8, and P9's packed axis
-DFT_SHAPES = ((128, 524288, torch.complex64), (50, 655360, torch.complex128))
+#: (n, rows, dtype) of the dft kernel: P8, and P9's packed axis (its FFT
+#: body); n = 127 at P8's bytes, P15, n = 127 in complex128 (its chirp body)
+DFT_SHAPES = ((128, 524288, torch.complex64), (50, 655360, torch.complex128),
+              (127, 524288, torch.complex64), (19, 3532045, torch.complex64),
+              (127, 262144, torch.complex128))
 #: (name, channels, signals, L = K) of the fused fftconv kernel
 CONV_SHAPES = (("F2", 768, 32, 2048), ("F3", 768, 8, 8192))
 #: (n, rows) of the Stockham kernel's real fold (float32): P1's inner

@@ -9,7 +9,9 @@
 3. holds each kernel against its plain PyTorch version on the card, and
    against ``torch.fft``, over lengths (shapes), radices, dtypes,
    directions, tile 1 and a ragged last tile (the dft kernel at every n
-   from 1 to 128); then the kernels' multi-pass paths, over one block's
+   from 1 to 128, its FFT body and its chirp body, also against the
+   direct product and in the default tile); then the kernels' multi-pass
+   paths, over one block's
    shared memory up to the reference's caps (Stockham to 2^20, fft2 to
    2^18 points, the four-step kernel's two launches in complex128), a
    few rows each, forward and inverse; then the real-input folds of the
@@ -32,17 +34,18 @@
    Outplace_Real under ``TorchFft2Pallas``) through ``Session.run``, each
    with the launch counts set to 0 just before it and read just after:
    each validates and launches its own kernel and no other;
-7. drives the large-N and oddshape paths at full size (P10-P14, about
+7. drives the large-N and oddshape paths at full size (P10-P15, about
    512 MiB each way): ``Session.run`` of ``TorchSixStep`` on P10-P11,
    ``TorchChirpZPallas`` on P12-P14, ``TorchBluestein`` on P12-P14 and
-   ``TorchFFT`` on P10-P14, each node validated, with the launch counts
+   ``TorchFFT`` on P10-P15, each node validated, with the launch counts
    set to 0 just before it and read just after: a six-step node launches
    the Stockham and four-step kernels and no other, a chirp-Z node the
    Stockham kernel (and the four-step kernel at P12, whose padded m = 2^18
    runs six-step), the Bluestein baseline and torch.fft none;
-8. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P14 (the
+8. drives the planner: ``TorchPlanned`` under ESTIMATE on P1-P15 (the
    reference's picks, each node launching its pick's kernels and no
-   other; the ``dft_matmul`` kernel's main path, on P8 and P9), under
+   other; the ``dft_matmul`` kernel's main path, on P8 and P9 its FFT
+   body, on P15 its chirp body), under
    MEASURE on P1-P9 and P12-P14 with a wisdom file under ``build/``
    (every candidate of the port's ``candidates()`` built and timed
    finite), the pinned kernel clients under PATIENT into the same file
@@ -227,7 +230,7 @@
    bound, and sweeps the batch tile of the fftconv and four-step kernels
    there (the check on their defaults); then checks and times the
    multi-pass paths, the fused rank-2 kernel's complex transform of P6's
-   tile and the dft kernel's direct product at 512 MiB shapes
+   tile and the dft kernel's chirp body at 512 MiB shapes
    (``EXTRA_TIMING``);
 18. prints the kernel summary (the distributed nodes' launches counted
    in) and, as the last line,
@@ -285,7 +288,7 @@ FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096, 8192)
 #: of 5) where 8 signals fit one block
 CHECK_ROWS = 37
 #: dft_matmul kernel: every length up to its cap of 128 (the FFT body on
-#: the 7-smooth ones, the direct product on the rest)
+#: the 7-smooth ones, the chirp body on the rest)
 DFT_NS = tuple(range(1, 129))
 #: The multi-pass paths, a few rows each: Stockham lengths over one
 #: block (two column passes; 76545 = 945 x 81 splits 243 x 315, not a
@@ -321,12 +324,15 @@ FOLD_NODES = {("TorchStockhamPallas", "P1"): ("rfft", "irfft"),
 BACKENDS_NODES = (("TorchStockhamPallas", (65536,), "stockham_pallas"),
                   ("TorchFft2Pallas", (256, 256), "fft2_pallas"))
 #: Shapes timed beside the main path's, each moving 512 MiB each way:
-#: the dft kernel's direct product at n = 127 (P8's bytes), the fused
+#: the dft kernel's chirp body at n = 127 (P8's bytes; m = 256), at P15's
+#: n = 19 (m = 40) and at n = 127 in complex128 (256 MiB), the fused
 #: rank-2 kernel's complex transform of P6's packed tile (the main path
 #: runs P6 through the fold), the Stockham kernel's two passes, fft2's
 #: passes, the four-step kernel's two launches; and P13's two passes in
 #: complex128 (m = 13720 = 98 x 140 on 8192 rows, 1.8 GB each way).
 EXTRA_TIMING = (("dft_matmul", (127, 524288, "complex64")),
+                ("dft_matmul", (19, 3532045, "complex64")),
+                ("dft_matmul", (127, 262144, "complex128")),
                 ("fft2_pallas", (128, 64, 8192, "complex64")),
                 ("stockham_pallas", (65536, 1024, "complex64")),
                 ("stockham_pallas", (1 << 20, 64, "complex64")),
@@ -355,6 +361,7 @@ PROBLEMS = (
     ("P12", (19 ** 4,), "Outplace_Complex", "float", 512),
     ("P13", (19 ** 3,), "Inplace_Real", "double", 8192),
     ("P14", (361, 361), "Outplace_Real", "float", 1024),
+    ("P15", (19,), "Outplace_Complex", "float", 3532045),
 )
 ALL = ("P1", "P2", "P3", "P4", "P5", "P6", "P7")
 #: The large-N and oddshape problems, about 512 MiB each way: six-step at
@@ -363,6 +370,9 @@ ALL = ("P1", "P2", "P3", "P4", "P5", "P6", "P7")
 #: P13: an odd real axis, m = 13720 complex128, the Stockham kernel's two
 #: column passes; P14: per axis, m = 729 in one block).
 LARGE = ("P10", "P11", "P12", "P13", "P14")
+#: The paper's oddshape at rank 1 (19, floor(2^26 / 19) rows: 512 MiB each
+#: way): ESTIMATE pins it to the dft kernel's chirp body; torch.fft beside.
+ODD1 = ("P15",)
 #: Their paths: (client, its problems, the kernels each node launches and
 #: no other).
 LARGE_PATHS = (
@@ -370,7 +380,7 @@ LARGE_PATHS = (
     ("TorchChirpZPallas", ("P12",), ("stockham_pallas", "fft4step")),
     ("TorchChirpZPallas", ("P13", "P14"), ("stockham_pallas",)),
     ("TorchBluestein", ("P12", "P13", "P14"), ()),
-    ("TorchFFT", LARGE, ()),
+    ("TorchFFT", LARGE + ODD1, ()),
 )
 #: The problems TorchPlanned plans under MEASURE (every candidate timed)
 #: and then WISDOM_ONLY: P1-P9 and the oddshape ones.
@@ -386,14 +396,15 @@ PATIENT_PROBLEMS = (
 PATIENT_PATHS = (("TorchStockhamPallas", "P5"), ("TorchFourStepPallas", "P5"),
                  ("TorchFft2Pallas", "F1"), ("TorchSixStep", "P10"),
                  ("TorchChirpZPallas", "P13"))
-#: TorchPlanned's ESTIMATE picks on P1-P14: the reference's
+#: TorchPlanned's ESTIMATE picks on P1-P15: the reference's
 #: ``repro.core.costmodel.estimate_choice`` (tests/test_torch_planner.py
 #: holds the port's picks to it).
 ESTIMATE_PICKS = {"P1": "xla", "P2": "xla", "P3": "fourstep_pallas",
                   "P4": "xla", "P5": "fourstep_pallas", "P6": "fft2_pallas",
                   "P7": "fft2_pallas", "P8": "dft", "P9": "dft",
                   "P10": "xla", "P11": "xla", "P12": "xla",
-                  "P13": "chirpz_pallas", "P14": "fourstep_pallas"}
+                  "P13": "chirpz_pallas", "P14": "fourstep_pallas",
+                  "P15": "dft"}
 #: The kernel each planner backend launches (none for torch.fft and the
 #: plain-torch baselines; six-step and chirp-Z: see ``_kernels_of``).
 BACKEND_KERNEL = {"stockham_pallas": "stockham_pallas",
@@ -464,7 +475,7 @@ KERNEL_SYMBOLS = {
     "fft4step_columns_kernel": {"fft4step"},
     "fft4step_rows_kernel": {"fft4step"},
     "dft_fft_kernel": {"dft_matmul"},
-    "dft_kernel": {"dft_matmul"},
+    "dft_chirp_kernel": {"dft_matmul"},
     "fftconv_kernel": {"fftconv"},
 }
 #: Rows of one request per mix entry held against the pinned kernel's
@@ -666,13 +677,13 @@ def build() -> float:
     return seconds
 
 
-def column_ptxas() -> list[dict]:
-    """ptxas's report (``-Xptxas -v``) of every column-pass instantiation
-    (``stockham_columns_kernel``, per dtype and case family): registers,
-    stack frame, spill stores and loads.  Raises if one spills."""
+def _ptxas(libraries, symbol: str) -> list[dict]:
+    """ptxas's report (``-Xptxas -v``) of each entry function of the
+    ``libraries`` whose name holds ``symbol``: its mangled name,
+    registers, stack frame, spill stores and loads."""
     from repro_torch.kernels import _build
     rows, entry, frame = [], None, None
-    for name in ("stockham", "stockham64"):
+    for name in libraries:
         for line in _build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -684,19 +695,47 @@ def column_ptxas() -> list[dict]:
                 frame = tuple(int(v) for v in m.groups())
                 continue
             m = re.search(r"Used (\d+) registers", line)
-            if m and entry and "stockham_columns_kernel" in entry:
-                t = re.search(r"stockham_columns_kernelI(\w)Li(\d)E", entry)
-                rows.append({"library": name, "dtype": {"f": "complex64",
-                             "d": "complex128"}[t.group(1)],
-                             "family": int(t.group(2)),
+            if m and entry and symbol in entry:
+                rows.append({"library": name, "entry": entry,
                              "registers": int(m.group(1)),
                              "stack_frame": frame[0],
                              "spill_stores": frame[1],
                              "spill_loads": frame[2]})
                 entry = None
-    if not rows or any(r["spill_stores"] or r["spill_loads"] for r in rows):
-        raise AssertionError(f"column pass instantiations spill: {rows}")
     return rows
+
+
+def _no_spills(rows: list[dict], what: str) -> list[dict]:
+    if not rows or any(r["spill_stores"] or r["spill_loads"] for r in rows):
+        raise AssertionError(f"{what} instantiations spill: {rows}")
+    return rows
+
+
+def column_ptxas() -> list[dict]:
+    """ptxas's report of every column-pass instantiation
+    (``stockham_columns_kernel``, per dtype and case family).  Raises if
+    one spills."""
+    rows = []
+    for r in _ptxas(("stockham", "stockham64"), "stockham_columns_kernel"):
+        t = re.search(r"stockham_columns_kernelI(\w)Li(\d)E", r.pop("entry"))
+        rows.append({"library": r.pop("library"),
+                     "dtype": {"f": "complex64", "d": "complex128"}[t.group(1)],
+                     "family": int(t.group(2)), **r})
+    return _no_spills(rows, "column pass")
+
+
+def chirp_ptxas() -> list[dict]:
+    """ptxas's report of every instantiation of the dft kernel's chirp
+    body (``dft_chirp_kernel``, per dtype and split m1 x m2).  Raises if
+    one spills."""
+    rows = []
+    for r in _ptxas(("dft",), "dft_chirp_kernel"):
+        t = re.search(r"dft_chirp_kernelI(\w)Li(\d+)ELi(\d+)E",
+                      r.pop("entry"))
+        r.pop("library")
+        rows.append({"dtype": {"f": "complex64", "d": "complex128"}[t.group(1)],
+                     "split": f"{t.group(2)}x{t.group(3)}", **r})
+    return _no_spills(rows, "dft chirp body")
 
 
 class Worst:
@@ -803,12 +842,22 @@ def check_dft(device, gen, dtype) -> Worst:
         for inverse in (False, True):
             m = ops.make_matrix(n, inverse, dtype, device)
             plain = ops.plain(x, m, inverse)
+            direct = _dft_plain(ref, x, inverse)
             lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
-            for tile in (1, 8):     # 37 rows in tiles of 8: a ragged tile
+            # 37 rows in tiles of 8: a ragged tile; None: the default
+            for tile in (1, 8, None):
                 y = ops.dft(x, inverse, tile_b=tile, matrix=m)
                 torch.cuda.synchronize(device)
-                w.add(y, plain, lib, f"n={n} tile_b={tile} "
-                      f"inverse={inverse} ({'FFT' if m.fft else 'direct'})")
+                what = (f"n={n} tile_b={tile} inverse={inverse} "
+                        f"({'FFT' if m.fft else 'chirp'} body)")
+                w.add(y, plain, lib, what)
+                e = rel_l2(y, direct)
+                if not e <= PLAIN_TOL[name]:
+                    raise AssertionError(f"dft_matmul kernel disagrees with "
+                                         f"the direct product: {what} "
+                                         f"{name}: rel_l2 {e:.3e}")
+                w.row["rel_l2_direct"] = max(w.row.get("rel_l2_direct", 0.0),
+                                             e)
     return w
 
 
@@ -1123,7 +1172,8 @@ def run_large_paths(device) -> dict:
             del rs
             gc.collect()
             torch.cuda.empty_cache()
-    emit({"main_path": "six-step, chirp-Z, Bluestein on P10-P14",
+    emit({"main_path": "six-step, chirp-Z, Bluestein on P10-P14; torch.fft "
+                       "on P10-P15",
           "launches": out["launches"]})
     return out
 
@@ -2756,10 +2806,12 @@ class Shape:
         what its algorithm costs beyond the bound: for the four-step kernel
         the tensor-core products, 3 * 8 (n1 + n2) TF32 flops per point at
         the TF32 peak in complex64 (3xTF32) and 8 (n1 + n2) at the fp64
-        peak in complex128; 8n per point for the dft kernel's direct
-        product (fp32/fp64 on the CUDA cores); None for the FFTs in stages
-        or registers (Stockham, fft2, the dft kernel on a 7-smooth n),
-        whose flops are about the 5 n log2(n)."""
+        peak in complex128; for the dft kernel's chirp body (an n that is
+        not 7-smooth) two FFTs of its length m (5 m log2(m) flops each)
+        and its chirp and spectrum products (6 flops each on 2n + m
+        points) per row; None for the FFTs in stages or registers
+        (Stockham, fft2, the dft kernel on a 7-smooth n), whose flops are
+        about the 5 n log2(n)."""
         peak = PEAK_FLOPS[self.dname]
         if self.kernel == "fft4step":
             n1, n2 = self.ops.choose_factors(self.n)
@@ -2767,7 +2819,10 @@ class Shape:
             if self.dname == "complex64":
                 per_point, peak = 3 * per_point, PEAK_TF32
         elif self.kernel == "dft_matmul" and not self.ops.smooth7(self.n):
-            per_point = 8 * self.n
+            m1, m2 = self.ops.chirp_split(self.n)
+            m = m1 * m2
+            per_point = (10 * m * math.log2(m) + 6 * (2 * self.n + m)) \
+                / self.n
         else:
             return None
         return per_point * self.n * self.rows / peak * 1e3
@@ -4622,6 +4677,7 @@ def main() -> int:
     emit(card_info())
     emit({"build_s": build()})
     emit({"ptxas_column_pass": column_ptxas()})
+    emit({"ptxas_dft_chirp": chirp_ptxas()})
     emit({"kernels": [k for k, _, _ in KERNELS]})
     t_checks = time.perf_counter()
     checks = check_kernels(device)

@@ -8,51 +8,67 @@
 // i / n); the inverse folds 1/n into the store.
 //
 // Bound: device-memory bytes, once the arithmetic is an FFT.  The TPU
-// kernel's product takes 8 n real flops per point (1024 at n = 128), over
-// the card's flop-per-byte ridge without tensor cores: a direct product on
-// the CUDA cores ran at 6x the bytes' bound (1.97 ms at 128 x 524288
-// complex64).  A mixed-radix FFT of a 7-smooth n <= 128 needs about
-// 5 log2(n) flops per point, so the FFT body below is bounded by one read
-// and one write of the rows.  Two bodies:
+// kernel's product takes 8 n real flops per point (1016 at n = 127), about
+// 3x the card's flop-per-byte ridge without tensor cores (67 TFLOP/s over
+// 3.35 TB/s at 16 bytes a point: ~320): a direct product on the CUDA cores
+// ran at 6-8x the bytes' bound.  Both bodies below are FFTs held in
+// registers, one read and one write of each row, so their flops stay under
+// the ridge (~5 log2(n) a point for a 7-smooth n; ~130 a point for the
+// chirp body at n = 127: two 256-point FFTs and the products for a row of
+// 127) and the bytes bound them in principle.  Each warp owns `rpw`
+// rows and a private slice of shared memory, padded so that every pass
+// spreads over the banks; its lanes take tasks in turn; no block barrier.
 //
 // * 7-smooth n (dft_fft_kernel): n = n1 * n2, both at most 16 (25 for
-//   n = 125), as two passes of FFTs held in registers.  Each warp owns
-//   `rpw` rows and a private slice of shared memory; its lanes take tasks
-//   in turn:
+//   n = 125), as two passes:
 //     pass 1: a lane loads column j2 of a row (x[j1*n2 + j2], j1 < n1:
 //             for each j1 the warp reads runs of n2 consecutive points),
 //             runs the n1-point FFT in registers (RegFft: radix-2/3/4/5/
 //             7/8 DIF steps on the butterflies of stockham_stages.cuh),
 //             multiplies output k1 by W_n^(j2 k1) and writes it to the
-//             slice (padded so that both passes spread over the banks);
+//             slice;
 //     pass 2: after __syncwarp, a lane reads row k1 of the slice, runs
 //             the n2-point FFT and stores output k2 at y[k1 + n1 k2] (runs
 //             of n1 consecutive points).
-//   One read and one write of each row, no block barrier.  Every twiddle
-//   is a root W_n^e of one table of n roots, built in float64 on the host
-//   and cast once (no fast-math sincos); the forward table serves the
-//   inverse too, which conjugates on load and on store.
-// * other n (11, 13, ..., 127; dft_kernel): the direct product, as the
-//   first port had it: one CTA owns a tile of tile_b rows in shared memory;
-//   each thread owns a 4 x 4 register tile of outputs (4 rows, 4 columns)
-//   and, per step j of the sum, loads 4 values of X (broadcasts) and 4 of
-//   W's row j (coalesced) for 16 complex FMAs; W (up to 256 KB) is read
-//   from global memory, resident in L1/L2; fp32 / fp64 FMA on the CUDA
-//   cores (TF32 would break the suite's 1e-5 roundtrip bar).
+//   Every twiddle is a root W_n^e of one table of n roots.
+// * any other n (11, 13, ..., 127; dft_chirp_kernel): the chirp-z
+//   (Bluestein) identity y[k] = c[k] sum_j (x[j] c[j]) conj(c[k - j]),
+//   c[j] = W_2n^(j^2), a circular convolution at a length m = m1 * m2 >=
+//   2n - 1 that splits into two register-FFT sizes, the split of the
+//   fewest flops (24 = 3 x 8 for n = 11, 40 = 5 x 8 for 19, 256 = 16 x 16
+//   for 127), as four passes:
+//     stage:  the warp copies its rows (contiguous) into shared memory,
+//             eight coalesced loads a lane in flight;
+//     pass 1: as the FFT body's pass 1 over the chirped row zero-padded
+//             to m (indices >= n are zeros, not read);
+//     pass 2: row k1 of the slice, the m2-point FFT: the lane now holds
+//             the spectrum points k1 + m1 k2, k2 < m2;
+//     pass 3: in the same lane, times the filter spectrum F (fft(conj c)
+//             / m, in the order k1 + m1 k2), conjugated, the m2-point FFT
+//             of those points (the first pass of the inverse transform,
+//             which needs no exchange), times W_m^(k1 t2), written back to
+//             the slot the lane read in pass 2;
+//     pass 4: after __syncwarp, column t2 of the slice, the m1-point FFT:
+//             outputs t = t2 + m2 t1 of the convolution, conjugated; the
+//             lane stores the t < n of them times c[t] (runs of m2); the
+//             outputs no n of this m reaches are never computed.
+//   Its plan is one table: the m roots W_m^e, the n chirp values and the
+//   m spectrum values, each built in float64 on the host and cast once.
+// Neither body computes a sine on the card; each plan serves both
+// directions: the inverse conjugates on load and on store and applies 1/n.
 //
 // Layout: interleaved complex (torch.view_as_real of contiguous tensors).
-// Plain C interface (dft_fft_f32 / dft_fft_f64 and dft_f32 / dft_f64),
-// loaded with ctypes; each returns the cudaError_t of the launch.
+// Plain C interface (dft_fft_f32 / dft_fft_f64 and dft_chirp_f32 /
+// dft_chirp_f64), loaded with ctypes; each returns the cudaError_t of the
+// launch.
 
 #include <cuda_runtime.h>
 
-#include "stockham_stages.cuh"  // Cx, cfma, mul, Butterfly
+#include "stockham_stages.cuh"  // Cx, mul, Butterfly
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFftWarps = 4;            // warps of an FFT-body block
-constexpr int kRT = 4;                  // register tile edge
+constexpr int kFftWarps = 4;            // warps of a block (both bodies)
 constexpr int kMaxN = 128;
 
 // ---- the FFT body ------------------------------------------------------
@@ -210,79 +226,168 @@ dft_fft_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
   row_ffts<N1, N2, T>(slice, y + row0 * n, w, vr, pitch, rs, inv);
 }
 
-// ---- the direct body ---------------------------------------------------
+// ---- the chirp body ----------------------------------------------------
 
-template <typename T, bool INV>
-__global__ void __launch_bounds__(kThreads)
-dft_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
-           const Cx<T>* __restrict__ w, long long rows, int n, int tile_b,
-           T inv_n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Cx<T>* xs = reinterpret_cast<Cx<T>*>(smem_raw);  // tile_b * n
-  const long long row0 = static_cast<long long>(blockIdx.x) * tile_b;
-  const int sigs = static_cast<int>(min(static_cast<long long>(tile_b), rows - row0));
+// The most points of a row that a chirp length m takes (2n - 1 <= m).
+template <int M1, int M2>
+__host__ __device__ constexpr int chirp_max_n() { return (M1 * M2 + 1) / 2; }
 
-  const Cx<T>* xg = x + row0 * n;
-  for (int i = threadIdx.x; i < sigs * n; i += blockDim.x) xs[i] = xg[i];
-  __syncthreads();
-
-  // outputs y[r, k] for r = ri + a*ni, k = kj + c*nj
-  const int ni = (sigs + kRT - 1) / kRT;
-  const int nj = (n + kRT - 1) / kRT;
-  for (int g = threadIdx.x; g < ni * nj; g += blockDim.x) {
-    const int kj = g % nj;
-    const int ri = g / nj;
-    const Cx<T>* xr[kRT];
-    int kk[kRT];
+// A warp's vr rows (vr * n points, contiguous) into its staging area, up
+// to kStageLoads loads a lane in flight before any store: one coalesced
+// read of the rows.
+constexpr int kStageLoads = 8;
+template <typename T>
+__device__ __forceinline__ void chirp_stage(const Cx<T>* __restrict__ xw,
+                                            Cx<T>* stage, int count) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < count; base += 32 * kStageLoads) {
+    Cx<T> v[kStageLoads];
 #pragma unroll
-    for (int a = 0; a < kRT; ++a) xr[a] = xs + min(ri + a * ni, sigs - 1) * n;
-#pragma unroll
-    for (int c = 0; c < kRT; ++c) kk[c] = min(kj + c * nj, n - 1);
-    Cx<T> acc[kRT][kRT];
-#pragma unroll
-    for (int a = 0; a < kRT; ++a)
-#pragma unroll
-      for (int c = 0; c < kRT; ++c) acc[a][c] = {T(0), T(0)};
-    for (int j = 0; j < n; ++j) {
-      const Cx<T>* wrow = w + j * n;
-      Cx<T> u[kRT], v[kRT];
-#pragma unroll
-      for (int a = 0; a < kRT; ++a) u[a] = xr[a][j];
-#pragma unroll
-      for (int c = 0; c < kRT; ++c) v[c] = wrow[kk[c]];
-#pragma unroll
-      for (int a = 0; a < kRT; ++a)
-#pragma unroll
-        for (int c = 0; c < kRT; ++c) acc[a][c] = cfma(u[a], v[c], acc[a][c]);
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int i = base + u * 32 + lane;
+      if (i < count) v[u] = xw[i];
     }
 #pragma unroll
-    for (int a = 0; a < kRT; ++a) {
-      const int r = ri + a * ni;
-      if (r >= sigs) continue;
-      Cx<T>* yo = y + (row0 + r) * n;
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int i = base + u * 32 + lane;
+      if (i < count) stage[i] = v[u];
+    }
+  }
+}
+
+// Pass 1 over a warp's vr staged rows: column j2 of the chirped row
+// zero-padded to M = M1 * M2 points (x[j] c[j] at j = j1*M2 + j2 < n,
+// zero beyond), its M1-point FFT, output k1 times W_M^(j2 k1), to
+// slice[r*rs + k1*pitch + j2].
+template <int M1, int M2, typename T>
+__device__ __forceinline__ void chirp_columns(
+    const Cx<T>* stage, Cx<T>* slice, const Cx<T>* __restrict__ w,
+    const Cx<T>* __restrict__ chirp, int n, int vr, int pitch, int rs,
+    bool inv) {
+  constexpr FftOrder<M1> order{};
+  constexpr int live = (chirp_max_n<M1, M2>() + M2 - 1) / M2;  // j1 < live
+  for (int task = threadIdx.x & 31; task < vr * M2; task += 32) {
+    const int r = task / M2, j2 = task - r * M2;
+    const Cx<T>* xs = stage + r * n;
+    Cx<T> a[M1];
 #pragma unroll
-      for (int c = 0; c < kRT; ++c) {
-        const int k = kj + c * nj;
-        if (k < n)
-          yo[k] = INV ? Cx<T>{acc[a][c].re * inv_n, acc[a][c].im * inv_n}
-                      : acc[a][c];
+    for (int j1 = 0; j1 < M1; ++j1) {
+      const int j = j1 * M2 + j2;
+      a[j1] = Cx<T>{T(0), T(0)};
+      if (j1 < live && j < n) {
+        Cx<T> v = xs[j];
+        if (inv) v.im = -v.im;
+        a[j1] = mul(v, chirp[j]);
+      }
+    }
+    RegFft<M1, T>::run(a, w, M2);
+    Cx<T>* s = slice + r * rs + j2;
+    s[0] = a[0];
+#pragma unroll
+    for (int k1 = 1; k1 < M1; ++k1) s[k1 * pitch] = mul(a[order.at[k1]], w[k1 * j2]);
+  }
+}
+
+// Passes 2 and 3: row k1 of the slice, its M2-point FFT (the chirped
+// row's spectrum at k1 + M1 k2, k2 < M2), times the filter spectrum
+// spec[k1 + M1 k2] and conjugated; then, with no exchange, the M2-point
+// FFT of those points over k2 (the first pass of the inverse transform),
+// output t2 times W_M^(k1 t2), back to the lane's own row of the slice
+// (slice[r*rs + k1*pitch + t2]: only this lane reads or writes it here).
+template <int M1, int M2, typename T>
+__device__ __forceinline__ void chirp_product(Cx<T>* slice,
+                                              const Cx<T>* __restrict__ w,
+                                              const Cx<T>* __restrict__ spec,
+                                              int vr, int pitch, int rs) {
+  constexpr FftOrder<M2> order{};
+  for (int task = threadIdx.x & 31; task < vr * M1; task += 32) {
+    const int r = task / M1, k1 = task - r * M1;
+    Cx<T>* s = slice + r * rs + k1 * pitch;
+    Cx<T> a[M2];
+#pragma unroll
+    for (int j2 = 0; j2 < M2; ++j2) a[j2] = s[j2];
+    RegFft<M2, T>::run(a, w, M1);
+    Cx<T> b[M2];
+#pragma unroll
+    for (int k2 = 0; k2 < M2; ++k2)
+      b[k2] = conj(mul(a[order.at[k2]], spec[k1 + M1 * k2]));
+    RegFft<M2, T>::run(b, w, M1);
+    s[0] = b[0];
+#pragma unroll
+    for (int t2 = 1; t2 < M2; ++t2) s[t2] = mul(b[order.at[t2]], w[k1 * t2]);
+  }
+}
+
+// Pass 4: column t2 of the slice, its M1-point FFT: the points t = t2 +
+// M2 t1 of the circular convolution, conjugated; the t < n of them times
+// the chirp to y[t] (conjugated and scaled by inv_n = 1/n, from the host,
+// for the inverse).
+template <int M1, int M2, typename T>
+__device__ __forceinline__ void chirp_rows(const Cx<T>* slice,
+                                           Cx<T>* __restrict__ yw,
+                                           const Cx<T>* __restrict__ w,
+                                           const Cx<T>* __restrict__ chirp,
+                                           int n, T inv_n, int vr, int pitch,
+                                           int rs, bool inv) {
+  constexpr FftOrder<M1> order{};
+  // outputs t1 >= live are never stored: the compiler drops their work
+  constexpr int live = (chirp_max_n<M1, M2>() + M2 - 1) / M2;
+  for (int task = threadIdx.x & 31; task < vr * M2; task += 32) {
+    const int r = task / M2, t2 = task - r * M2;
+    const Cx<T>* s = slice + r * rs + t2;
+    Cx<T> a[M1];
+#pragma unroll
+    for (int k1 = 0; k1 < M1; ++k1) a[k1] = s[k1 * pitch];
+    RegFft<M1, T>::run(a, w, M2);
+    Cx<T>* ys = yw + r * n;
+#pragma unroll
+    for (int t1 = 0; t1 < live; ++t1) {
+      const int t = t2 + M2 * t1;
+      if (t < n) {
+        const Cx<T> v = mul(chirp[t], conj(a[order.at[t1]]));
+        ys[t] = inv ? Cx<T>{v.re * inv_n, -v.im * inv_n} : v;
       }
     }
   }
 }
 
-template <typename T, bool INV>
-int launch_dir(const void* x, void* y, const void* w, long long rows, int n,
-               int tile_b, size_t smem, cudaStream_t stream) {
-  auto kern = dft_kernel<T, INV>;
-  const cudaError_t err = opt_in<dft_kernel<T, INV>>(smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (rows + tile_b - 1) / tile_b;
-  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(y),
-      static_cast<const Cx<T>*>(w), rows, n, tile_b,
-      T(1) / static_cast<T>(n));
-  return cudaGetLastError();
+// The split m = M1 * M2 of the chirp length of every n <= 128 that is not
+// 7-smooth (dft_matmul.py: chirp_split), one kernel each.
+#define DFT_CHIRP_SPLITS(X)                                                   \
+  X(3, 8) X(4, 8) X(3, 12) X(5, 8) X(3, 16) X(8, 8) X(8, 9) X(5, 16)         \
+  X(8, 12) X(8, 16) X(9, 16) X(10, 16) X(12, 16) X(16, 16)
+
+// A block of kFftWarps warps owns tile_b rows, rpw to a warp: a warp's
+// slice (rpw * rs points) and, after all the warps' slices, its staging
+// area (rpw * n points).  tab holds the M roots W_M^e, then the n chirp
+// values, then the M spectrum values.
+template <typename T, int M1, int M2>
+__global__ void __launch_bounds__(kFftWarps * 32)
+dft_chirp_kernel(const Cx<T>* __restrict__ x, Cx<T>* __restrict__ y,
+                 const Cx<T>* __restrict__ tab, long long rows, int n,
+                 T inv_n, int tile_b, int rpw, int pitch, int rs,
+                 int inverse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  Cx<T>* slice = reinterpret_cast<Cx<T>*>(smem_raw) + warp * rpw * rs;
+  const long long block0 = static_cast<long long>(blockIdx.x) * tile_b;
+  const long long row0 = block0 + static_cast<long long>(warp) * rpw;
+  const long long end = min(rows, block0 + tile_b);
+  const int vr = static_cast<int>(max(0LL, min(static_cast<long long>(rpw), end - row0)));
+  if (vr == 0) return;  // the whole warp: it has no rows
+  const bool inv = inverse != 0;
+  const Cx<T>* chirp = tab + M1 * M2;
+  const Cx<T>* spec = chirp + n;
+  Cx<T>* stage = reinterpret_cast<Cx<T>*>(smem_raw) + kFftWarps * rpw * rs +
+                 warp * rpw * n;
+  chirp_stage<T>(x + row0 * n, stage, vr * n);
+  __syncwarp();
+  chirp_columns<M1, M2, T>(stage, slice, tab, chirp, n, vr, pitch, rs, inv);
+  __syncwarp();
+  chirp_product<M1, M2, T>(slice, tab, spec, vr, pitch, rs);
+  __syncwarp();
+  chirp_rows<M1, M2, T>(slice, y + row0 * n, tab, chirp, n, inv_n, vr, pitch,
+                        rs, inv);
 }
 
 template <typename T, int N1, int N2>
@@ -319,30 +424,43 @@ int launch_fft(const void* x, void* y, const void* w, long long rows, int n,
   return cudaErrorInvalidValue;  // not a split of the FFT body
 }
 
+template <typename T, int M1, int M2>
+int launch_chirp_split(const void* x, void* y, const void* tab,
+                       long long rows, int n, int tile_b, int rpw, int pitch,
+                       int rs, int inverse, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(kFftWarps) * rpw * (rs + n) * sizeof(Cx<T>);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  auto kern = dft_chirp_kernel<T, M1, M2>;
+  const cudaError_t err = opt_in<dft_chirp_kernel<T, M1, M2>>(smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (rows + tile_b - 1) / tile_b;
+  kern<<<static_cast<unsigned>(blocks), kFftWarps * 32, smem, stream>>>(
+      static_cast<const Cx<T>*>(x), static_cast<Cx<T>*>(y),
+      static_cast<const Cx<T>*>(tab), rows, n, T(1) / static_cast<T>(n),
+      tile_b, rpw, pitch, rs, inverse);
+  return cudaGetLastError();
+}
+
 template <typename T>
-int launch(const void* x, void* y, const void* w, long long rows, int n,
-           int tile_b, int inverse, void* stream) {
-  if (n < 1 || n > kMaxN || tile_b < 1 || rows < 1)
+int launch_chirp(const void* x, void* y, const void* tab, long long rows,
+                 int n, int m1, int m2, int tile_b, int rpw, int pitch,
+                 int rs, int inverse, void* stream) {
+  if (n < 1 || n > kMaxN || m1 * m2 < 2 * n - 1 || tile_b < 1 || rows < 1 ||
+      rpw < 1 || rpw * kFftWarps < tile_b || pitch < m2 || rs < m1 * pitch)
     return cudaErrorInvalidValue;
   if ((rows + tile_b - 1) / tile_b > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(tile_b) * n * sizeof(Cx<T>);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return inverse ? launch_dir<T, true>(x, y, w, rows, n, tile_b, smem, s)
-                 : launch_dir<T, false>(x, y, w, rows, n, tile_b, smem, s);
+#define DFT_LAUNCH(A, B)                                                   \
+  if (m1 == A && m2 == B)                                                  \
+    return launch_chirp_split<T, A, B>(x, y, tab, rows, n, tile_b, rpw,    \
+                                       pitch, rs, inverse, s);
+  DFT_CHIRP_SPLITS(DFT_LAUNCH)
+#undef DFT_LAUNCH
+  return cudaErrorInvalidValue;  // not a split of the chirp body
 }
 
 }  // namespace
-
-extern "C" int dft_f32(const void* x, void* y, const void* w, long long rows,
-                       int n, int tile_b, int inverse, void* stream) {
-  return launch<float>(x, y, w, rows, n, tile_b, inverse, stream);
-}
-
-extern "C" int dft_f64(const void* x, void* y, const void* w, long long rows,
-                       int n, int tile_b, int inverse, void* stream) {
-  return launch<double>(x, y, w, rows, n, tile_b, inverse, stream);
-}
 
 extern "C" int dft_fft_f32(const void* x, void* y, const void* w,
                            long long rows, int n, int n1, int n2, int tile_b,
@@ -358,4 +476,20 @@ extern "C" int dft_fft_f64(const void* x, void* y, const void* w,
                            void* stream) {
   return launch_fft<double>(x, y, w, rows, n, n1, n2, tile_b, rpw, pitch, rs,
                             inverse, stream);
+}
+
+extern "C" int dft_chirp_f32(const void* x, void* y, const void* tab,
+                             long long rows, int n, int m1, int m2,
+                             int tile_b, int rpw, int pitch, int rs,
+                             int inverse, void* stream) {
+  return launch_chirp<float>(x, y, tab, rows, n, m1, m2, tile_b, rpw, pitch,
+                             rs, inverse, stream);
+}
+
+extern "C" int dft_chirp_f64(const void* x, void* y, const void* tab,
+                             long long rows, int n, int m1, int m2,
+                             int tile_b, int rpw, int pitch, int rs,
+                             int inverse, void* stream) {
+  return launch_chirp<double>(x, y, tab, rows, n, m1, m2, tile_b, rpw, pitch,
+                              rs, inverse, stream);
 }

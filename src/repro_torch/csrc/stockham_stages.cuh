@@ -10,8 +10,8 @@
 // stockham_columns.cuh: pass_stages, the shared-memory loads and stores,
 // FastDiv), fft2.cu (the fused rank-2 kernel and its fold: block_fft),
 // fftconv.cu (Cx, the butterflies: its own power-of-two stage routine),
-// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, cfma,
-// mul, the butterflies); every kernel's launch uses opt_in.
+// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, mul,
+// conj, the butterflies); every kernel's launch uses opt_in.
 // Everything here lives in an anonymous namespace: each kernel library is
 // its own translation unit.
 
@@ -66,15 +66,6 @@ __device__ __forceinline__ Cx<T> mul(Cx<T> a, Cx<T> b) {
 template <typename T>
 __device__ __forceinline__ Cx<T> scale(Cx<T> a, T s) {
   return {a.re * s, a.im * s};
-}
-// acc + a * b, as four FMAs (the complex products of dft.cu)
-template <typename T>
-__device__ __forceinline__ Cx<T> cfma(Cx<T> a, Cx<T> b, Cx<T> acc) {
-  acc.re = acc.re + a.re * b.re;
-  acc.re = acc.re - a.im * b.im;
-  acc.im = acc.im + a.re * b.im;
-  acc.im = acc.im + a.im * b.re;
-  return acc;
 }
 // a * W_4^1: -i for the forward transform, +i for the inverse (a swap).
 template <bool INV, typename T>

@@ -4,18 +4,21 @@
   the kernel's own table of n roots: the n1-point FFTs of the columns of
   the n1 x n2 view, the twiddle W_n^(j2 k1), the n2-point FFTs of the
   rows, each FFT the kernel's radix-by-radix DIF steps (:func:`reg_fft`);
-  the inverse conjugates on the way in and out.  ``ops.dft`` takes it for
-  tensors that lie on the CPU.
-* :func:`apply_dft` repeats the direct product (any other n) with the
-  kernel's own table: the complex rows times the n x n DFT matrix, as four
-  real products accumulated in the plane dtype.  It is also the oracle of
-  the lengths the FFT body does not take.
+  the inverse conjugates on the way in and out.
+* :func:`apply_chirp` repeats the chirp body's (any other n) with the
+  kernel's own tables at its length m = m1 * m2: the chirped row
+  zero-padded to m, its FFT as the FFT body's two passes, the product
+  with the filter spectrum, conjugated, the second FFT's two passes (the
+  first without an exchange) and the store of the points t < n.
+  ``ops.dft`` takes these two for tensors that lie on the CPU.
 * :func:`dft_ref` is the oracle, as the reference package's ``ref.py`` has
   it: real/imaginary planes in and out, the table built in float64 and
-  cast to the plane dtype.
+  cast to the plane dtype; :func:`apply_dft` is the same direct product
+  on a complex tensor with a given n x n table.
 
-Only :func:`apply_fft` normalizes (the inverse's 1/n, as the kernel folds
-it into its store); the others leave it to the caller.
+Only :func:`apply_fft` and :func:`apply_chirp` normalize (the inverse's
+1/n, as the kernel folds it into its store); the others leave it to the
+caller.
 """
 
 from __future__ import annotations
@@ -101,6 +104,41 @@ def apply_fft(x: torch.Tensor, roots: torch.Tensor, n1: int, n2: int,
     e = torch.outer(torch.arange(n2), torch.arange(n1)).to(roots.device)
     b = reg_fft((a * roots[e]).transpose(-1, -2), roots, n1)   # (k1, k2)
     y = b.transpose(-1, -2).reshape(*lead, n)
+    if inverse:
+        y = torch.conj_physical(y) * (1.0 / n)
+    return y
+
+
+def apply_chirp(x: torch.Tensor, roots: torch.Tensor, chirp: torch.Tensor,
+                spectrum: torch.Tensor, m1: int, m2: int,
+                inverse: bool) -> torch.Tensor:
+    """The chirp body along the last axis of complex ``x`` (length n,
+    convolution length m = m1*m2 >= 2n - 1) with the kernel's tables: the
+    m roots W_m^e, the n chirp values and the m spectrum values (with
+    1/m).  Pass 1: column j2 of the chirped row zero-padded to m
+    (a[j1*m2 + j2]), its m1-point FFT, output k1 times W_m^(j2 k1); pass
+    2: row k1's m2-point FFT, the point k1 + m1 k2; pass 3: times the
+    spectrum, conjugated, the m2-point FFT over k2, output t2 times
+    W_m^(k1 t2); pass 4: column t2's m1-point FFT, the point t2 + m2 t1,
+    conjugated, times the chirp for t < n.  The inverse conjugates in and
+    out and applies 1/n."""
+    n = x.shape[-1]
+    m = m1 * m2
+    lead = x.shape[:-1]
+    dev = roots.device
+    if inverse:
+        x = torch.conj_physical(x)
+    a = torch.zeros((*lead, m), dtype=x.dtype, device=x.device)
+    a[..., :n] = x * chirp
+    a = reg_fft(a.reshape(*lead, m1, m2).transpose(-1, -2), roots, m2)
+    a = a * roots[torch.outer(torch.arange(m2), torch.arange(m1)).to(dev)]
+    a = reg_fft(a.transpose(-1, -2), roots, m1)                # (k1, k2)
+    a = torch.conj_physical(a * spectrum.reshape(m2, m1).transpose(0, 1))
+    a = reg_fft(a, roots, m1)                                  # (k1, t2)
+    a = a * roots[torch.outer(torch.arange(m1), torch.arange(m2)).to(dev)]
+    a = reg_fft(a.transpose(-1, -2), roots, m2)                # (t2, t1)
+    q = a.transpose(-1, -2).reshape(*lead, m)[..., :n]
+    y = chirp * torch.conj_physical(q)
     if inverse:
         y = torch.conj_physical(y) * (1.0 / n)
     return y

@@ -218,7 +218,7 @@ def test_session_on_card_launches_the_new_kernels(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_dft_kernel_against_plain_and_library(cuda_device, dtype):
     """Every length up to the cap of 128 (the FFT body on the 7-smooth
-    ones, the direct product on the rest), tile 1, a ragged last tile (37
+    ones, the chirp body on the rest), tile 1, a ragged last tile (37
     rows in tiles of 8) and the default, both directions, one launch per
     call; against the body's plain version and the direct product."""
     for n in range(1, 129):

@@ -53,7 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINES = os.path.join(ROOT, "benchmarks", "baselines")
 TOL = {"float": 1e-5, "double": 1e-12}
 
-#: The planner's problems (``chip_smoke.py``'s P1-P14) with their batches.
+#: The planner's problems (``chip_smoke.py``'s P1-P15) with their batches.
 PROBLEMS = {
     "P1": ((256, 256, 256), "Outplace_Real", "float", 1),
     "P2": ((128, 128, 128), "Inplace_Complex", "double", 1),
@@ -69,13 +69,15 @@ PROBLEMS = {
     "P12": ((19 ** 4,), "Outplace_Complex", "float", 512),
     "P13": ((19 ** 3,), "Inplace_Real", "double", 8192),
     "P14": ((361, 361), "Outplace_Real", "float", 1024),
+    "P15": ((19,), "Outplace_Complex", "float", 3532045),
 }
 #: The reference's ESTIMATE picks there (``chip_smoke.ESTIMATE_PICKS``).
 ESTIMATE_PICKS = {"P1": "xla", "P2": "xla", "P3": "fourstep_pallas",
                   "P4": "xla", "P5": "fourstep_pallas", "P6": "fft2_pallas",
                   "P7": "fft2_pallas", "P8": "dft", "P9": "dft",
                   "P10": "xla", "P11": "xla", "P12": "xla",
-                  "P13": "chirpz_pallas", "P14": "fourstep_pallas"}
+                  "P13": "chirpz_pallas", "P14": "fourstep_pallas",
+                  "P15": "dft"}
 
 #: Rank 1-3 extents (P1-P9's among them), with every kind and precision.
 GRID = ((1,), (2,), (12,), (16,), (97,), (100,), (128,), (945,), (4096,),
@@ -159,7 +161,7 @@ def test_candidates_estimates_and_picks_match_reference(ext):
 
 
 def test_estimate_picks_on_the_planner_problems():
-    """P1-P14 at their batches: the reference's picks, as ``chip_smoke.py``
+    """P1-P15 at their batches: the reference's picks, as ``chip_smoke.py``
     hardcodes them."""
     for name, (ext, kind, precision, batch) in PROBLEMS.items():
         ref = rcm.estimate_choice(RProblem(ext, kind, precision, batch)).key()
