@@ -1,13 +1,14 @@
 """Time the port's hand-written kernels of one source tree on one GPU.
 
-    python3 ab_kernels.py SRC_DIR LABEL
+    python3 ab_kernels.py SRC_DIR LABEL [KERNELS]
 
 SRC_DIR is the ``src/`` of a checkout (this one, or a parent unpacked
 with ``git archive`` into ``build/``).  Prints one JSON line: the median
 of 50 CUDA-event times (after 3 warm calls) of each kernel on prepared
 operands at the main path's shapes: the fft2 kernel at P7's and P6's
 tiles, the Stockham kernel at P7's axis and P3, the four-step kernel at
-the axes of P1-P7 (complex64 and complex128), the dft kernel at P8, P9's
+the axes of P1-P7 (complex64 and complex128), the long sides of P10,
+P11 and P12 and D1's sides, the dft kernel at P8, P9's
 packed axis, P15 and n = 127 in both dtypes, and
 the fused fftconv kernel at F2 and F3 (the default tile); the Stockham
 kernel's two column passes (``stockham_columns_kernel``) over one
@@ -19,7 +20,9 @@ at P6 (rfft2 of 128 x 128 x 8192 float32) and the Stockham kernel's at
 P1's inner axis (rfft of 256 x 65536) and P5 (945 x 65536).  A tree whose
 wrappers have no fold (``rfft`` / ``rfft2``: before they were folded into
 the kernels) times its ``fft/rfft.py`` packing around its kernel instead,
-under the same names.  Inputs are made on the card from a fixed seed.  To compare two trees, run it on
+under the same names.  KERNELS (a comma-separated subset of fft2,
+stockham, fourstep, dft, fftconv, folds) times only those.  Inputs are
+made on the card from a fixed seed.  To compare two trees, run it on
 each in turns (A, B, B, A) in one call, one process per run.  (Before
 the four-step and fftconv redesign it timed only fft2, Stockham and the
 four-step kernel at P3, under the name ``ab_fft2.py``.)
@@ -47,7 +50,8 @@ COLUMN_SHAPES = ((65536, 1024, torch.complex64),
 FFT2_PASS_SHAPES = ((256, 256, 1024),)
 #: (n, rows, dtype) of the four-step kernel on the main path: P3, P5's
 #: packed axis, P1's packed inner and outer axes, P4's packed and outer
-#: axes, P2's and P7's axes
+#: axes, P2's and P7's axes; the six-step long sides of P10 and P12, D1's
+#: sides (8192 x 8192) and P11's long side (complex128, two launches)
 FOURSTEP_SHAPES = ((4096, 16384, torch.complex64),
                    (945, 65536, torch.complex64),
                    (128, 65536, torch.complex64),
@@ -55,7 +59,11 @@ FOURSTEP_SHAPES = ((4096, 16384, torch.complex64),
                    (1536, 3072, torch.complex64),
                    (3072, 1537, torch.complex64),
                    (128, 16384, torch.complex128),
-                   (64, 524288, torch.complex128))
+                   (64, 524288, torch.complex128),
+                   (16384, 4096, torch.complex64),
+                   (16384, 8192, torch.complex64),
+                   (8192, 8192, torch.complex64),
+                   (16384, 2048, torch.complex128))
 #: (n, rows, dtype) of the dft kernel: P8, and P9's packed axis (its FFT
 #: body); n = 127 at P8's bytes, P15, n = 127 in complex128 (its chirp body)
 DFT_SHAPES = ((128, 524288, torch.complex64), (50, 655360, torch.complex128),
@@ -87,6 +95,10 @@ def median_ms(fn, reps: int = 50) -> float:
 
 def main() -> None:
     src, label = sys.argv[1], sys.argv[2]
+    only = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else None
+
+    def pick(kernel: str, shapes: tuple) -> tuple:
+        return shapes if only is None or kernel in only else ()
     sys.path.insert(0, src)
     from repro_torch.kernels.dft_matmul import ops as dft
     from repro_torch.kernels.fft2_pallas import ops as f2
@@ -101,50 +113,51 @@ def main() -> None:
     def rand(shape, dtype):
         return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
 
-    for n1, n2, dt in FFT2_SHAPES:
+    for n1, n2, dt in pick("fft2", FFT2_SHAPES):
         x = rand((8192, n1, n2), dt)
         tw = f2.make_twiddles2(n1, n2, 8, False, dt, dev)
         row[f"fft2 {n1}x{n2} {dt}"] = median_ms(
             lambda: f2.fft2(x, False, twiddles=tw))
         del x
-    for n, rows, dt in STOCKHAM_SHAPES:
+    for n, rows, dt in pick("stockham", STOCKHAM_SHAPES):
         x = rand((rows, n), dt)
         tw = sp.make_twiddles(n, 8, False, dt, dev)
         row[f"stockham {n}x{rows} {dt}"] = median_ms(
             lambda: sp.fft(x, False, twiddles=tw))
         del x
-    for n, rows, dt in COLUMN_SHAPES:
+    for n, rows, dt in pick("stockham", COLUMN_SHAPES):
         x = rand((rows, n), dt)
         tw = sp.make_twiddles(n, 8, False, dt, dev)
         row[f"stockham passes {n}x{rows} {dt}"] = median_ms(
             lambda: sp.fft(x, False, twiddles=tw))
         del x
-    for n1, n2, sigs in FFT2_PASS_SHAPES:
+    for n1, n2, sigs in pick("fft2", FFT2_PASS_SHAPES):
         x = rand((sigs, n1, n2), torch.complex64)
         tw = f2.make_twiddles2(n1, n2, 8, False, torch.complex64, dev)
         row[f"fft2 passes {n1}x{n2}x{sigs} torch.complex64"] = median_ms(
             lambda: f2.fft2(x, False, twiddles=tw))
         del x
     torch.cuda.empty_cache()
-    for n, rows, dt in FOURSTEP_SHAPES:
+    for n, rows, dt in pick("fourstep", FOURSTEP_SHAPES):
         x = rand((rows, n), dt)
         tables = fs.make_tables(n, False, dt, dev)
         row[f"fourstep {n}x{rows} {dt}"] = median_ms(
             lambda: fs.fft(x, False, twiddles=tables))
         del x
-    for n, rows, dt in DFT_SHAPES:
+    for n, rows, dt in pick("dft", DFT_SHAPES):
         x = rand((rows, n), dt)
         m = dft.make_matrix(n, False, dt, dev)
         row[f"dft {n}x{rows} {dt}"] = median_ms(
             lambda: dft.dft(x, False, matrix=m))
         del x
-    for name, c, b, L in CONV_SHAPES:
+    for name, c, b, L in pick("fftconv", CONV_SHAPES):
         x = rand((c, b, L), torch.float32)
         h = rand((c, L), torch.float32) / math.sqrt(L)
         op = conv.prepare(x, h)
         row[f"fftconv {name}"] = median_ms(lambda: conv.run_kernel(op))
         del x, h, op
-    time_folds(row, sp, f2, rand)
+    if only is None or "folds" in only:
+        time_folds(row, sp, f2, rand)
     torch.cuda.empty_cache()
     print(json.dumps(row), flush=True)
 

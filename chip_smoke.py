@@ -281,9 +281,11 @@ FFT2_SHAPES = {
     "complex128": ((2, 2), (1, 8), (8, 1), (4, 16), (16, 4), (32, 32),
                    (8, 256), (64, 64), (32, 128), (4096, 1)),
 }
-#: four-step kernel: square, ragged-split and radix357 lengths, 8192 (and
-#: the cap: 16384 in complex64)
-FOURSTEP_NS = (4, 60, 100, 945, 1024, 3072, 4096, 8192)
+#: four-step kernel: square, ragged-split and radix357 lengths, 8192 and
+#: 13824 (the FFT body), 361 = 19 x 19 (the product body), and the cap
+#: 16384 (one launch in complex64; 13824 and 16384 run as two launches in
+#: complex128)
+FOURSTEP_NS = (4, 60, 100, 361, 945, 1024, 3072, 4096, 8192, 13824)
 #: rows of the fixed-case checks: tile 1, and tile 8 (a ragged last tile
 #: of 5) where 8 signals fit one block
 CHECK_ROWS = 37
@@ -294,11 +296,12 @@ DFT_NS = tuple(range(1, 129))
 #: block (two column passes; 76545 = 945 x 81 splits 243 x 315, not a
 #: power of two), fft2 tiles over one block (a row pass and a column
 #: pass), four-step complex128 lengths whose plane one block does not
-#: hold (two launches).
+#: hold (two launches: 13824 = 128 x 108 and 16384 on the FFT body,
+#: 16256 = 128 x 127 on the product body).
 CAPACITY_STOCKHAM = {"complex64": (16384, 76545, 1 << 20),
                      "complex128": (8192, 65536, 76545)}
 CAPACITY_FFT2 = ((128, 128), (256, 256), (512, 512))
-CAPACITY_FOURSTEP = (13824, 16384)
+CAPACITY_FOURSTEP = (13824, 16256, 16384)
 CAPACITY_ROWS = 3
 #: The real-input folds' fixed cases: Stockham rfft / irfft lengths (even n
 #: packed to n/2 points, n = 2 to one; odd n whole; P1's, P4's and P5's
@@ -328,8 +331,10 @@ BACKENDS_NODES = (("TorchStockhamPallas", (65536,), "stockham_pallas"),
 #: n = 19 (m = 40) and at n = 127 in complex128 (256 MiB), the fused
 #: rank-2 kernel's complex transform of P6's packed tile (the main path
 #: runs P6 through the fold), the Stockham kernel's two passes, fft2's
-#: passes, the four-step kernel's two launches; and P13's two passes in
-#: complex128 (m = 13720 = 98 x 140 on 8192 rows, 1.8 GB each way).
+#: passes, the four-step kernel's two launches, its FFT body at P10's
+#: long side (16384 x 4096, one plane a block) and at D1's sides (8192 x
+#: 8192); and P13's two passes in complex128 (m = 13720 = 98 x 140 on
+#: 8192 rows, 1.8 GB each way).
 EXTRA_TIMING = (("dft_matmul", (127, 524288, "complex64")),
                 ("dft_matmul", (19, 3532045, "complex64")),
                 ("dft_matmul", (127, 262144, "complex128")),
@@ -338,6 +343,8 @@ EXTRA_TIMING = (("dft_matmul", (127, 524288, "complex64")),
                 ("stockham_pallas", (1 << 20, 64, "complex64")),
                 ("fft2_pallas", (256, 256, 1024, "complex64")),
                 ("fft4step", (16384, 2048, "complex128")),
+                ("fft4step", (16384, 4096, "complex64")),
+                ("fft4step", (8192, 8192, "complex64")),
                 ("stockham_pallas", (13720, 8192, "complex128")))
 #: kernel vs its plain version: same algorithm and twiddles, only the
 #: summation order differs.
@@ -474,6 +481,9 @@ KERNEL_SYMBOLS = {
     "fft4step_kernel": {"fft4step"},
     "fft4step_columns_kernel": {"fft4step"},
     "fft4step_rows_kernel": {"fft4step"},
+    "fft4step_fft_kernel": {"fft4step"},
+    "fft4step_fft_columns_kernel": {"fft4step"},
+    "fft4step_fft_rows_kernel": {"fft4step"},
     "dft_fft_kernel": {"dft_matmul"},
     "dft_chirp_kernel": {"dft_matmul"},
     "fftconv_kernel": {"fftconv"},
@@ -738,6 +748,22 @@ def chirp_ptxas() -> list[dict]:
     return _no_spills(rows, "dft chirp body")
 
 
+def fourstep_ptxas() -> list[dict]:
+    """ptxas's report of every instantiation of the four-step kernel's FFT
+    body (``fft4step_fft_kernel`` per dtype and threads, and the two
+    launches' ``fft4step_fft_columns_kernel`` / ``_rows_kernel``).  Raises
+    if one spills."""
+    rows = []
+    for r in _ptxas(("fft4step",), "fft4step_fft"):
+        t = re.search(r"(fft4step_fft\w*kernel)I(\w)(?:Li(\d+)E)?",
+                      r.pop("entry"))
+        r.pop("library")
+        rows.append({"kernel": t.group(1),
+                     "dtype": {"f": "complex64", "d": "complex128"}[t.group(2)],
+                     "threads": int(t.group(3) or 256), **r})
+    return _no_spills(rows, "four-step FFT body")
+
+
 class Worst:
     """The worst errors over a kernel's checks."""
 
@@ -820,13 +846,16 @@ def check_fourstep(device, gen, dtype) -> Worst:
         fits = ops.smem_bytes(n1, n2, 8, x.element_size()) \
             <= ops.SMEM_LIMIT_BYTES
         one = ops.one_block(n1, n2, x.element_size())
+        body = "FFT" if ops.fft_body(n1, n2) else "product"
         for tile in ((1, 8) if fits else (1,) if one else (None,)):
             for inverse in (False, True):
-                y = ops.fft(x, inverse, tile_b=tile)
+                t = ops.make_tables(n, inverse, dtype, device)
+                y = ops.fft(x, inverse, tile_b=tile, twiddles=t)
                 torch.cuda.synchronize(device)
-                w.add(y, ref.fft4step_ref(x, inverse),
+                w.add(y, ops.plain(x, t, inverse),
                       (torch.fft.ifft if inverse else torch.fft.fft)(x),
-                      f"n={n} ({n1}x{n2}) tile_b={tile} inverse={inverse}")
+                      f"n={n} ({n1}x{n2}, {body} body) tile_b={tile} "
+                      f"inverse={inverse}")
     return w
 
 
@@ -897,7 +926,7 @@ def check_capacity(device) -> dict:
     _reset_counts()
     sp, _ = kernel_ops("stockham_pallas")
     f2, _ = kernel_ops("fft2_pallas")
-    fs, fs_ref = kernel_ops("fft4step")
+    fs, _ = kernel_ops("fft4step")
     for dtype in (torch.complex64, torch.complex128):
         name = str(dtype).removeprefix("torch.")
         rows = []
@@ -936,8 +965,7 @@ def check_capacity(device) -> dict:
                     t = fs.make_tables(n, inverse, dtype, device)
                     y = fs.fft(x, inverse, twiddles=t)
                     torch.cuda.synchronize(device)
-                    plain = fs_ref.apply_fourstep(x, t.w1, t.w2, t.t)
-                    w.add(y, plain / n if inverse else plain,
+                    w.add(y, fs.plain(x, t, inverse),
                           (torch.fft.ifft if inverse else torch.fft.fft)(x),
                           f"n={n} ({t.n1}x{t.n2}) inverse={inverse}")
             rows.append(w)
@@ -2731,23 +2759,27 @@ class Shape:
             t = self.ops.make_twiddles2(n1, n2, 8, False, dtype, device)
             return t, lambda: self.ops.plain(self.x, t, False)
         t = self.ops.make_tables(self.n, False, dtype, device)
-        return t, lambda: self.ref.apply_fourstep(self.x, t.w1, t.w2, t.t)
+        return t, lambda: self.ops.plain(self.x, t, False)
 
     def default_tile(self) -> int:
         """The four-step kernel's default tile at this shape."""
         n1, n2 = self.ops.choose_factors(self.n)
         return self.ops.default_tile_b(n1, n2, self.rows,
-                                       self.x.element_size())
+                                       self.x.element_size(), self.x.device)
 
     def tile_sweep(self, plan) -> dict:
         """Four-step kernel ms (CUDA events, median of ``TIMING_REPS``) at
-        tiles of 1 to 32 signals that fit a block."""
+        the default tile and at tiles of 1 to 32 signals that fit a block
+        (none where the split runs as two launches)."""
         n1, n2 = self.ops.choose_factors(self.n)
+        item = self.x.element_size()
+        if not self.ops.one_block(n1, n2, item):
+            return {}
+        tiles = sorted({self.default_tile(), 1, 2, 4, 8, 16, 32})
         return {t: _events_ms(lambda: self.ops.fft(
                     self.x, False, tile_b=t, twiddles=plan), TIMING_REPS)
-                for t in (1, 2, 4, 8, 16, 32)
-                if t <= self.rows and self.ops.smem_bytes(
-                    n1, n2, t, self.x.element_size())
+                for t in tiles
+                if t <= self.rows and self.ops.smem_bytes(n1, n2, t, item)
                 <= self.ops.SMEM_LIMIT_BYTES}
 
     def library(self):
@@ -2803,10 +2835,12 @@ class Shape:
 
     def algorithm_ops_ms(self) -> float | None:
         """The kernel's own flops over the peak of the units that run them,
-        what its algorithm costs beyond the bound: for the four-step kernel
-        the tensor-core products, 3 * 8 (n1 + n2) TF32 flops per point at
-        the TF32 peak in complex64 (3xTF32) and 8 (n1 + n2) at the fp64
-        peak in complex128; for the dft kernel's chirp body (an n that is
+        what its algorithm costs beyond the bound: for the four-step
+        kernel's FFT body (both sides 7-smooth) 5 n log2(n) flops a signal
+        at the dtype's peak; for its product body the tensor-core
+        products, 3 * 8 (n1 + n2) TF32 flops per point at the TF32 peak in
+        complex64 (3xTF32) and 8 (n1 + n2) at the fp64 peak in
+        complex128; for the dft kernel's chirp body (an n that is
         not 7-smooth) two FFTs of its length m (5 m log2(m) flops each)
         and its chirp and spectrum products (6 flops each on 2n + m
         points) per row; None for the FFTs in stages or registers
@@ -2815,6 +2849,9 @@ class Shape:
         peak = PEAK_FLOPS[self.dname]
         if self.kernel == "fft4step":
             n1, n2 = self.ops.choose_factors(self.n)
+            if self.ops.fft_body(n1, n2):
+                return (5 * self.n * math.log2(self.n) * self.rows / peak
+                        * 1e3)
             per_point = 8 * (n1 + n2)
             if self.dname == "complex64":
                 per_point, peak = 3 * per_point, PEAK_TF32
@@ -4678,6 +4715,7 @@ def main() -> int:
     emit({"build_s": build()})
     emit({"ptxas_column_pass": column_ptxas()})
     emit({"ptxas_dft_chirp": chirp_ptxas()})
+    emit({"ptxas_fourstep": fourstep_ptxas()})
     emit({"kernels": [k for k, _, _ in KERNELS]})
     t_checks = time.perf_counter()
     checks = check_kernels(device)

@@ -56,7 +56,7 @@ def build(emit) -> ctypes.CDLL:
     """The kernel source with every split of ``CASES``, built by nvcc."""
     shutil.rmtree(BUILD, ignore_errors=True)
     os.makedirs(BUILD)
-    for name in ("dft.cu", "stockham_stages.cuh"):
+    for name in ("dft.cu", "reg_fft.cuh", "stockham_stages.cuh"):
         shutil.copy(_build.CSRC / name, BUILD)
     path = os.path.join(BUILD, "dft.cu")
     src = open(path).read()

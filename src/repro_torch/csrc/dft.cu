@@ -23,8 +23,9 @@
 //   n = 125), as two passes:
 //     pass 1: a lane loads column j2 of a row (x[j1*n2 + j2], j1 < n1:
 //             for each j1 the warp reads runs of n2 consecutive points),
-//             runs the n1-point FFT in registers (RegFft: radix-2/3/4/5/
-//             7/8 DIF steps on the butterflies of stockham_stages.cuh),
+//             runs the n1-point FFT in registers (RegFft, reg_fft.cuh:
+//             radix-2/3/4/5/7/8 DIF steps on the butterflies of
+//             stockham_stages.cuh, shared with fft4step.cu),
 //             multiplies output k1 by W_n^(j2 k1) and writes it to the
 //             slice;
 //     pass 2: after __syncwarp, a lane reads row k1 of the slice, runs
@@ -64,7 +65,8 @@
 
 #include <cuda_runtime.h>
 
-#include "stockham_stages.cuh"  // Cx, mul, Butterfly
+#include "reg_fft.cuh"          // RegFft, FftOrder
+#include "stockham_stages.cuh"  // Cx, mul, conj
 
 namespace {
 
@@ -72,73 +74,6 @@ constexpr int kFftWarps = 4;            // warps of a block (both bodies)
 constexpr int kMaxN = 128;
 
 // ---- the FFT body ------------------------------------------------------
-
-// The radix of the first DIF step of an m-point FFT in registers: all of m
-// where one butterfly takes it, else 4, 2, 3 or 5.
-__host__ __device__ constexpr int first_radix(int m) {
-  return (m == 2 || m == 3 || m == 4 || m == 5 || m == 7 || m == 8) ? m
-       : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : m % 3 == 0 ? 3 : 5;
-}
-
-// Where RegFft<m> leaves X[k]: each DIF step leaves its outputs in
-// digit-reversed blocks, X[u + R k'] at (m / R) u + (position of k' in the
-// sub-FFT).
-__host__ __device__ constexpr int fft_pos(int m, int k) {
-  int pos = 0;
-  while (m > 1 && first_radix(m) != m) {
-    const int r = first_radix(m);
-    m /= r;
-    pos += m * (k % r);
-    k /= r;
-  }
-  return m > 1 ? pos + k : pos;
-}
-
-// fft_pos for every output, evaluated by the compiler, so that a register
-// array is only ever indexed by constants.
-template <int M>
-struct FftOrder {
-  int at[M];
-  __host__ __device__ constexpr FftOrder() : at() {
-    for (int k = 0; k < M; ++k) at[k] = fft_pos(M, k);
-  }
-};
-
-// The forward M-point FFT of a[0..M) in registers: a radix-R DIF step
-// (R-point butterflies over a[q + Q t], outputs times W_M^(u q)), then the
-// Q-point FFTs of the R blocks.  w[e * stride] is W_M^e.
-template <int M, typename T>
-struct RegFft {
-  __device__ __forceinline__ static void run(Cx<T>* a,
-                                             const Cx<T>* __restrict__ w,
-                                             int stride) {
-    constexpr int R = first_radix(M);
-    constexpr int Q = M / R;
-    if constexpr (Q == 1) {
-      Butterfly<R, false, T>::run(a);
-    } else {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        Cx<T> b[R];
-#pragma unroll
-        for (int t = 0; t < R; ++t) b[t] = a[q + Q * t];
-        Butterfly<R, false, T>::run(b);
-        a[q] = b[0];
-#pragma unroll
-        for (int u = 1; u < R; ++u)
-          a[q + Q * u] = q == 0 ? b[u] : mul(b[u], w[u * q * stride]);
-      }
-#pragma unroll
-      for (int u = 0; u < R; ++u) RegFft<Q, T>::run(a + Q * u, w, stride * R);
-    }
-  }
-};
-
-template <typename T>
-struct RegFft<1, T> {
-  __device__ __forceinline__ static void run(Cx<T>*, const Cx<T>* __restrict__,
-                                             int) {}
-};
 
 // Pass 1 over a warp's vr rows: column j2's N1-point FFT, output k1 times
 // W_n^(j2 k1), to slice[r*rs + k1*pitch + j2].

@@ -10,8 +10,10 @@
 // stockham_columns.cuh: pass_stages, the shared-memory loads and stores,
 // FastDiv), fft2.cu (the fused rank-2 kernel and its fold: block_fft),
 // fftconv.cu (Cx, the butterflies: its own power-of-two stage routine),
-// fft4step.cu and tc_product.cuh (Cx, mul, scale) and dft.cu (Cx, mul,
-// conj, the butterflies); every kernel's launch uses opt_in.
+// reg_fft.cuh (Cx, mul, the butterflies: the register FFT of dft.cu and
+// fft4step.cu), fft4step.cu (Cx, mul, conj, FastDiv; its product body
+// through tc_product.cuh: Cx, mul, scale) and dft.cu (Cx, mul, conj);
+// every kernel's launch uses opt_in.
 // Everything here lives in an anonymous namespace: each kernel library is
 // its own translation unit.
 

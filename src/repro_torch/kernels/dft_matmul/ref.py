@@ -23,6 +23,8 @@ caller.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -60,12 +62,16 @@ def first_radix(m: int) -> int:
     return next(r for r in (4, 2, 3, 5) if m % r == 0)
 
 
+@functools.cache
+def _butterfly_matrix(r: int, dtype: torch.dtype, device) -> torch.Tensor:
+    e = np.outer(np.arange(r), np.arange(r)) % r
+    return torch.as_tensor(np.exp(-2j * np.pi * e / r), dtype=dtype,
+                           device=device)
+
+
 def _butterfly(v: torch.Tensor, r: int) -> torch.Tensor:
     """The r-point DFT along dim -2 of ``v`` (..., r, q)."""
-    e = np.outer(np.arange(r), np.arange(r)) % r
-    w = torch.as_tensor(np.exp(-2j * np.pi * e / r), dtype=v.dtype,
-                        device=v.device)
-    return torch.matmul(w, v)
+    return torch.matmul(_butterfly_matrix(r, v.dtype, v.device), v)
 
 
 def reg_fft(a: torch.Tensor, roots: torch.Tensor,

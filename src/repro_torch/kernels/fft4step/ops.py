@@ -1,10 +1,14 @@
 """Public wrapper of the fused four-step kernel: factor choice, the W1, W2
 and T tables and the kernel's root tables (host float64, cast once to the
-plane dtype), shared-memory sizing, launch, normalization.
+plane dtype), the body of the split, shared-memory sizing, launch,
+normalization.
 
 ``fft`` launches the CUDA kernel (``repro_torch/csrc/fft4step.cu``) for a
-tensor on the card and takes the plain version (``ref.apply_fourstep``)
-only for a tensor on the CPU.  ``LAUNCHES`` counts kernel launches.
+tensor on the card, its FFT body where both sides of the split are
+7-smooth (``fft_body``) and its product body elsewhere, and takes the
+body's plain version (``plain``: ``ref.apply_fourstep_fft`` or
+``ref.apply_fourstep``) only for a tensor on the CPU.  ``LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import torch
 from .. import _build
 from ...fft.reference import dft_matrix, twiddles as twiddle_grid, unit_roots
 from ..stockham_pallas.ops import SMEM_LIMIT_BYTES, direction_of
-from .fft4step import (MAX_FACTOR, TWIDDLE_ROOTS, WARPS, choose_factors,
-                       column_items, m_group, n_tiles, plane_pitch,
+from .fft4step import (CARD_SMS, MAX_FACTOR, MAX_PASSES, SM_SMEM_BYTES,
+                       TWIDDLE_ROOTS, WARPS, choose_factors, column_items, fft_body, fft_pass_tiles,
+                       fft_pitch, fft_threads, fft_tile_b, m_group, n_tiles,
+                       plane_pitch, product_smem_bytes, side_radices,
                        smem_bytes)
-from .ref import apply_fourstep
+from .ref import apply_fourstep, apply_fourstep_fft
 
 _CDTYPES = (torch.complex64, torch.complex128)
 
@@ -34,19 +40,27 @@ LAUNCH_SHAPES: Counter = Counter()
 
 
 def one_block(n1: int, n2: int, itemsize: int) -> bool:
-    """Does one block hold a signal of the split n1 x n2 (its padded plane
-    and the root tables)?  Else the kernel runs two launches."""
-    return smem_bytes(n1, n2, 1, itemsize) <= SMEM_LIMIT_BYTES
+    """Does one block hold a signal of the split n1 x n2 (the product
+    body's padded plane and root tables)?  Else the kernel runs two
+    launches.  Both bodies keep this rule (where the product body's block
+    fits, the FFT body's does: its tables are no larger and its pitch
+    falls back to the unpadded row where the odd one would not fit), so
+    a split launches alike in either: complex128 over 13920 points,
+    13824 = 128 x 108 and 16384 among them, runs as two."""
+    return product_smem_bytes(n1, n2, 1, itemsize) <= SMEM_LIMIT_BYTES
 
 
 def pass_tiles(n1: int, n2: int, itemsize: int) -> tuple[int, int]:
     """The two-launch form's tiles: adjacent columns of X per block of the
-    column launch and adjacent rows of C per block of the row launch, each
-    a power-of-two count of panels (8 ``n_tiles`` wide) whose plane and
+    column launch and adjacent rows of C per block of the row launch.  The
+    FFT body's are ``fft_pass_tiles``; the product body's each a
+    power-of-two count of panels (8 ``n_tiles`` wide) whose plane and
     root tables fit half a block's shared memory (two blocks an SM), no
     more than the side needs."""
+    if fft_body(n1, n2):
+        return fft_pass_tiles(n1, n2, itemsize)
     panel = 8 * n_tiles(n1, n2)
-    budget = SMEM_LIMIT_BYTES // 2 - smem_bytes(n1, n2, 0, itemsize)
+    budget = SMEM_LIMIT_BYTES // 2 - product_smem_bytes(n1, n2, 0, itemsize)
 
     def tile(side: int, plane) -> int:
         t = panel
@@ -147,16 +161,59 @@ def tables_from_reference(w1r, w1i, w2r, w2i, tr, ti, device) -> Tables:
                   kernel_roots(n1, n2, bool(inverse), dtype, device), inverse)
 
 
-def default_tile_b(n1: int, n2: int, batch: int, itemsize: int) -> int:
-    """Signals per block: as many as give each of the block's warps two
-    column-pass items, few enough that two blocks share an SM (as the
-    kernel's launch bounds plan), at least one, never more than the
-    batch.  (The card's tile sweeps at the main path's shapes put the
-    fastest tile there or next to it.)"""
+@functools.cache
+def _cuda_shape(index: int) -> tuple[int, int]:
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_multiprocessor", SM_SMEM_BYTES))
+
+
+def card_shape(device: torch.device | None) -> tuple[int, int]:
+    """SMs and shared memory bytes of one SM of ``device``, read from a
+    CUDA device's properties; the H100 SXM's (``CARD_SMS``,
+    ``SM_SMEM_BYTES``) for None or the CPU."""
+    if device is None or device.type != "cuda":
+        return CARD_SMS, SM_SMEM_BYTES
+    index = device.index
+    return _cuda_shape(torch.cuda.current_device() if index is None
+                       else index)
+
+
+def default_tile_b(n1: int, n2: int, batch: int, itemsize: int,
+                   device: torch.device | None = None) -> int:
+    """Signals per block on ``device`` (``card_shape``): the FFT body's
+    ``fft_tile_b``; for the product
+    body as many as give each of the block's warps two column-pass items,
+    few enough that two blocks share an SM (as the kernel's launch bounds
+    plan), at least one, never more than the batch.  (The card's tile
+    sweeps at the main path's shapes put the product body's fastest tile
+    there or next to it.)"""
+    if fft_body(n1, n2):
+        return fft_tile_b(n1, n2, batch, itemsize, *card_shape(device))
     fill = -(-2 * WARPS // column_items(n1, n2, itemsize))
-    fit = (SMEM_LIMIT_BYTES // 2 - smem_bytes(n1, n2, 0, itemsize)) \
-        // (smem_bytes(n1, n2, 1, itemsize) - smem_bytes(n1, n2, 0, itemsize))
+    empty = product_smem_bytes(n1, n2, 0, itemsize)
+    fit = (SMEM_LIMIT_BYTES // 2 - empty) \
+        // (product_smem_bytes(n1, n2, 1, itemsize) - empty)
     return max(1, min(batch, fill, fit))
+
+
+def plain(x: torch.Tensor, tables: Tables, inverse: bool) -> torch.Tensor:
+    """The split's body in plain torch on ``x`` with the plan's own tables,
+    normalized as ``fft``: ``ref.apply_fourstep_fft`` for the FFT body,
+    ``ref.apply_fourstep`` (and 1/n for the inverse) for the product
+    body."""
+    n1, n2 = tables.n1, tables.n2
+    if fft_body(n1, n2):
+        return apply_fourstep_fft(x, tables.roots, n1, n2, inverse)
+    y = apply_fourstep(x, tables.w1, tables.w2, tables.t)
+    return y / (n1 * n2) if inverse else y
+
+
+def radix_args(n1: int, n2: int) -> list[int]:
+    """The FFT body's radices as the kernel's entry takes them: the n1
+    side's three, then the n2 side's, 0 for no pass."""
+    pad = lambda r: list(r) + [0] * (MAX_PASSES - len(r))
+    return pad(side_radices(n1)) + pad(side_radices(n2))
 
 
 def fft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
@@ -191,8 +248,7 @@ def fft(x: torch.Tensor, inverse: bool = False, *, tile_b: int | None = None,
                          f"call n={n} {x.dtype} on {x.device} "
                          f"inverse={inverse}")
     if x.device.type == "cpu":
-        y = apply_fourstep(x, twiddles.w1, twiddles.w2, twiddles.t)
-        return y / n if inverse else y
+        return plain(x, twiddles, inverse)
     if x.device.type != "cuda":
         raise ValueError(f"fourstep_pallas runs on cuda or cpu, got {x.device}")
     if not x.is_contiguous():
@@ -215,6 +271,23 @@ def _kernel(dtype: torch.dtype):
 
 
 @functools.cache
+def _fft_kernel(dtype: torch.dtype, passes: bool):
+    """The library's FFT-body entry for ``dtype`` (one launch, or the two
+    launches), its signature set once."""
+    lib = _build.library("fft4step")
+    name = "fft4step_fft_passes" if passes else "fft4step_fft"
+    fn = getattr(lib, f"{name}_{'f64' if dtype == torch.complex128 else 'f32'}")
+    # x, (scratch,) y, tables; batch; n1, n2, the six radices, then tile,
+    # pitch and threads (or both launches' tiles and pitches), inverse
+    ptrs = 4 if passes else 3
+    ints = 2 + 2 * MAX_PASSES + (4 if passes else 3) + 1
+    fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_longlong]
+                   + [ctypes.c_int] * ints + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _passes_kernel(dtype: torch.dtype):
     """The library's two-launch entry for ``dtype``, its signature set
     once."""
@@ -231,8 +304,9 @@ def _passes_kernel(dtype: torch.dtype):
 
 def _run_passes(x: torch.Tensor, y: torch.Tensor, tables: Tables,
                 inverse: bool) -> int:
-    """The two launches (column products times T into a scratch signal,
-    then the row products into ``y``); returns 2.  Counts nothing."""
+    """The two launches (column DFTs times T into a scratch signal, then
+    the row DFTs into ``y``), in the split's body; returns 2.  Counts
+    nothing."""
     n1, n2 = tables.n1, tables.n2
     rows = x.numel() // (n1 * n2)
     itemsize = x.element_size()
@@ -240,10 +314,18 @@ def _run_passes(x: torch.Tensor, y: torch.Tensor, tables: Tables,
     tmp = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _passes_kernel(x.dtype)(
-            x.data_ptr(), tmp.data_ptr(), y.data_ptr(),
-            tables.roots.data_ptr(), rows, n1, n2, tile_cols, tile_rows,
-            m_group(n1, n2, itemsize), n_tiles(n1, n2), int(inverse), stream)
+        if fft_body(n1, n2):
+            err = _fft_kernel(x.dtype, True)(
+                x.data_ptr(), tmp.data_ptr(), y.data_ptr(),
+                tables.roots.data_ptr(), rows, n1, n2, *radix_args(n1, n2),
+                tile_cols, tile_rows, fft_pitch(tile_cols, n1, itemsize),
+                fft_pitch(n2, tile_rows, itemsize), int(inverse), stream)
+        else:
+            err = _passes_kernel(x.dtype)(
+                x.data_ptr(), tmp.data_ptr(), y.data_ptr(),
+                tables.roots.data_ptr(), rows, n1, n2, tile_cols, tile_rows,
+                m_group(n1, n2, itemsize), n_tiles(n1, n2), int(inverse),
+                stream)
     if err != 0:
         raise RuntimeError(f"fft4step passes failed: cudaError_t {err} "
                            f"(n={n1 * n2}, rows={rows}, tiles {tile_cols}/"
@@ -271,19 +353,26 @@ def _launch(x: torch.Tensor, inverse: bool, tile_b: int | None,
         LAUNCHES += launched
         LAUNCH_SHAPES[key] += launched
         return y
-    tile = tile_b if tile_b is not None else default_tile_b(n1, n2, rows,
-                                                            itemsize)
+    tile = tile_b if tile_b is not None else default_tile_b(
+        n1, n2, rows, itemsize, x.device)
     tile = min(tile, rows)
     if tile < 1 or smem_bytes(n1, n2, tile, itemsize) > SMEM_LIMIT_BYTES:
         raise ValueError(f"tile_b={tile_b} does not fit one block for n={n} "
                          f"{x.dtype} (shared memory limit "
                          f"{SMEM_LIMIT_BYTES} bytes)")
-    fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), tables.roots.data_ptr(), rows,
-                 n1, n2, tile, m_group(n1, n2, itemsize), n_tiles(n1, n2),
-                 int(inverse), stream)
+        if fft_body(n1, n2):
+            err = _fft_kernel(x.dtype, False)(
+                x.data_ptr(), y.data_ptr(), tables.roots.data_ptr(), rows,
+                n1, n2, *radix_args(n1, n2), tile,
+                fft_pitch(n2, tile * n1, itemsize),
+                fft_threads(n1, n2, tile, itemsize), int(inverse), stream)
+        else:
+            err = _kernel(x.dtype)(
+                x.data_ptr(), y.data_ptr(), tables.roots.data_ptr(), rows,
+                n1, n2, tile, m_group(n1, n2, itemsize), n_tiles(n1, n2),
+                int(inverse), stream)
     if err != 0:
         raise RuntimeError(f"fft4step kernel launch failed: cudaError_t {err} "
                            f"(n={n}, rows={rows}, tile_b={tile}, {x.dtype})")

@@ -1,9 +1,17 @@
 """Plain PyTorch versions of the four-step kernel, on any device.
 
-* :func:`apply_fourstep` repeats the kernel's arithmetic with the kernel's
-  own tables (W1, W2, T in the plane dtype): two complex matrix products
+* :func:`apply_fourstep_fft` repeats the FFT body's arithmetic (both sides
+  7-smooth) with the kernel's own root vector: each side's register
+  passes (``fft4step.side_radices``) as in-place DIF steps on its
+  positions, each FFT the kernel's radix-by-radix steps
+  (``dft_matmul.ref.reg_fft``), the twiddle T from its two root tables
+  after the column side, and the transposed store from the positions'
+  digit-reversed frequencies.
+* :func:`apply_fourstep` repeats the product body's with the kernel's own
+  tables (W1, W2, T in the plane dtype): two complex matrix products
   with the twiddle multiply between them, and the transposed store.
-  ``ops.fft`` takes it for tensors that lie on the CPU.
+  ``ops.plain`` takes the split's body; ``ops.fft`` takes it for tensors
+  that lie on the CPU.
 * :func:`split_product` and :func:`apply_fourstep_tf32` model the
   kernel's tensor-core arithmetic for complex64 on any device: each fp32
   operand rounded to TF32 as ``cvt.rna.tf32.f32`` does (:func:`tf32`) and
@@ -16,10 +24,82 @@
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ...fft.reference import dft_matrix, twiddles
-from .fft4step import choose_factors
+from ..dft_matmul.ref import reg_fft
+from .fft4step import MAX_FACTOR, choose_factors, side_radices
+
+
+@functools.cache
+def frequencies(m: int) -> np.ndarray:
+    """The frequency each position of a side of m points holds after its
+    register passes (the kernel's ``digit_rev``): position digits, most
+    significant first in the radices ``side_radices(m)``, reversed."""
+    freq = np.zeros(m, dtype=np.int64)
+    pos = np.arange(m)
+    weight = 1
+    radices = side_radices(m)
+    for i, f in enumerate(radices):
+        later = int(np.prod(radices[i + 1:], dtype=np.int64))
+        freq += (pos // later) % f * weight
+        weight *= f
+    return freq
+
+
+def side_passes(a: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """A side's register passes along the last axis of ``a`` (m points)
+    with the side's m roots, in place as the kernel runs them: pass i
+    views the axis as blocks of f * step points, takes the f-point FFT of
+    the points q + step p of each block, leaves output k at q + step k
+    and, unless it is the last pass, multiplies it by
+    roots[q k (m / span)]."""
+    m = a.shape[-1]
+    lead = a.shape[:-1]
+    radices = side_radices(m)
+    span = m
+    for i, f in enumerate(radices):
+        step = span // f
+        v = a.reshape(*lead, m // span, f, step).transpose(-1, -2)
+        v = reg_fft(v, roots, m // f)                  # (.., b, q, k)
+        if i + 1 < len(radices):
+            e = torch.outer(torch.arange(step), torch.arange(f)) * (m // span)
+            v = v * roots[e.to(roots.device)]
+        a = v.transpose(-1, -2).reshape(*lead, m)
+        span = step
+    return a
+
+
+def apply_fourstep_fft(x: torch.Tensor, roots: torch.Tensor, n1: int,
+                       n2: int, inverse: bool) -> torch.Tensor:
+    """The FFT body along the last axis of complex ``x`` (length n =
+    n1*n2) with the kernel's root vector (W1's n1 roots, W2's n2, T's two
+    root tables of 128): the n1 side's passes down every column, output
+    k1 times T[k1, j2] = hi[e >> 7] * lo[e & 127] (e = k1 j2), the n2
+    side's passes along every row, and y[k2 n1 + k1].  The inverse
+    conjugates the roots, the input and the output and applies 1/n."""
+    n = n1 * n2
+    lead = x.shape[:-1]
+    k = MAX_FACTOR
+    if inverse:
+        x, roots = torch.conj_physical(x), torch.conj_physical(roots)
+    r1, r2 = roots[:n1], roots[n1:n1 + n2]
+    lo, hi = roots[n1 + n2:n1 + n2 + k], roots[n1 + n2 + k:]
+    dev = roots.device
+    a = side_passes(x.reshape(*lead, n1, n2).transpose(-1, -2), r1)
+    f1 = torch.as_tensor(frequencies(n1), device=dev)
+    e = torch.arange(n2, device=dev)[:, None] * f1[None, :]   # (j2, pos1)
+    a = a * (hi[e >> 7] * lo[e & 127])
+    a = side_passes(a.transpose(-1, -2), r2)                   # (pos1, pos2)
+    at1 = torch.as_tensor(np.argsort(frequencies(n1)), device=dev)
+    at2 = torch.as_tensor(np.argsort(frequencies(n2)), device=dev)
+    y = a[..., at1, :][..., at2].transpose(-1, -2).reshape(*lead, n)
+    if inverse:
+        y = torch.conj_physical(y) * (1.0 / n)
+    return y
 
 
 def apply_fourstep(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,

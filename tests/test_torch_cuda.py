@@ -159,10 +159,12 @@ def test_fft2_kernel_against_plain_and_library(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_fourstep_kernel_against_plain_and_library(cuda_device, dtype):
     """Square, ragged-split and radix357 lengths up to the cap (16384 in
-    both dtypes: two launches in complex128), tile 1 and a ragged last
-    tile where one block holds the signal, both directions, one launch per
-    call (two for the two-launch form)."""
-    for n in (2, 4, 60, 100, 945, 1024, 3072, 4096, 8192,
+    both dtypes: two launches in complex128) on the FFT body, and 361 = 19
+    x 19 and 16256 = 128 x 127 (two launches in complex128) on the
+    product body, tile 1 and a ragged last tile where one block holds the
+    signal, both directions, one launch per call (two for the two-launch
+    form), against the oracle and the body's own plain version."""
+    for n in (2, 4, 60, 100, 361, 945, 1024, 3072, 4096, 8192, 16256,
               fs_ops.MAX_N[dtype]):
         x = _rand(37, (n,), dtype, cuda_device, n)
         n1, n2 = fs_ops.choose_factors(n)
@@ -172,13 +174,17 @@ def test_fourstep_kernel_against_plain_and_library(cuda_device, dtype):
         for tile in (_tiles(fits) if one else (None,)):
             for inverse in (False, True):
                 before = fs_ops.LAUNCHES
-                y = fs_ops.fft(x, inverse, tile_b=tile)
+                t = fs_ops.make_tables(n, inverse, dtype, cuda_device)
+                y = fs_ops.fft(x, inverse, tile_b=tile, twiddles=t)
                 torch.cuda.synchronize(cuda_device)
                 assert fs_ops.LAUNCHES == before + (1 if one else 2)
                 plain = fs_ref.fft4step_ref(x, inverse)
                 lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
-                assert rel_l2(y, plain) <= PLAIN_TOL[dtype], (n, tile, inverse)
-                assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], (n, tile, inverse)
+                case = (n, tile, inverse)
+                assert rel_l2(y, plain) <= PLAIN_TOL[dtype], case
+                assert rel_l2(y, fs_ops.plain(x, t, inverse)) \
+                    <= PLAIN_TOL[dtype], case
+                assert rel_l2(y, lib) <= LIBRARY_TOL[dtype], case
 
 
 @pytest.mark.cuda

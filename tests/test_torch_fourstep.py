@@ -2,14 +2,18 @@
 
 Inputs come from a seeded numpy generator and go through both packages:
 the reference's ``fft4step`` runs in Pallas interpret mode, the port's
-``ops.fft`` on a CPU tensor takes the kernel's plain version
-(``ref.apply_fourstep``), fed the reference's own W1/W2/T planes
-(``tables_from_reference``).
+``ops.fft`` on a CPU tensor takes the plain version of the split's body
+(``ref.apply_fourstep_fft``, the FFT body's register passes, where both
+sides are 7-smooth; ``ref.apply_fourstep``, the product body's, where
+not), fed the reference's own W1/W2/T planes
+(``tables_from_reference``) and the kernel's root vector.
 
 Tolerance: rel-L2 <= 1e-5 in float, <= 1e-12 in double against the
 reference's kernel (the same split and tables, only the summation order
 differs); against numpy the suite's bar, 1e-3 and 1e-8.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from helpers.accuracy import REL_L2_TOL, rel_l2
 from repro.fft import reference as ref_tables
 from repro.kernels.fft4step import ops as ref_ops
 from repro_torch.fft import reference as port_tables
+from repro_torch.kernels import _build
 from repro_torch.kernels.fft4step import fft4step as fs, ops, ref
 
 TOL = {"float": 1e-5, "double": 1e-12}
@@ -68,19 +73,228 @@ def test_hopper_cap():
 
 
 def test_two_launch_tiles_fit_half_a_block():
-    """Each launch of the two-launch form holds a power-of-two count of
-    panels within half a block's shared memory (two blocks an SM)."""
-    for n in (13824, 14000, 16384, 128 * 125):
+    """Each launch of the two-launch form holds a power-of-two tile within
+    half a block's shared memory (two blocks an SM): in the FFT body (both
+    sides 7-smooth) a tile from 8 columns or rows up, its plane at the
+    odd pitch, and the next power of two over half a block or past the
+    side; in the product body (128 x 127) a power-of-two count of
+    panels."""
+    half = ops.SMEM_LIMIT_BYTES // 2
+    for n in (13824, 14000, 16384, 128 * 125, 128 * 127):
         n1, n2 = ops.choose_factors(n)
         assert not ops.one_block(n1, n2, 16)
         cols, rows = ops.pass_tiles(n1, n2, 16)
-        panel = 8 * fs.n_tiles(n1, n2)
-        for tile, plane in ((cols, n1 * fs.plane_pitch(cols)),
-                            (rows, rows * fs.plane_pitch(n2))):
-            assert tile % panel == 0 and (tile // panel) & (tile // panel - 1) == 0
-            assert fs.smem_bytes(n1, n2, 0, 16) + plane * 16 \
-                <= ops.SMEM_LIMIT_BYTES // 2
+        if fs.fft_body(n1, n2):
+            for tile, side, smem in (
+                    (cols, n2, lambda t: fs.fft_smem_bytes(n1, t | 1, 16)),
+                    (rows, n1, lambda t: fs.fft_smem_bytes(t, n2 | 1, 16))):
+                assert tile >= 8 and tile & (tile - 1) == 0, n
+                assert smem(tile) <= half, n
+                assert tile >= side or smem(2 * tile) > half, n
+            assert fs.fft_pitch(cols, n1, 16) == cols | 1
+            assert fs.fft_pitch(n2, rows, 16) == n2 | 1
+        else:
+            panel = 8 * fs.n_tiles(n1, n2)
+            for tile, plane in ((cols, n1 * fs.plane_pitch(cols)),
+                                (rows, rows * fs.plane_pitch(n2))):
+                assert tile % panel == 0 and \
+                    (tile // panel) & (tile // panel - 1) == 0, n
+                assert fs.product_smem_bytes(n1, n2, 0, 16) + plane * 16 \
+                    <= half, n
+    assert not fs.fft_body(*ops.choose_factors(128 * 127))
     assert ops.pass_tiles(128, 128, 16) == (32, 32)
+
+
+#: every split the reference's rule gives up to the cap, by body
+SPLITS = sorted({ops.choose_factors(n) for n in range(2, 128 * 128 + 1)
+                 if ops.feasible(n, torch.complex64)})
+FFT_SPLITS = [s for s in SPLITS if fs.fft_body(*s)]
+
+
+def _smooth7(m: int) -> bool:
+    for p in (2, 3, 5, 7):
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
+def test_body_choice_is_seven_smoothness():
+    """The FFT body exactly where both sides are 7-smooth; ``ops.plain``
+    takes that body's model, and the product body's elsewhere (19 x 19,
+    ESTIMATE's pick at P14)."""
+    for n1, n2 in SPLITS:
+        assert fs.fft_body(n1, n2) == (_smooth7(n1) and _smooth7(n2))
+    assert fs.fft_body(*ops.choose_factors(4096))
+    assert fs.fft_body(*ops.choose_factors(945))
+    assert not fs.fft_body(*ops.choose_factors(361))
+    assert not fs.fft_body(*ops.choose_factors(128 * 127))
+    x = torch.from_numpy(rand_c((2, 361), "float", seed=361))
+    t = ops.make_tables(361, False, torch.complex64, "cpu")
+    assert torch.equal(ops.plain(x, t, False),
+                       ref.apply_fourstep(x, t.w1, t.w2, t.t))
+
+
+def test_side_radices_cover_every_side():
+    """Every side of an FFT-body split runs as one to three register
+    passes whose radices multiply to it; a side of at most 16 points that
+    is a register size is one pass; 64 = 8 x 8 and 128 = 16 x 8."""
+    for m in sorted({m for s in FFT_SPLITS for m in s}):
+        r = fs.side_radices(m)
+        assert 1 <= len(r) <= fs.MAX_PASSES and int(np.prod(r)) == m, m
+        assert set(r) <= set(fs.FFT_RADICES), m
+        if m in fs.FFT_RADICES:
+            assert r == (m,)
+    assert fs.side_radices(64) == (8, 8)
+    assert fs.side_radices(128) == (16, 8)
+    assert fs.side_radices(125) == (5, 5, 5)
+
+
+def test_kernel_instantiates_every_radix():
+    """``csrc/fft4step.cu``'s ``FFT4_RADICES`` (the cases of each pass's
+    switch) are ``FFT_RADICES``, and every radix the host can ask for is
+    one of them; its pass and thread constants are the host's."""
+    src = (_build.CSRC / "fft4step.cu").read_text()
+    body = src[src.index("#define FFT4_RADICES(X)"):]
+    body = body[:body.index("\n\n")]
+    listed = tuple(int(m) for m in re.findall(r"X\((\d+)\)", body))
+    assert listed == fs.FFT_RADICES
+    asked = {f for s in FFT_SPLITS for m in s for f in fs.side_radices(m)}
+    assert asked <= set(listed)
+    for name, value in (("kSidePasses", fs.MAX_PASSES),
+                        ("kFftThreads", fs.FFT_THREADS),
+                        ("kFftWideThreads", fs.FFT_WIDE_THREADS),
+                        ("kFftMinBlocksF", fs.FFT_MIN_BLOCKS[8]),
+                        ("kFftMinBlocksD", fs.FFT_MIN_BLOCKS[16]),
+                        ("kFftRoots", None)):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        assert m, name
+        if value is not None:
+            assert int(m.group(1)) == value, name
+    assert "4 * 128" in re.search(r"constexpr int kFftRoots = ([^;]+);",
+                                  src).group(1)
+    assert fs.FFT_ROOTS == 4 * 128
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_fft_body_plain_matches_product_plain_at_every_split(chunk):
+    """The FFT body's plain model (register passes, T from its two root
+    tables, the digit-reversed store) against the product body's plain
+    version on the same plan, at every 7-smooth split up to 16384, on
+    two complex128 rows (a quarter of the splits per case), the forward
+    and the inverse at every other split."""
+    rng = np.random.default_rng(chunk)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # hundreds of small products: one thread
+    try:
+        for i, (n1, n2) in enumerate(FFT_SPLITS[chunk::4]):
+            n = n1 * n2
+            inverse = i % 2 == 1
+            x = torch.from_numpy(rng.standard_normal((2, n))
+                                 + 1j * rng.standard_normal((2, n)))
+            t = ops.make_tables(n, inverse, torch.complex128, "cpu")
+            got = ref.apply_fourstep_fft(x, t.roots, n1, n2, inverse)
+            want = ref.apply_fourstep(x, t.w1, t.w2, t.t)
+            want = want / n if inverse else want
+            assert rel_l2(got.numpy(), want.numpy()) <= TOL["double"], \
+                (n1, n2, inverse)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_frequencies_are_the_digit_reversal():
+    """The frequency at each position after a side's passes: a
+    permutation, the identity for one pass, and for 64 = 8 x 8 position
+    8 a + b holding frequency a + 8 b."""
+    for m in (1, 7, 16, 27, 64, 100, 125, 128):
+        f = ref.frequencies(m)
+        assert sorted(f) == list(range(m))
+        if len(fs.side_radices(m)) == 1:
+            assert list(f) == list(range(m))
+    f = ref.frequencies(64)
+    assert all(f[8 * a + b] == a + 8 * b for a in range(8) for b in range(8))
+
+
+def test_pair_store_partner_holds_the_next_frequency():
+    """The rule of the pair stores that ``profile_fourstep.py`` builds
+    into a variant of the row pass: on a side of m points, m a multiple of
+    32, whose first radix f0 is even and d = m / f0 a power of two under
+    32, position r holds an even frequency exactly where bit d of r is
+    clear, and r ^ d holds the next one; P3's, P10's to P12's and D1's n1
+    sides (64, 128) are such."""
+    sides = [m for m in range(32, 129, 32) if _smooth7(m)]
+    used = []
+    for m in sides:
+        f0 = fs.side_radices(m)[0]
+        d = m // f0
+        if f0 % 2 or d >= 32 or d & (d - 1):
+            continue
+        used.append(m)
+        f = ref.frequencies(m)
+        r = np.arange(m)
+        assert ((f % 2 == 0) == ((r & d) == 0)).all(), m
+        assert (f[r ^ d] == f ^ 1).all(), m
+    assert {64, 128} <= set(used)
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_fft_body_tiles_fit(precision):
+    """The FFT body's default tile fits one block at every split (its
+    plane at ``fft_pitch``), and ``FFT_MIN_BLOCKS`` of them an SM unless
+    it is one signal; every tile the product body's plane fits fits it
+    too (``one_block`` and the planner's tiles hold for both bodies); at
+    P3, P5, P7, P4's packed axis and the long sides it is the card's
+    fastest tile or next to it."""
+    itemsize = 8 if precision == "float" else 16
+    per_sm = fs.SM_SMEM_BYTES // fs.FFT_MIN_BLOCKS[itemsize] - 1024
+    for n1, n2 in FFT_SPLITS:
+        if not ops.one_block(n1, n2, itemsize):
+            continue
+        tile = ops.default_tile_b(n1, n2, 1 << 20, itemsize)
+        assert 1 <= tile <= fs.MAX_TILE_B
+        assert fs.smem_bytes(n1, n2, tile, itemsize) <= ops.SMEM_LIMIT_BYTES
+        assert tile == 1 or fs.smem_bytes(n1, n2, tile, itemsize) <= per_sm
+        assert ops.default_tile_b(n1, n2, 3, itemsize) <= 3
+        for t in (1, 8, 16, tile):
+            if fs.product_smem_bytes(n1, n2, t, itemsize) \
+                    <= ops.SMEM_LIMIT_BYTES:
+                assert fs.smem_bytes(n1, n2, t, itemsize) \
+                    <= ops.SMEM_LIMIT_BYTES
+    want = ({(4096, 16384): 2, (945, 65536): 9, (16384, 4096): 1,
+             (8192, 8192): 1, (1536, 3072): 1}
+            if itemsize == 8 else {(64, 524288): 64})
+    for (n, rows), tile in want.items():
+        assert ops.default_tile_b(*ops.choose_factors(n), rows,
+                                  itemsize) == tile, n
+    assert fs.fft_threads(128, 128, 1, 8) == fs.FFT_WIDE_THREADS
+    assert fs.fft_threads(64, 64, 2, 8) == fs.FFT_THREADS
+
+
+@pytest.mark.parametrize("n,rows,itemsize", [(4096, 16384, 8),
+                                              (945, 65536, 8),
+                                              (64, 524288, 16)])
+def test_fft_body_tile_follows_the_card(n, rows, itemsize):
+    """The default tile is planned for the device's SMs and shared memory
+    (``card_shape``): the H100 SXM's for a CPU tensor or no device; more
+    SMs leave each block fewer signals of the same batch, less shared
+    memory an SM fewer signals a block, and the tile stays at least
+    one."""
+    n1, n2 = ops.choose_factors(n)
+    h100 = (fs.CARD_SMS, fs.SM_SMEM_BYTES)
+    assert ops.card_shape(None) == h100
+    assert ops.card_shape(torch.device("cpu")) == h100
+    tile = ops.default_tile_b(n1, n2, rows, itemsize)
+    assert tile == ops.default_tile_b(n1, n2, rows, itemsize,
+                                      torch.device("cpu"))
+    assert tile == fs.fft_tile_b(n1, n2, rows, itemsize, *h100)
+    many = fs.fft_tile_b(n1, n2, rows, itemsize, 8 * fs.CARD_SMS,
+                         fs.SM_SMEM_BYTES)
+    small = fs.fft_tile_b(n1, n2, rows, itemsize, fs.CARD_SMS,
+                          fs.SM_SMEM_BYTES // 4)
+    assert 1 <= many <= tile and 1 <= small <= tile
+    assert many < tile or tile == 1
+    per_sm = fs.FFT_MIN_BLOCKS[itemsize]
+    assert small == 1 or fs.smem_bytes(n1, n2, small, itemsize) \
+        <= fs.SM_SMEM_BYTES // 4 // per_sm - 1024
 
 
 @pytest.mark.parametrize("n", [16384, 13824])
@@ -179,8 +393,11 @@ def _reference_planes(n, inverse, precision):
 
 
 # (n, reference tile): a padded batch (5 rows in tiles of 2 or 8) and an
-# exact one (tile 1); square, ragged-split and radix357 lengths
-CASES = [(4, 2), (12, 8), (60, 2), (100, 1), (256, 2), (945, 8), (1024, 2)]
+# exact one (tile 1); square, ragged-split and radix357 lengths up to
+# P3's 4096 (the FFT body's plain model), and 361 = 19 x 19 (the product
+# body's)
+CASES = [(4, 2), (12, 8), (60, 2), (100, 1), (256, 2), (361, 2), (945, 8),
+         (1024, 2), (4096, 1)]
 
 
 @pytest.mark.parametrize("precision", ["float", "double"])
