@@ -1,0 +1,6 @@
+"""``setup_s``: from the process's start to the first timed pair (host
+clock)."""
+
+
+def read(run):
+    return run.setup_s
